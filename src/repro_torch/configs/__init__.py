@@ -1,0 +1,26 @@
+"""Architecture registry of the port: the attention-only configs whose
+control step and decode path this package runs."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (GLOBAL_WINDOW, ActionConfig,
+                                      ModelConfig, VisionConfig)
+
+_MODULES = {
+    "qwen1.5-0.5b": "qwen15_05b",
+    "smollm-135m": "smollm_135m",
+    "molmoact-7b": "molmoact_7b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choices: {sorted(_MODULES)} "
+                       "(the other configs come with ROADMAP item 12)")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+__all__ = ["ActionConfig", "GLOBAL_WINDOW", "ModelConfig", "VisionConfig",
+           "get_config"]

@@ -1,0 +1,69 @@
+"""The VLA control step of the port: vision encode -> generation prefill ->
+CoT decode -> discrete action-token decode (``repro.core.vla`` in
+PyTorch). The phases are the public functions of ``models.model``, so a
+caller can time each one on its own."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models.layers import ModelOptions
+
+
+@dataclass
+class VLAOutput:
+    cot_tokens: torch.Tensor                 # [B, n_cot] reasoning trace
+    action_tokens: Optional[torch.Tensor]    # [B, n_action] (discrete mode)
+    trajectory: Optional[torch.Tensor]       # [B, horizon, action_dim] (dit)
+    phase_tokens: Dict[str, int]
+
+
+def decode_tokens(cfg: ModelConfig, opts: ModelOptions, params, first_token,
+                  caches, start_index: int, n_steps: int, *, device="cuda"):
+    """Greedy decode of ``n_steps`` tokens. Returns (tokens [B, n_steps],
+    last_token, caches)."""
+    return M.decode_loop(cfg, opts, params, first_token, caches, start_index,
+                         n_steps, device=device)
+
+
+def control_step_lengths(cfg: ModelConfig, n_text: int):
+    """(prompt length, action tokens, cache length) of one control step
+    with ``n_text`` instruction tokens."""
+    a = cfg.action
+    n_vis = cfg.vision.num_tokens if cfg.vision else 0
+    n_act = a.num_action_tokens if a and a.mode == "discrete" else 0
+    prompt = n_vis + n_text
+    return prompt, n_act, prompt + cfg.n_cot_tokens + n_act + 1
+
+
+def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
+                     max_seq: Optional[int] = None, *,
+                     device="cuda") -> VLAOutput:
+    """One full control step for a VLA observation batch.
+
+    batch: {'tokens': [B, n_prompt] instruction, and 'patches': [B,T,e]
+    image or 'prefix': [B,T,d_model] from ``M.encode_vision``}.
+    """
+    dev = resolve_device(device)
+    a = cfg.action
+    if a is not None and a.mode != "discrete":
+        raise NotImplementedError("the DiT action head is ROADMAP item 4")
+    prompt, n_act, total = control_step_lengths(cfg, len(batch["tokens"][0]))
+    logits, caches = M.prefill(cfg, opts, params, batch, max_seq or total,
+                               device=dev)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    cot, tok, caches = decode_tokens(cfg, opts, params, tok, caches, prompt,
+                                     cfg.n_cot_tokens, device=dev)
+    action_tokens, _, caches = decode_tokens(
+        cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
+        n_act or 24, device=dev)
+    n_vis = cfg.vision.num_tokens if cfg.vision else 0
+    return VLAOutput(
+        cot_tokens=cot, action_tokens=action_tokens, trajectory=None,
+        phase_tokens={"vision": n_vis, "prompt": prompt,
+                      "cot": cfg.n_cot_tokens, "action": n_act})

@@ -1,0 +1,338 @@
+"""Layer math of the port (dense-cache subset of ``repro.models.layers``):
+norms, RoPE, attention (dense / banded chunk / decode), the routed
+attention sub-layer, and the MLP.
+
+Everything is a function over a parameter dict in the reference's layout.
+Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
+reference, the cache write path updates the cache tensors in place.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig
+from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      slot_index)
+
+NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class ModelOptions:
+    """Runtime knobs the port reads. Whether an attention core runs as a
+    CUDA kernel or as its plain version follows from the tensors' device."""
+    dense_attn_threshold: int = 2048   # fresh attention runs dense up to this
+    prefill_band: int = 32             # key block of the banded chunk core:
+    #                                    one stack-wide absolute partition,
+    #                                    which keeps results independent of
+    #                                    how a prompt is chunked
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / small pieces
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def layer_norm(x, w, b, eps=1e-6):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return (((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+            * w.to(x.dtype) + b.to(x.dtype))
+
+
+def apply_norm(p, x, cfg: ModelConfig, prefix: str):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p[prefix + "_w"], p[prefix + "_b"], cfg.norm_eps)
+    return rms_norm(x, p[prefix + "_w"], cfg.norm_eps)
+
+
+def rope(x, positions, theta: float):
+    """Llama-style rotary embedding. x [..., S, H, hd]; positions [..., S]."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., :, None].float() * freq          # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]               # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def _act(h, g, kind: str):
+    if kind == "silu":
+        return F.silu(g) * h
+    if kind == "gelu":
+        return F.gelu(g, approximate="tanh") * h
+    return F.gelu(h, approximate="tanh")      # gelu_plain (no gate)
+
+
+def _proj(x, w):
+    """x [..., d] times a weight [d, ...] -> [..., *w.shape[1:]]."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                   *w.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# attention cores
+# ---------------------------------------------------------------------------
+
+def _grouped_scores(q, k):
+    """q [B,Sq,N,h], k [B,Sk,K,h] -> logits [B,K,G,Sq,Sk]; query head n
+    uses KV head n // G."""
+    B, Sq, N, h = q.shape
+    K = k.shape[2]
+    return torch.einsum("bskgh,btkh->bkgst", q.reshape(B, Sq, K, N // K, h),
+                        k.to(q.dtype))
+
+
+def _grouped_out(w, v):
+    """w [B,K,G,Sq,Sk], v [B,Sk,K,h] -> [B,Sq,N,h]."""
+    B, K, G, Sq, _ = w.shape
+    out = torch.einsum("bkgst,btkh->bskgh", w, v.to(w.dtype))
+    return out.reshape(B, Sq, K * G, v.shape[-1])
+
+
+def attention_dense(q, k, v, q_pos, k_pos, window: int, causal: bool = True):
+    """Plain masked attention. q [B,Sq,N,h]; k,v [B,Sk,K,h]; positions 1-D."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = _grouped_scores(q * scale, k).float()
+    mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window != GLOBAL_WINDOW:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _grouped_out(w, v)
+
+
+def band_len(live: int, band: int, limit: int) -> int:
+    """Key-axis length of a banded chunk dispatch: the live prefix rounded
+    up to a whole key block, clamped to the cache capacity."""
+    return min(-(-live // band) * band, limit)
+
+
+def live_bound(live_len, limit: int) -> int:
+    """One key-axis bound from ``live_len``: None -> the whole view; an int
+    as it is; a per-slot tuple/list -> its max."""
+    if live_len is None:
+        return limit
+    if isinstance(live_len, (tuple, list)):
+        return max(live_len) if live_len else limit
+    return live_len
+
+
+def attention_chunk_banded(q, k_cache, v_cache, index, window: int,
+                           band: int):
+    """Banded chunk-prefill core in plain PyTorch (the blockwise twin of
+    the chunk-prefill kernel): S queries at ``index .. index+S-1`` against
+    a cache view [B,L,K,h], an online softmax over fixed ``band``-sized key
+    blocks on the absolute partition. A block fully masked for a row is an
+    exact no-op for it. Returns [B,S,N,h] in q's dtype."""
+    B, S, N, h = q.shape
+    L, K = k_cache.shape[1], k_cache.shape[2]
+    G = N // K
+    Lp = -(-L // band) * band
+    if Lp != L:             # padded lanes sit past every query: masked
+        pad = (0, 0, 0, 0, 0, Lp - L)
+        k_cache, v_cache = F.pad(k_cache, pad), F.pad(v_cache, pad)
+    scale = 1.0 / math.sqrt(h)
+    qg = (q * scale).reshape(B, S, K, G, h)
+    idx = slot_index(index, B, q.device).long()
+    q_pos = idx[:, None] + torch.arange(S, device=q.device)      # [B, S]
+    m = torch.full((B, K, G, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, K, G, S), device=q.device)
+    acc = torch.zeros((B, K, G, S, h), device=q.device)
+    for jk in range(Lp // band):
+        kj = k_cache[:, jk * band:(jk + 1) * band]
+        vj = v_cache[:, jk * band:(jk + 1) * band]
+        kpos = jk * band + torch.arange(band, device=q.device)
+        s = torch.einsum("bskgh,btkh->bkgst", qg, kj.to(qg.dtype)).float()
+        mask = kpos[None, None] <= q_pos[..., None]               # [B,S,band]
+        if window != GLOBAL_WINDOW:
+            mask &= (q_pos[..., None] - kpos[None, None]) < window
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * mask[:, None, None]
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgst,btkh->bkgsh", p,
+                                                   vj.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, N, h).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, index, window: int):
+    """Single-token decode against a cache, in plain PyTorch (one masked
+    softmax). q [B,1,N,h]; cache [B,Smax,K,h]; index scalar or [B]."""
+    B, _, N, h = q.shape
+    Smax, K = k_cache.shape[1], k_cache.shape[2]
+    G = N // K
+    qg = (q * (1.0 / math.sqrt(h))).reshape(B, K, G, h)
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.to(qg.dtype)).float()
+    kpos = torch.arange(Smax, device=q.device)
+    idx = slot_index(index, B, q.device).long()
+    valid = kpos[None] <= idx[:, None]                           # [B, Smax]
+    if window != GLOBAL_WINDOW:
+        valid &= (idx[:, None] - kpos[None]) < window
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", w, v_cache.to(w.dtype))
+    return out.reshape(B, 1, N, h)
+
+
+def update_cache(cache, new, index: int):
+    """Write ``new`` [B,S,K,h] into ``cache`` [B,Smax,K,h] at position
+    ``index`` (an int shared by every slot), in place."""
+    cache[:, index:index + new.shape[1]] = new.to(cache.dtype)
+    return cache
+
+
+def update_cache_chunk(cache, new, index):
+    """Write ``new`` [B,C,K,h] into ``cache`` [B,Smax,K,h] at positions
+    ``index .. index+C-1`` (``index`` int or per-slot [B] tensor), in
+    place; positions are computed on the device, so a device index costs
+    no host sync."""
+    B, C = new.shape[:2]
+    pos = (slot_index(index, B, cache.device).long()[:, None]
+           + torch.arange(C, device=cache.device)[None])          # [B, C]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, pos] = new.to(cache.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# unified attention dispatch
+# ---------------------------------------------------------------------------
+
+def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
+                    opts: ModelOptions, causal: bool = True) -> str:
+    """The routing decision of every attention dispatch of the port:
+    (mode x layout x shape) -> core name. Modes: ``decode`` (S == 1
+    against a cache), ``chunk`` (S > 1 against a live cache view),
+    ``fresh`` (attention over exactly the new rows). Only the dense layout
+    is ported; whether ``decode_flash``/``chunk_flash`` launch a kernel or
+    run its plain version follows from the tensors' device."""
+    if layout not in ("dense", "none"):
+        raise NotImplementedError(f"{layout!r} caches are ROADMAP items 6 "
+                                  "(paged) and 12 (ring)")
+    if mode == "decode":
+        return "decode_flash"
+    if mode == "chunk":
+        return "chunk_flash"
+    if mode != "fresh":
+        raise NotImplementedError(f"{mode!r} attention is ROADMAP item 12")
+    if Skv <= opts.dense_attn_threshold or not causal:
+        return "fresh_dense"
+    raise NotImplementedError("fresh causal attention past "
+                              "dense_attn_threshold needs the flash kernel "
+                              "(ROADMAP kernel item 5)")
+
+
+def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
+                       window: int, causal: bool = True, q_pos=None,
+                       k_pos=None, index=None, live_len=None):
+    """Execute one routed attention core. ``k``/``v`` are the new rows
+    (fresh) or the dense cache [B, Smax, K, h] (decode/chunk). ``index`` is
+    the decode position / chunk start (int or per-slot [B]); ``live_len``
+    bounds the chunk cores' key axis (see ``band_len``). ``decode_dense``
+    and ``chunk_banded`` are the plain blockwise cores, kept as the
+    reference's fallbacks."""
+    if route == "decode_flash":
+        return decode_attention(q[:, 0], k, v, index, window=window)[:, None]
+    if route == "decode_dense":
+        return attention_decode(q, k, v, index, window)
+    if route in ("chunk_flash", "chunk_banded"):
+        band = opts.prefill_band
+        smax = k.shape[1]
+        Lb = band_len(live_bound(live_len, smax), band, smax)
+        kb, vb = k[:, :Lb], v[:, :Lb]
+        if route == "chunk_flash":
+            return chunk_prefill_attention(q, kb, vb, index, window=window,
+                                           bk=band)
+        return attention_chunk_banded(q, kb, vb, index, window, band)
+    if route == "fresh_dense":
+        q_pos = q_pos[0] if q_pos.dim() == 2 else q_pos
+        k_pos = k_pos[0] if k_pos.dim() == 2 else k_pos
+        return attention_dense(q, k, v, q_pos, k_pos, window, causal)
+    raise NotImplementedError(f"attention route {route!r} is not ported "
+                              "(see ROADMAP)")
+
+
+def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
+              positions, cache=None, cache_index=None, causal: bool = True,
+              live_len=None):
+    """Attention sub-layer: projections + RoPE + cache write path + the
+    routed core + output projection. ``cache`` is a dense (k, v) pair of
+    [B, Smax, K, h] tensors, written in place at ``cache_index``; S == 1 is
+    decode, a chunk filling the whole buffer from 0 attends within itself,
+    any other S > 1 runs the banded chunk core against the live cache.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        smax = cache[0].shape[1]
+        if window != GLOBAL_WINDOW and smax == window:
+            raise NotImplementedError("ring-buffer caches are ROADMAP "
+                                      "item 12")
+        if S > smax:
+            raise ValueError(f"prefill length {S} exceeds cache {smax}")
+        update_cache_chunk(cache[0], k, cache_index)
+        update_cache_chunk(cache[1], v, cache_index)
+        whole = (isinstance(cache_index, int) and cache_index == 0
+                 and S == smax)
+        mode = "decode" if S == 1 else ("fresh" if whole else "chunk")
+        route = attention_route(mode, "dense", S=S, Skv=S, window=window,
+                                opts=opts, causal=causal)
+        if mode == "fresh":
+            out = run_attention_core(route, q, k, v, opts=opts, window=window,
+                                     causal=causal, q_pos=positions,
+                                     k_pos=positions)
+        else:
+            out = run_attention_core(route, q, cache[0], cache[1], opts=opts,
+                                     window=window, index=cache_index,
+                                     live_len=live_len)
+    else:
+        route = attention_route("fresh", "none", S=S, Skv=S, window=window,
+                                opts=opts, causal=causal)
+        out = run_attention_core(route, q, k, v, opts=opts, window=window,
+                                 causal=causal, q_pos=positions,
+                                 k_pos=positions)
+    wo = p["wo"]
+    out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp(p, x, cfg: ModelConfig):
+    h = x @ p["wi"]
+    if cfg.act in ("silu", "gelu"):
+        h = _act(h, x @ p["wg"], cfg.act)
+    else:
+        h = _act(h, None, cfg.act)
+    return h @ p["wo_mlp"]

@@ -1,0 +1,178 @@
+"""Top-level model API of the port, driven entirely by ModelConfig.
+
+    template = model_template(cfg)
+    params   = init_params(cfg, generator, device=...)   # or params.from_jax
+    logits   = forward(cfg, opts, params, batch)
+    logits, caches = prefill(cfg, opts, params, batch, max_seq)
+    logits, caches = decode_step(cfg, opts, params, tok, caches, index)
+
+``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
+tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
+Every entry point runs on ``device`` (default ``"cuda"``); the parameters
+and caches must already live there. Caches are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import params as P
+from repro_torch.models import stacks
+from repro_torch.models.layers import ModelOptions, apply_norm
+from repro_torch.models.stacks import init_caches  # re-export
+
+__all__ = ["model_template", "forward", "prefill", "decode_step",
+           "decode_loop", "encode_vision", "init_params", "init_caches",
+           "ModelOptions"]
+
+
+def model_template(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    if cfg.pos != "rope" or cfg.encoder is not None:
+        raise NotImplementedError(f"{cfg.name}: absolute positions and "
+                                  "encoder-decoder models are ROADMAP "
+                                  "item 12")
+    if cfg.action is not None and cfg.action.mode == "dit":
+        raise NotImplementedError("the DiT action head is ROADMAP item 4")
+    t: Dict = {
+        "embed": P.PSpec((cfg.vocab_size, d), fan_in=d),
+        "decoder": stacks.decoder_template(cfg),
+    }
+    t.update(stacks._norm_template(cfg, "final_norm", d))
+    if not cfg.tie_embeddings:
+        t["lm_head"] = P.PSpec((cfg.vocab_size, d), fan_in=d)
+    if cfg.vision is not None:
+        t["vision"] = stacks.tower_template(cfg.vision, d)
+    return t
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cuda"):
+    """Seeded random parameters for ``cfg`` on ``device``."""
+    return P.init_params(model_template(cfg), generator, dtype, device)
+
+
+def _on(x, dev, dtype=None):
+    """An input (numpy array, list or tensor) as a tensor on ``dev``."""
+    return torch.as_tensor(x, device=dev, dtype=dtype)
+
+
+def _check_params(params, dev):
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"parameters are on {params['embed'].device}, "
+                         f"the call asked for {dev}")
+
+
+def _embed_tokens(params, tokens):
+    return params["embed"][tokens]
+
+
+def _encode_context(params, batch, cfg: ModelConfig, dev):
+    """The vision prefix: ``batch['prefix']`` as given, else the tower over
+    ``batch['patches']``, else None."""
+    if "prefix" in batch:
+        return _on(batch["prefix"], dev)
+    if cfg.vision is None:
+        return None
+    if "patches" not in batch:
+        raise KeyError("vision model needs batch['patches'] "
+                       "(or a precomputed batch['prefix'])")
+    patches = _on(batch["patches"], dev, params["vision"]["in_proj"].dtype)
+    return stacks.apply_tower(params["vision"], patches, cfg.vision)
+
+
+def encode_vision(cfg: ModelConfig, opts: ModelOptions, params, patches, *,
+                  device="cuda"):
+    """Vision tower alone: patches [B,T,e] -> prefix embeds [B,T,d_model],
+    which ``prefill``/``forward`` accept as ``batch['prefix']``."""
+    dev = resolve_device(device)
+    if cfg.vision is None:
+        raise ValueError("encode_vision requires a vision tower")
+    _check_params(params, dev)
+    patches = _on(patches, dev, params["vision"]["in_proj"].dtype)
+    return stacks.apply_tower(params["vision"], patches, cfg.vision)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = apply_norm(params, x, cfg, "final_norm")
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.T                                     # head [V, D]
+
+
+def _sequence(params, batch, cfg, dev):
+    """Token embeddings for full-sequence passes (vision prefix folded in)
+    and their positions [B, S]."""
+    tokens = _on(batch["tokens"], dev, torch.long)
+    prefix = _encode_context(params, batch, cfg, dev)
+    x = _embed_tokens(params, tokens)
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=dev).expand(B, S)
+    return x, positions
+
+
+def forward(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
+            device="cuda"):
+    """Full-sequence forward -> logits [B, S_total, V]."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    x, positions = _sequence(params, batch, cfg, dev)
+    x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions)
+    return _logits(params, x, cfg)
+
+
+def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
+            max_seq: int, cache_dtype=torch.bfloat16, *, device="cuda"):
+    """Process the prompt from position 0, filling a fresh dense cache
+    sized ``max_seq``. Returns (last-position logits [B,1,V], caches).
+    Prefill from a later position is ROADMAP item 8."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    x, positions = _sequence(params, batch, cfg, dev)
+    caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype, device=dev)
+    x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
+                                     positions, caches=caches, cache_index=0,
+                                     live_len=x.shape[1])
+    return _logits(params, x[:, -1:], cfg), caches
+
+
+def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
+                caches, index, *, device="cuda"):
+    """One autoregressive step. token [B,1]; index: position of the token,
+    an int or a per-slot [B] tensor. Returns (logits [B,1,V], caches)."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    token = _on(token, dev, torch.long)
+    B = token.shape[0]
+    positions = (torch.as_tensor(index, device=dev, dtype=torch.long)
+                 .reshape(-1, 1).expand(B, 1))
+    x = _embed_tokens(params, token)
+    x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
+                                     positions, caches=caches,
+                                     cache_index=index)
+    return _logits(params, x, cfg), caches
+
+
+def decode_loop(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
+                index, n_steps: int, *, device="cuda"):
+    """``n_steps`` greedy decode steps. The position advances on the device
+    and tokens stay there, so the loop never waits on the host. index: int
+    start position or per-slot [B]. Returns (tokens [B, n_steps],
+    last_token [B,1], caches)."""
+    dev = resolve_device(device)
+    tok = _on(token, dev, torch.long)
+    B = tok.shape[0]
+    idx = torch.as_tensor(index, device=dev, dtype=torch.int32) \
+        .reshape(-1).expand(B).clone()
+    toks = torch.empty(B, n_steps, dtype=torch.long, device=dev)
+    for i in range(n_steps):
+        logits, caches = decode_step(cfg, opts, params, tok, caches, idx,
+                                     device=dev)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks[:, i] = tok[:, 0]
+        idx += 1
+    return toks, tok, caches

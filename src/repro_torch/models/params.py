@@ -1,0 +1,125 @@
+"""Parameter templates, seeded initialisation and the bridge from the JAX
+reference's parameters.
+
+A template is a nested dict whose leaves are ``PSpec`` (shape + init); the
+parameters are the same nested dict with tensors at the leaves, in the
+reference's layout (stacked layers on a leading axis), so a parameter tree
+of the reference maps onto the port leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+@dataclass(frozen=True)
+class PSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"       # normal | zeros | ones | pos
+    fan_in: Optional[int] = None
+    stacked: bool = False      # leading axis is a stack of layers
+
+
+def stack(template, n: int):
+    """Prepend a stacked-layer axis to every leaf of a layer template."""
+    return {k: (stack(v, n) if isinstance(v, dict) else
+                dataclasses.replace(v, shape=(n,) + v.shape, stacked=True))
+            for k, v in template.items()}
+
+
+def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(path, leaf) pairs of a nested dict, in sorted key order (the order
+    in which the reference flattens its pytrees)."""
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from leaves(v, path)
+        else:
+            yield path, v
+
+
+def set_leaf(tree: Dict, path: str, value) -> None:
+    """Store ``value`` at a "/"-joined ``path`` of a nested dict."""
+    *parents, last = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[last] = value
+
+
+def _scale(spec: PSpec) -> float:
+    if spec.init == "pos":
+        return 0.02
+    fan_in = spec.fan_in
+    if fan_in is None:
+        fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def _init_leaf(spec: PSpec, gen, dtype, device):
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init not in ("normal", "pos"):
+        raise ValueError(f"init {spec.init!r} is not used by this port")
+    scale = _scale(spec)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    # a stacked leaf is drawn one layer at a time, so no f32 copy of a
+    # whole stack exists (stacked wi of molmoact-7b is 7.6 GB in f32)
+    for part in (out.unbind(0) if spec.stacked else (out,)):
+        part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                               dtype=torch.float32) * scale)
+    return out
+
+
+def init_params(template, generator: torch.Generator,
+                dtype=torch.float32, device="cuda"):
+    """Random parameters for a template: normal * 1/sqrt(fan_in), ``ones``,
+    ``zeros``, or normal * 0.02 for ``pos``, drawn leaf by leaf on
+    ``device`` from ``generator`` (which must live on that device). The
+    draws differ from the reference's ``jax.random``; use ``from_jax`` for
+    the reference's own weights."""
+    dev = resolve_device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    params: Dict = {}
+    for path, spec in leaves(template):
+        set_leaf(params, path, _init_leaf(spec, generator, dtype, dev))
+    return params
+
+
+def from_jax(template, tree, dtype=None, device="cuda"):
+    """Map the reference's parameter pytree (a nested dict of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) onto the port's parameters.
+    Every leaf of ``tree`` must be consumed and every leaf of ``template``
+    filled, with equal shapes; anything else raises."""
+    dev = resolve_device(device)
+    src = dict(leaves(tree))
+    params: Dict = {}
+    for path, spec in leaves(template):
+        if path not in src:
+            raise KeyError(f"reference tree has no leaf {path!r}")
+        arr = np.asarray(src.pop(path))
+        if arr.dtype.kind != "f":          # bfloat16 arrives as a numpy
+            arr = arr.astype(np.float32)   # extension type
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: reference shape {arr.shape}, port "
+                             f"shape {spec.shape}")
+        t = torch.from_numpy(np.array(arr))       # a writable copy
+        set_leaf(params, path, t.to(device=dev, dtype=dtype or t.dtype))
+    if src:
+        raise KeyError(f"reference leaves the port does not use: "
+                       f"{sorted(src)}")
+    return params
+
+
+def param_count(template) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in leaves(template))

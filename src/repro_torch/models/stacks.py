@@ -1,0 +1,239 @@
+"""Decoder stacks: templates and the loop over layers (the port of
+``repro.models.stacks`` for attention + dense-FFN stacks, dense caches).
+
+The stack is a repeating pattern of ``period`` sub-layers; parameters of
+the ``L // period`` blocks are stacked on a leading axis, the ``L % period``
+tail layers are kept apart, exactly as in the reference's templates. A
+Python loop over the stacked axis replaces ``lax.scan``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig, VisionConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import PSpec, leaves, set_leaf, stack
+
+
+# ---------------------------------------------------------------------------
+# pattern plan
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SubKind:
+    mixer: str          # 'attn' | 'mamba'
+    ffn: str            # 'dense' | 'moe' | 'moe+dense' | 'none'
+    cross: bool
+    window: int
+
+
+def _kind_for_layer(cfg: ModelConfig, i: int) -> SubKind:
+    mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+    if cfg.family == "ssm" or (mixer == "mamba" and cfg.d_ff == 0
+                               and not cfg.num_experts):
+        ffn = "none"
+    elif cfg.is_moe_layer(i):
+        ffn = "moe+dense" if cfg.dense_residual else "moe"
+    elif cfg.d_ff:
+        ffn = "dense"
+    else:
+        ffn = "none"
+    window = cfg.layer_window(i) if mixer == "attn" else GLOBAL_WINDOW
+    return SubKind(mixer=mixer, ffn=ffn, cross=(cfg.family == "encdec"),
+                   window=window)
+
+
+def stack_plan(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, num_blocks, num_tail_layers)."""
+    period = math.lcm(len(cfg.window_pattern), max(cfg.attn_every, 1),
+                      max(cfg.moe_every, 1))
+    period = min(period, cfg.num_layers)
+    return period, cfg.num_layers // period, cfg.num_layers % period
+
+
+def sub_kinds(cfg: ModelConfig) -> Tuple[SubKind, ...]:
+    period, _, _ = stack_plan(cfg)
+    kinds = tuple(_kind_for_layer(cfg, i) for i in range(period))
+    for i in range(cfg.num_layers):
+        if _kind_for_layer(cfg, i) != kinds[i % period]:
+            raise ValueError(f"{cfg.name}: layer {i} breaks the pattern")
+    return kinds
+
+
+# ---------------------------------------------------------------------------
+# templates
+# ---------------------------------------------------------------------------
+
+def _norm_template(cfg: ModelConfig, prefix: str, d: int) -> Dict[str, PSpec]:
+    t = {prefix + "_w": PSpec((d,), "ones")}
+    if cfg.norm == "layernorm":
+        t[prefix + "_b"] = PSpec((d,), "zeros")
+    return t
+
+
+def attn_template(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, n, k, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = {
+        "wq": PSpec((d, n, h), fan_in=d),
+        "wk": PSpec((d, k, h), fan_in=d),
+        "wv": PSpec((d, k, h), fan_in=d),
+        "wo": PSpec((n, h, d), fan_in=n * h),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = PSpec((n, h), "zeros")
+        t["bk"] = PSpec((k, h), "zeros")
+        t["bv"] = PSpec((k, h), "zeros")
+    return t
+
+
+def mlp_template(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    t = {"wi": PSpec((d, f), fan_in=d), "wo_mlp": PSpec((f, d), fan_in=f)}
+    if cfg.act in ("silu", "gelu"):
+        t["wg"] = PSpec((d, f), fan_in=d)
+    return t
+
+
+def layer_template(cfg: ModelConfig, kind: SubKind) -> Dict[str, PSpec]:
+    if kind.mixer != "attn" or kind.cross or kind.ffn not in ("dense",
+                                                              "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} needs MoE, Mamba or cross-attention layers "
+            "(ROADMAP item 12)")
+    t: Dict[str, PSpec] = {}
+    t.update(_norm_template(cfg, "ln1", cfg.d_model))
+    t.update(attn_template(cfg))
+    if kind.ffn == "dense":
+        t.update(_norm_template(cfg, "ln2", cfg.d_model))
+        t.update(mlp_template(cfg))
+    return t
+
+
+def decoder_template(cfg: ModelConfig) -> Dict:
+    period, nblocks, ntail = stack_plan(cfg)
+    kinds = sub_kinds(cfg)
+    block = {f"sub{j}": layer_template(cfg, kinds[j]) for j in range(period)}
+    t = {"blocks": stack(block, nblocks)}
+    if ntail:
+        t["tail"] = {f"tail{j}": layer_template(cfg, kinds[j])
+                     for j in range(ntail)}
+    return t
+
+
+def tower_template(enc: VisionConfig, d_out: int) -> Dict:
+    """Vision tower (pre-LN MHA + plain-gelu MLP) + projector."""
+    d, n, f = enc.d_model, enc.num_heads, enc.d_ff
+    h = d // n
+    layer = {
+        "ln1_w": PSpec((d,), "ones"),
+        "ln1_b": PSpec((d,), "zeros"),
+        "wq": PSpec((d, n, h), fan_in=d),
+        "wk": PSpec((d, n, h), fan_in=d),
+        "wv": PSpec((d, n, h), fan_in=d),
+        "wo": PSpec((n, h, d), fan_in=d),
+        "ln2_w": PSpec((d,), "ones"),
+        "ln2_b": PSpec((d,), "zeros"),
+        "wi": PSpec((d, f), fan_in=d),
+        "wo_mlp": PSpec((f, d), fan_in=f),
+    }
+    return {
+        "in_proj": PSpec((enc.embed_dim, d), fan_in=enc.embed_dim),
+        "pos": PSpec((enc.num_tokens, d), "pos"),
+        "stack": stack(layer, enc.num_layers),
+        "final_ln_w": PSpec((d,), "ones"),
+        "final_ln_b": PSpec((d,), "zeros"),
+        "out_proj": PSpec((d, d_out), fan_in=d),
+    }
+
+
+# ---------------------------------------------------------------------------
+# application
+# ---------------------------------------------------------------------------
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked parameter or cache dict (views, no copy)."""
+    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
+                   kind: SubKind, positions, cache=None, cache_index=None,
+                   live_len=None):
+    """One pre-norm attention + dense-FFN sub-layer; ``cache`` (a dict with
+    dense ``k``/``v``) is written in place. Returns x."""
+    h = L.apply_norm(p, x, cfg, "ln1")
+    kv = (cache["k"], cache["v"]) if cache is not None else None
+    a, _ = L.attention(p, h, cfg, opts, kind.window, positions, cache=kv,
+                       cache_index=cache_index, live_len=live_len)
+    x = x + a
+    if kind.ffn == "dense":
+        x = x + L.mlp(p, L.apply_norm(p, x, cfg, "ln2"), cfg)
+    return x
+
+
+def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
+                  positions, caches=None, cache_index=None, live_len=None):
+    """Run the decoder stack, layer by layer. ``caches`` (from
+    ``init_caches``) is updated in place. Returns (x, caches)."""
+    period, nblocks, ntail = stack_plan(cfg)
+    kinds = sub_kinds(cfg)
+    layers = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
+               layer_slice(caches["blocks"], i)[f"sub{j}"] if caches else None)
+              for i in range(nblocks) for j in range(period)]
+    layers += [(params["tail"][f"tail{j}"], kinds[j],
+                caches["tail"][f"tail{j}"] if caches else None)
+               for j in range(ntail)]
+    for p, kind, cache in layers:
+        x = apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
+                           cache_index=cache_index, live_len=live_len)
+    return x, caches
+
+
+def apply_tower(params, embeds, enc: VisionConfig):
+    """Vision tower over stubbed frontend embeddings [B,T,embed_dim]."""
+    x = embeds @ params["in_proj"]
+    x = x + params["pos"].to(x.dtype)[None]
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(enc.num_layers):
+        p = layer_slice(params["stack"], i)
+        y = L.layer_norm(x, p["ln1_w"], p["ln1_b"])
+        q, k, v = L._proj(y, p["wq"]), L._proj(y, p["wk"]), L._proj(y, p["wv"])
+        a = L.attention_dense(q, k, v, pos, pos, GLOBAL_WINDOW, causal=False)
+        x = x + a.reshape(*a.shape[:2], -1) @ p["wo"].reshape(-1, x.shape[-1])
+        y = L.layer_norm(x, p["ln2_w"], p["ln2_b"])
+        y = F.gelu(y @ p["wi"], approximate="tanh")
+        x = x + y @ p["wo_mlp"]
+    x = L.layer_norm(x, params["final_ln_w"], params["final_ln_b"])
+    return x @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def cache_template(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
+    """Shape tree of the dense decode cache: per attention sub-layer, K and
+    V buffers [batch, max_seq, K, h] (stacked like the parameters)."""
+    period, nblocks, ntail = stack_plan(cfg)
+    kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    sub = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
+    t = {"blocks": stack({f"sub{j}": sub for j in range(period)}, nblocks)}
+    if ntail:
+        t["tail"] = {f"tail{j}": dict(sub) for j in range(ntail)}
+    return t
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, *, device="cuda"):
+    """Zeroed dense caches (bf16 by default) on ``device``."""
+    dev = resolve_device(device)
+    out: Dict = {}
+    for path, spec in leaves(cache_template(cfg, batch, max_seq)):
+        set_leaf(out, path, torch.zeros(spec.shape, dtype=dtype, device=dev))
+    return out

@@ -1,0 +1,119 @@
+"""The port's attention kernels against the JAX reference.
+
+On the CPU each wrapper runs its plain PyTorch version; it is held to the
+reference's oracle (``ref.py``) and to the Pallas kernel in interpret mode,
+on the same inputs made with numpy. Both frameworks round the caches to
+bf16 the same way (round to nearest even), and q stays f32, so the
+comparisons are f32 at 1e-5. The CUDA kernels themselves are held to the
+plain versions on the card by ``test_torch_gpu.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.chunk_prefill import chunk_prefill_attention as jcp
+from repro.kernels.chunk_prefill import ref as jcref
+from repro.kernels.decode_attention import decode_attention as jda
+from repro.kernels.decode_attention import ref as jdref
+from repro.models import layers as JL
+from repro_torch.kernels.chunk_prefill import ops as cp
+from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.models import layers as TL
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _inputs(seed, q_shape, kv_shape):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(q_shape, dtype=np.float32)
+    k = rng.standard_normal(kv_shape, dtype=np.float32)
+    v = rng.standard_normal(kv_shape, dtype=np.float32)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k, jnp.bfloat16), \
+        jnp.asarray(v, jnp.bfloat16)
+    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k).bfloat16(), \
+        torch.from_numpy(v).bfloat16()
+    return (jq, jk, jv), (tq, tk, tv)
+
+
+def _index(index):
+    if isinstance(index, tuple):
+        return jnp.asarray(index, jnp.int32), torch.tensor(index)
+    return index, index
+
+
+DECODE_CASES = [
+    # B, S, N, K, h, index, window, bk (the Pallas kernel's key block)
+    (2, 48, 4, 2, 16, 0, 0, 16),           # index 0, G=2
+    (2, 45, 4, 2, 16, 44, 0, 16),          # S % bk != 0, last position
+    (2, 45, 14, 2, 16, (3, 40), 0, 16),    # per-slot [B] index, G=7
+    (3, 64, 14, 2, 64, (10, 63, 31), 8, 32),   # window, G=7
+    (1, 40, 2, 2, 128, 25, 0, 32),         # G=1, h=128
+]
+
+
+@pytest.mark.parametrize("B,S,N,K,h,index,window,bk", DECODE_CASES)
+def test_decode_plain_matches_reference(B, S, N, K, h, index, window, bk):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * S + h, (B, N, h), (B, S, K, h))
+    ji, ti = _index(index)
+    got = da.decode_attention(tq, tk, tv, ti, window=window).numpy()
+    oracle = jdref.decode_attention_ref(jq, jk, jv, ji, window=window)
+    pallas = jda(jq, jk, jv, ji, window=window, bk=bk, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    # the second plain version: the einsum decode core of layers
+    core = TL.attention_decode(tq[:, None], tk, tv, ti, window)[:, 0]
+    jcore = JL.attention_decode(jq[:, None], jk, jv, ji, window)[:, 0]
+    np.testing.assert_allclose(core.numpy(), np.asarray(jcore), **TOL)
+    np.testing.assert_allclose(core.numpy(), got, **TOL)
+
+
+CHUNK_CASES = [
+    # B, S, L, N, K, h, index, window
+    (2, 16, 16, 4, 2, 16, 0, 0),           # chunk from 0, G=2
+    (2, 12, 45, 14, 2, 16, 20, 0),         # positioned, L % 32 != 0, G=7
+    (2, 8, 40, 4, 2, 64, (0, 30), 0),      # per-slot [B] starts
+    (1, 24, 70, 14, 2, 16, 40, 10),        # window, G=7
+    (1, 9, 32, 3, 3, 128, 5, 0),           # G=1, h=128
+]
+
+
+@pytest.mark.parametrize("B,S,L,N,K,h,index,window", CHUNK_CASES)
+def test_chunk_plain_matches_reference(B, S, L, N, K, h, index, window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * L + S, (B, S, N, h),
+                                         (B, L, K, h))
+    ji, ti = _index(index)
+    got = cp.chunk_prefill_attention(tq, tk, tv, ti, window=window).numpy()
+    oracle = jcref.chunk_prefill_ref(jq, jk, jv, ji, window=window)
+    pallas = jcp(jq, jk, jv, ji, window=window, bk=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    # the second plain version: the banded blockwise core of layers
+    core = TL.attention_chunk_banded(tq, tk, tv, ti, window, 32)
+    jcore = JL.attention_chunk_banded(jq, jk, jv, ji, window, 32)
+    np.testing.assert_allclose(core.numpy(), np.asarray(jcore), **TOL)
+    np.testing.assert_allclose(core.numpy(), got, **TOL)
+
+
+def test_banded_core_chunking_invariance():
+    """Rows computed in one chunk from 0 and in a later chunk are bit-equal
+    in the port's blockwise core (the contract the CUDA kernel keeps)."""
+    _, (tq, tk, tv) = _inputs(7, (2, 64, 4, 16), (2, 64, 2, 16))
+    whole = TL.attention_chunk_banded(tq, tk, tv, 0, 0, 32)
+    part = TL.attention_chunk_banded(tq[:, 40:], tk, tv, 40, 0, 32)
+    assert torch.equal(whole[:, 40:], part)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "cache_dtype", "bk", "group"])
+def test_wrappers_reject_unsupported_inputs(bad):
+    q = torch.zeros(1, 4, 32 if bad == "head_dim" else 16)
+    kv = torch.zeros(1, 8, 2, q.shape[-1],
+                     dtype=torch.float32 if bad == "cache_dtype"
+                     else torch.bfloat16)
+    if bad == "group":
+        q, kv = torch.zeros(1, 66, 16), torch.zeros(1, 8, 2, 16).bfloat16()
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "bk":
+            cp.chunk_prefill_attention(q[:, None], kv, kv, 0, bk=16)
+        else:
+            da.decode_attention(q, kv, kv, 0)
