@@ -4,12 +4,16 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-main path, ties the card to the CPU port on the reduced molmoact-7b, then
-drives one full-width molmoact-7b VLA control step (B=4 robots, seeded
-random weights) through ``vla_control_step`` and checks that it ran through
-the kernels. Prints the card, the phase times, one JSON line describing
-each kernel and, last, ``{"ok": true, "device": {...}}``. Exits non-zero,
-without that line, when there is no CUDA device or any phase fails.
+main paths (and the paged decode kernel bit-equal to the dense one at page
+size 32), ties the card to the CPU port on the reduced molmoact-7b (control
+step and serving engine), then drives two full-width molmoact-7b paths with
+seeded random weights and checks that each ran through the kernels: one
+VLA control step (B=4 robots) through ``vla_control_step``, and the serving
+engine answering 16 robot requests on 8 slots, dense and paged (f32, int8
+and fp8 pools). Prints the card, the phase numbers, one JSON line
+describing each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
+non-zero, without that line, when there is no CUDA device or any phase
+fails.
 """
 from __future__ import annotations
 
@@ -26,7 +30,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
+# peak operations per second by input type (dense, no sparsity): bf16
+# tensor cores; f32 outside the tensor cores (the exact f32 function);
+# int8/fp8 tensor cores
+OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+             "float8_e4m3fn": 1979e12}
 KERNEL_TOL = 1e-2    # relative to max(1, |plain|): a bf16 output is off by
 #                      up to half an ulp (2**-9 relative) plus f32 sums
 #                      taken in another order
@@ -34,6 +42,27 @@ CPU_LOGIT_TOL = 1e-3               # f32 weights; summation order only
 SEED = 0
 FULL_B, FULL_TEXT = 4, 64          # robots per step, instruction tokens
 PHASE_REPEATS = 3                  # timed control steps after the first
+# full-width serving: 8 slots, 16 requests (8 observations, each sent
+# twice), 144 CoT + 48 action tokens + the prefill token per request
+SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
+SERVE_MAX_SEQ, SERVE_TICK = 864, 8
+PAGE = 32
+# (name, engine options): the first three carry the gates of the phase
+SERVE_ENGINES = [
+    ("dense", {}),
+    ("paged-f32", dict(paged=True)),
+    ("paged-int8-head", dict(paged=True, kv_dtype="int8")),
+    ("paged-int8-token", dict(paged=True, kv_dtype="int8",
+                              scale_granularity="token")),
+    ("paged-fp8-head", dict(paged=True, kv_dtype="fp8")),
+    ("paged-fp8-token", dict(paged=True, kv_dtype="fp8",
+                             scale_granularity="token")),
+]
+# paged storage variants: (row name, kv_dtype, granularity or page dtype)
+PAGED_VARIANTS = [("f32", "bf16", "f32"), ("bf16", "bf16", "bf16"),
+                  ("int8-head", "int8", "head"),
+                  ("int8-token", "int8", "token"),
+                  ("fp8-head", "fp8", "head"), ("fp8-token", "fp8", "token")]
 
 
 def card_line() -> str:
@@ -57,9 +86,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
-    """(least time in ms, what bounds it) on the H100's published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+def bound(nbytes: float, ops: float, dtype):
+    """(least time in ms, what bounds it) on the H100's published peaks,
+    the operations at the peak rate of the cache's storage type."""
+    rate = OPS_PER_S[str(dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -81,8 +112,11 @@ def check(name: str, got, want, tol: float) -> float:
 
 
 def kernel_checks(cfg):
-    """Phase 2: each kernel against its plain version at the main path's
-    shapes, in bf16; returns the inputs and largest errors for phase 5."""
+    """Phase 2: each kernel against its plain version at the main paths'
+    shapes: the control step's bf16 caches (B=4) and the serving engine's
+    f32 caches and page pools (B=8 slots, 864 positions, 217 pages of 32);
+    the paged kernel bit-equal to the dense one over the same rows. Returns
+    the inputs and largest errors for the kernel times."""
     import torch
     from repro_torch.kernels.chunk_prefill import ops as cp
     from repro_torch.kernels.decode_attention import ops as da
@@ -92,23 +126,38 @@ def kernel_checks(cfg):
     B, N, K, h = FULL_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S, _, smax = control_step_lengths(cfg, FULL_TEXT)     # 640, 833
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev).bfloat16()
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     q, kc, vc = randn(B, N, h), randn(B, smax, K, h), randn(B, smax, K, h)
-    errs = {"decode_attention": 0.0, "chunk_prefill": 0.0}
-    print("decode_attention vs plain, q", tuple(q.shape), "cache",
-          tuple(kc.shape))
+    errs = {}
+
+    def record(name, label, got, want):
+        errs[name] = max(errs.get(name, 0.0),
+                         check(label, got, want, KERNEL_TOL))
+
+    def decode_cases(name, q, kc, vc, cases):
+        print(f"decode_attention vs plain, q {tuple(q.shape)} "
+              f"{q.dtype}, cache {tuple(kc.shape)} {kc.dtype}")
+        for idx, window in cases:
+            got = da.decode_attention(q, kc, vc, idx, window=window)
+            want = da.decode_attention_ref(q.float(), kc, vc, idx, window)
+            label = (f"index={idx if isinstance(idx, int) else idx.tolist()}"
+                     f" window={window}")
+            record(name, label, got, want)
+
     cases = [(i, 0) for i in (0, 511, 512, 640, 831)]
     cases += [(torch.tensor([640, 700, 783, 831], dtype=torch.int32,
                             device=dev), 0), (736, 64)]
-    for idx, window in cases:
-        got = da.decode_attention(q, kc, vc, idx, window=window)
-        want = da.decode_attention_ref(q.float(), kc, vc, idx, window)
-        label = (f"index={idx if isinstance(idx, int) else idx.tolist()} "
-                 f"window={window}")
-        errs["decode_attention"] = max(errs["decode_attention"],
-                                       check(label, got, want, KERNEL_TOL))
+    decode_cases("decode_attention", q, kc, vc, cases)
+    # the serving engine's f32 dense cache: 8 slots x 864 positions
+    qs = randn(SERVE_SLOTS, N, h)
+    ks32 = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=torch.float32)
+    vs32 = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=torch.float32)
+    mixed = torch.tensor([0, 31, 32, 300, 639, 700, 831, 5],
+                         dtype=torch.int32, device=dev)
+    decode_cases("decode_attention_f32", qs, ks32, vs32,
+                 [(0, 0), (511, 0), (831, 0), (mixed, 0), (736, 64)])
 
     qc = randn(B, S, N, h)
     kv, vv = kc[:, :S], vc[:, :S]        # the chunk route's view of the cache
@@ -123,15 +172,127 @@ def kernel_checks(cfg):
             ("index=0 window=64", cp.chunk_prefill_attention(
                 qc, kv, vv, 0, window=64),
              cp.chunk_prefill_ref(qc.float(), kv, vv, 0, 64))]:
-        errs["chunk_prefill"] = max(errs["chunk_prefill"],
-                                    check(label, got, want, KERNEL_TOL))
+        record("chunk_prefill", label, got, want)
     torch.cuda.synchronize()
     part = cp.chunk_prefill_attention(qc[:, 320:].contiguous(), kv, vv, 320)
     if not torch.equal(full[:, 320:], part):
         raise AssertionError("chunk_prefill: rows 320..639 differ between "
                              "one chunk from 0 and a chunk at 320")
     print("  chunking invariance: rows 320..639 bit-equal")
-    return {"decode": (q, kc, vc), "chunk": (qc, kv, vv)}, errs
+    # the engine's admission prefill: batch 1, f32 cache view of 640 rows
+    q1 = qc[:1].contiguous()
+    k1, v1 = ks32[:1, :S], vs32[:1, :S]
+    print("chunk_prefill vs plain, q", tuple(q1.shape), "f32 view",
+          tuple(k1.shape))
+    for label, start, window in (("index=0", 0, 0),
+                                 ("index=320", 320, 0),
+                                 ("index=0 window=64", 0, 64)):
+        got = cp.chunk_prefill_attention(q1[:, start:], k1, v1, start,
+                                         window=window)
+        want = cp.chunk_prefill_ref(q1[:, start:].float(), k1, v1, start,
+                                    window)
+        record("chunk_prefill_f32", label, got, want)
+
+    paged = paged_checks(cfg, g, errs)
+    return {"decode": (q, kc, vc), "decode_f32": (qs, ks32, vs32),
+            "chunk": (qc, kv, vv), "chunk_f32": (q1, k1, v1),
+            "paged": paged}, errs
+
+
+def make_pool(g, kv_dtype: str, store: str, num_pages: int, B: int,
+              npg: int, K: int, h: int):
+    """K and V page pools of ``num_pages`` pages of 32 rows on the card,
+    with slot b's npg logical pages at shuffled physical pages (never the
+    null page 0). ``store`` is "f32"/"bf16" for unquantized pools, else
+    the scale granularity of an int8/fp8 pool. Returns (k pages, v pages,
+    k scales, v scales, full page table [B, npg] int32)."""
+    import torch
+    from repro_torch.models import kv_quant
+    dev = torch.device("cuda")
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * npg]
+    table = (perm + 1).reshape(B, npg).to(torch.int32)
+    qd = kv_quant.quant_dtype(kv_dtype)
+    dtype = qd or (torch.float32 if store == "f32" else torch.bfloat16)
+    out = []
+    for _ in range(2):
+        rows = torch.randn(B * npg, PAGE, K, h, generator=g, device=dev)
+        pages = torch.zeros(num_pages, PAGE, K, h, dtype=dtype, device=dev)
+        scales = None
+        if qd is not None:
+            rows, sc = kv_quant.quantize_page_rows(rows, qd, store)
+            scales = torch.zeros((num_pages,) + sc.shape[1:], device=dev)
+            scales[table.reshape(-1).long()] = sc
+        pages[table.reshape(-1).long()] = rows.to(dtype)
+        out.append((pages, scales))
+    (kp, ks), (vp, vs) = out
+    return kp, vp, ks, vs, table
+
+
+def live_table(table, index):
+    """The engine's view of a table: entries past each slot's position
+    point at the null page 0."""
+    import torch
+    npg = table.shape[1]
+    idx = torch.as_tensor(index, device=table.device).reshape(-1)
+    live = torch.arange(npg, device=table.device)[None] <= (idx[:, None]
+                                                            // PAGE)
+    return torch.where(live, table, 0).to(torch.int32)
+
+
+def paged_checks(cfg, g, errs):
+    """The paged decode kernel against its plain version at the serving
+    engine's shapes (B=8, N=28, K=4, h=128, 217 pages of 32; shuffled
+    tables, null entries past each slot's length) for every storage type,
+    and bit-equal to the dense kernel over the same rows (f32 and bf16)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import paged as pg
+    dev = torch.device("cuda")
+    B, N, K, h = SERVE_SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    npg = SERVE_MAX_SEQ // PAGE
+    num_pages = 1 + B * npg
+    q = torch.randn(B, N, h, generator=g, device=dev).bfloat16()
+    mixed = torch.tensor([0, 31, 32, 300, 639, 700, 831, 5],
+                         dtype=torch.int32, device=dev)
+    cases = [(i, 0) for i in (0, 31, 32, 639, 831)] + [(mixed, 0), (736, 64)]
+    pools = {}
+    for name, kv_dtype, store in PAGED_VARIANTS:
+        kp, vp, ks, vs, table = make_pool(g, kv_dtype, store, num_pages, B,
+                                          npg, K, h)
+        pools[name] = (kp, vp, ks, vs, table)
+        print(f"paged_decode_attention vs plain, {name} pages "
+              f"{tuple(kp.shape)} {kp.dtype}, q {tuple(q.shape)}")
+        for idx, window in cases:
+            pt = live_table(table, idx if not isinstance(idx, int)
+                            else torch.full((B,), idx, device=dev))
+            got = pg.paged_decode_attention(q, kp, vp, pt, idx, k_scales=ks,
+                                            v_scales=vs, window=window)
+            if ks is None:
+                want = pg.paged_decode_attention_ref(q.float(), kp, vp, pt,
+                                                     idx, window)
+            else:
+                want = pg.paged_decode_attention_quant_ref(
+                    q.float(), kp, vp, ks, vs, pt, idx, window)
+            label = (f"index={idx if isinstance(idx, int) else idx.tolist()}"
+                     f" window={window}")
+            key = f"paged_decode_attention/{name}"
+            errs[key] = max(errs.get(key, 0.0),
+                            check(label, got, want, KERNEL_TOL))
+    for name in ("f32", "bf16"):
+        kp, vp, _, _, table = pools[name]
+        kd, vd = pg.gather_pages(kp, table), pg.gather_pages(vp, table)
+        for idx, window in ((mixed, 0), (736, 64), (831, 0)):
+            a = pg.paged_decode_attention(q, kp, vp, table, idx,
+                                          window=window)
+            b = da.decode_attention(q, kd, vd, idx, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"paged ({name}) and dense decode "
+                                     f"differ at index {idx}, window "
+                                     f"{window}")
+        print(f"  paged vs dense decode over the same {name} rows: "
+              f"bit-equal (mixed, 736/window 64, 831)")
+    return q, pools
 
 
 def card_vs_cpu(cfg_full):
@@ -167,18 +328,45 @@ def card_vs_cpu(cfg_full):
                                  f"CPU {b.tolist()}")
     print(f"  reduced control step: CoT {oc.cot_tokens.tolist()} and "
           f"actions {oc.action_tokens.tolist()} equal on card and CPU")
+    serving_card_vs_cpu(cfg, p_cpu, p_gpu)
 
 
-def full_width(cfg):
-    """Phase 4: the full-width molmoact-7b control step, B=4."""
+def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
+    """The reduced molmoact-7b serving engine on the card (kernels) and on
+    the CPU (plain versions): 5 requests with mixed budgets on 2 slots;
+    greedy streams equal for the dense layout and paged f32, int8 and fp8
+    pools."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import Request, ServingEngine
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+             rng.standard_normal((cfg.vision.num_tokens,
+                                  cfg.vision.embed_dim), dtype=np.float32))
+            for n, m in ((6, 9), (9, 4), (4, 14), (7, 6), (5, 11))]
+    for name, kw in SERVE_ENGINES:
+        streams = []
+        for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+            eng = ServingEngine(cfg, M.ModelOptions(), params, n_slots=2,
+                                max_seq=64, eos=-1, tick_tokens=4,
+                                page_size=PAGE, device=dev, **kw)
+            for i, (prompt, m, px) in enumerate(reqs):
+                eng.submit(Request(uid=i, prompt=prompt, max_tokens=m,
+                                   patches=px))
+            streams.append({r.uid: r.out_tokens for r in eng.run()})
+        if streams[0] != streams[1] or len(streams[0]) != len(reqs):
+            raise AssertionError(f"reduced serving ({name}): card "
+                                 f"{streams[0]} vs CPU {streams[1]}")
+        print(f"  reduced serving engine, {name}: {len(reqs)} streams equal "
+              f"on card and CPU ({sum(map(len, streams[0].values()))} "
+              f"tokens)")
+
+
+def full_params(cfg):
+    """Seeded random bf16 weights of the full-width model, on the card."""
     import torch
-    from repro_torch.core import vla
-    from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
-    from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.models import model as M
     from repro_torch.models.params import leaves
     dev = torch.device("cuda")
-    opts = M.ModelOptions()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = M.init_params(cfg, gen, torch.bfloat16, device=dev)
@@ -186,6 +374,34 @@ def full_width(cfg):
     n_params = sum(t.numel() for _, t in leaves(params))
     print(f"full width: {cfg.name}, {n_params / 1e9:.3f} B parameters in "
           f"bf16, initialised in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def reset_launches():
+    from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.paged import (
+        paged_decode_attention)
+    kernels = {"decode_attention": decode_attention,
+               "chunk_prefill": chunk_prefill_attention,
+               "paged_decode_attention": paged_decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
+
+
+def read_launches(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def full_width(cfg, params):
+    """Phase 4: the full-width molmoact-7b control step, B=4."""
+    import torch
+    from repro_torch.core import vla
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    opts = M.ModelOptions()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     tokens = torch.randint(0, cfg.vocab_size, (FULL_B, FULL_TEXT),
                            generator=gen, device=dev)
     patches = torch.randn((FULL_B, cfg.vision.num_tokens,
@@ -197,16 +413,16 @@ def full_width(cfg):
     batch = {"tokens": tokens, "prefix": prefix}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.launches = chunk_prefill_attention.launches = 0
+    kernels = reset_launches()
     t0 = time.perf_counter()
     out = vla.vla_control_step(cfg, opts, params, batch, device=dev)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "chunk_prefill": chunk_prefill_attention.launches}
+    launches = read_launches(kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"chunk_prefill": cfg.num_layers,
-            "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act)}
+            "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
+            "paged_decode_attention": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
@@ -296,67 +512,242 @@ def decode_breakdown(cfg, params, caches, start: int, wall_ms: float):
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
 
 
-def kernel_timings(inputs, errs, launches):
-    """Phase 5: each kernel's time, its plain version's, the SDPA yardstick
-    and the bound, at the phase-2 shapes."""
+def serving_full(cfg, params):
+    """Phase 5: the full-width serving engine. 16 requests from 8 seeded
+    observations (576 patches, 64 instruction tokens; each observation sent
+    twice in a row, so its twin hits the prefix cache), 193 tokens each
+    (eos=-1 never fires), on 8 slots with max_seq 864 and 8-token ticks,
+    for every engine of SERVE_ENGINES. Gates: every request finishes with
+    193 tokens; paged-f32 streams equal dense streams; a paged pool drains
+    to 0 pages with >= 8 x 20 prefix hits; each decode step launches the
+    engine's decode kernel 28 times and the other one never; 28 chunk
+    prefills per request; one readback per tick. Returns {engine:
+    (launches, stats)}."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving import Request, ServingEngine
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n_vis, emb = cfg.vision.num_tokens, cfg.vision.embed_dim
+    obs = [(torch.randint(0, cfg.vocab_size, (FULL_TEXT,), generator=gen,
+                          device=dev).cpu().numpy().astype(np.int32),
+            torch.randn((n_vis, emb), generator=gen,
+                        device=dev).cpu().numpy())
+           for _ in range(SERVE_OBS)]
+    prompt_pages = (n_vis + FULL_TEXT) // PAGE
+    L = cfg.num_layers
+    results, streams = {}, {}
+    for name, kw in SERVE_ENGINES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, M.ModelOptions(), params,
+                            n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                            eos=-1, tick_tokens=SERVE_TICK, device=dev, **kw)
+        for i in range(2 * SERVE_OBS):
+            prompt, px = obs[i // 2]
+            eng.submit(Request(uid=i, prompt=prompt, max_tokens=SERVE_TOKENS,
+                               patches=px))
+        kernels = reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        st = eng.stats
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out = {r.uid: r.out_tokens for r in done}
+        streams[name] = out
+        n_tok = sum(map(len, out.values()))
+        steps = st.device_steps + eng.masked_steps
+        rep = st.phase_report()
+        decode_kernel = ("paged_decode_attention" if eng.paged
+                         else "decode_attention")
+        other = ("decode_attention" if eng.paged
+                 else "paged_decode_attention")
+        print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
+              f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
+              f"{st.ticks}, device steps {st.device_steps}, masked steps "
+              f"{eng.masked_steps}; TTFT p50/p99 "
+              f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
+              f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
+              f"{rep['decode_tick_p99'] * 1e3:.2f} ms; phases vision "
+              f"{st.vision_time:.3f} s prefill {st.prefill_time:.3f} s "
+              f"decode {st.decode_time:.3f} s; pages_hwm {st.pages_hwm}, "
+              f"cache_bytes_hwm {st.cache_bytes_hwm}, prefix_hits "
+              f"{st.prefix_hits}; peak memory {peak_gb:.2f} GB; launches "
+              f"{launches}")
+        gates = {
+            "every request finishes with 193 tokens":
+                len(out) == 2 * SERVE_OBS
+                and all(len(t) == SERVE_TOKENS for t in out.values()),
+            f"{decode_kernel} launches == {L} x tick steps":
+                launches[decode_kernel] == L * steps,
+            f"{other} never launched": launches[other] == 0,
+            f"chunk_prefill launches == {L} x 16":
+                launches["chunk_prefill"] == L * 2 * SERVE_OBS,
+            "decode_syncs == ticks": st.decode_syncs == st.ticks,
+        }
+        if eng.paged:
+            gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
+            gates[f"prefix_hits >= {SERVE_OBS} x {prompt_pages}"] = \
+                st.prefix_hits >= SERVE_OBS * prompt_pages
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(f"full-width serving ({name}): {failed}")
+        results[name] = (launches, st, eng.masked_steps)
+        del eng, done
+    if streams["paged-f32"] != streams["dense"]:
+        raise AssertionError("full-width serving: paged-f32 streams differ "
+                             "from dense streams")
+    print("  paged-f32 streams equal dense streams")
+    ref = streams["paged-f32"]
+    for name, out in streams.items():
+        if "int8" in name or "fp8" in name:
+            same = sum(a == b for u in out for a, b in zip(out[u], ref[u]))
+            total = sum(len(t) for t in ref.values())
+            print(f"  {name}: share of tokens equal to the f32 pool's "
+                  f"streams {same / total:.4f} (reported, not a gate)")
+    return results
+
+
+def kernel_timings(inputs, errs, launches, serving):
+    """Phase 6: each kernel's time, its plain version's, the library
+    yardstick where one PyTorch call computes the same function, and the
+    bound, at the main paths' shapes; the paged kernel per storage type at
+    index 736 of the serving engine's pool."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.chunk_prefill import ops as cp
     from repro_torch.kernels.decode_attention import ops as da
-    rows = []
-
-    q, kc, vc = inputs["decode"]
-    B, N, h = q.shape
-    K = kc.shape[2]
+    from repro_torch.kernels.decode_attention import paged as pg
+    rows, off_path = [], []
     pos = 736                           # mid-way through the decode phase
-    idx = torch.full((B,), pos, dtype=torch.int32, device=q.device)
     live = pos + 1
-    nbytes = 2 * q.numel() * 2 + B * live * K * h * 2 * 2
-    t_b, by = bound(nbytes, 4 * B * N * h * live)
-    mask = (torch.arange(kc.shape[1], device=q.device) <= pos)[None, None,
-                                                               None]
-    qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    rows.append({
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                  "decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/decode_attention.py"
-                    ":142",
-        "launches": launches["decode_attention"],
-        "max_abs_err": errs["decode_attention"],
-        "ms": time_ms(lambda: da.decode_attention(q, kc, vc, idx), 200),
-        "plain_ms": time_ms(lambda: da.decode_attention_ref(q, kc, vc, idx),
-                            20),
-        "bound_ms": t_b, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True), 200)})
+    serve = {name: res[0] for name, res in serving.items()}
 
-    qc, kv, vv = inputs["chunk"]
-    B, S, N, h = qc.shape
-    L = kv.shape[1]
-    pairs = S * (S + 1) // 2            # causal (row, key) pairs from index 0
-    nbytes = 2 * qc.numel() * 2 + B * L * K * h * 2 * 2
-    t_b, by = bound(nbytes, 4 * B * N * h * pairs)
-    qt, kt, vt = qc.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2)
-    zero = torch.zeros(B, dtype=torch.int32, device=qc.device)
-    rows.append({
-        "name": "chunk_prefill", "route": "cuda",
-        "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
-                  "chunk_prefill.cu",
-        "replaces": "src/repro/kernels/chunk_prefill/chunk_prefill.py:152",
-        "launches": launches["chunk_prefill"],
-        "max_abs_err": errs["chunk_prefill"],
-        "ms": time_ms(lambda: cp.chunk_prefill_attention(qc, kv, vv, zero),
-                      20),
-        "plain_ms": time_ms(lambda: cp.chunk_prefill_ref(qc, kv, vv, zero),
-                            5),
-        "bound_ms": t_b, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)})
-    for r in rows:
+    def serve_launches(kernel, names):
+        return sum(serve[n][kernel] for n in names)
+
+    def decode_row(name, key, q, kc, vc, n_launches, iters):
+        B, N, h = q.shape
+        K = kc.shape[2]
+        idx = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+        nbytes = 2 * q.numel() * q.element_size() \
+            + B * live * K * h * 2 * kc.element_size()
+        t_b, by = bound(nbytes, 4 * B * N * h * live, kc.dtype)
+        mask = (torch.arange(kc.shape[1], device=q.device) <= pos)[
+            None, None, None]
+        qs = q[:, :, None].to(kc.dtype)
+        ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/"
+                        "decode_attention.py:142",
+            "launches": n_launches, "max_abs_err": errs[key],
+            "ms": time_ms(lambda: da.decode_attention(q, kc, vc, idx), iters),
+            "plain_ms": time_ms(lambda: da.decode_attention_ref(
+                q, kc, vc, idx), 20),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True), iters)}
+
+    def chunk_row(name, key, qc, kv, vv, n_launches):
+        B, S, N, h = qc.shape
+        L, K = kv.shape[1], kv.shape[2]
+        pairs = S * (S + 1) // 2        # causal (row, key) pairs from 0
+        nbytes = 2 * qc.numel() * qc.element_size() \
+            + B * L * K * h * 2 * kv.element_size()
+        t_b, by = bound(nbytes, 4 * B * N * h * pairs, kv.dtype)
+        qt = qc.transpose(1, 2).to(kv.dtype)
+        kt, vt = kv.transpose(1, 2), vv.transpose(1, 2)
+        zero = torch.zeros(B, dtype=torch.int32, device=qc.device)
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
+                      "chunk_prefill.cu",
+            "replaces": "src/repro/kernels/chunk_prefill/chunk_prefill.py"
+                        ":152",
+            "launches": n_launches, "max_abs_err": errs[key],
+            "ms": time_ms(lambda: cp.chunk_prefill_attention(
+                qc, kv, vv, zero), 20),
+            "plain_ms": time_ms(lambda: cp.chunk_prefill_ref(
+                qc, kv, vv, zero), 5),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)}
+
+    dense_engines = [n for n, kw in SERVE_ENGINES if not kw.get("paged")]
+    rows.append(decode_row("decode_attention", "decode_attention",
+                           *inputs["decode"],
+                           launches["decode_attention"], 200))
+    rows.append(decode_row("decode_attention/f32_kv", "decode_attention_f32",
+                           *inputs["decode_f32"],
+                           serve_launches("decode_attention", dense_engines),
+                           100))
+    rows.append(chunk_row("chunk_prefill", "chunk_prefill",
+                          *inputs["chunk"], launches["chunk_prefill"]))
+    rows.append(chunk_row("chunk_prefill/f32_kv", "chunk_prefill_f32",
+                          *inputs["chunk_f32"],
+                          serve_launches("chunk_prefill", list(serve))))
+
+    q, pools = inputs["paged"]
+    B, N, h = q.shape
+    idx = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    engine_of = {"f32": ["paged-f32"], "bf16": [],
+                 "int8-head": ["paged-int8-head"],
+                 "int8-token": ["paged-int8-token"],
+                 "fp8-head": ["paged-fp8-head"],
+                 "fp8-token": ["paged-fp8-token"]}
+    # the file that instantiates each storage type's kernel (the template
+    # itself is paged_kernel.cuh)
+    PAGED_SOURCE = {"f32": "paged_decode_attention.cu",
+                    "bf16": "paged_decode_attention.cu",
+                    "int8": "paged_decode_int8.cu",
+                    "fp8": "paged_decode_fp8.cu"}
+    for name, _, store in PAGED_VARIANTS:
+        kp, vp, ks, vs, table = pools[name]
+        K = kp.shape[2]
+        pt = live_table(table, idx)
+        n_pages = -(-live // PAGE)
+        nbytes = (2 * q.numel() * q.element_size()
+                  + B * live * K * h * 2 * kp.element_size()
+                  + B * n_pages * 4)                          # table entries
+        if ks is not None:  # scales: one per (page, head), or per row
+            nbytes += B * 2 * 4 * (n_pages * K if ks.dim() == 2
+                                   else live * K)
+        t_b, by = bound(nbytes, 4 * B * N * h * live, kp.dtype)
+
+        def plain(kp=kp, vp=vp, ks=ks, vs=vs, pt=pt):
+            if ks is None:
+                return pg.paged_decode_attention_ref(q, kp, vp, pt, idx)
+            return pg.paged_decode_attention_quant_ref(q, kp, vp, ks, vs, pt,
+                                                       idx)
+        row = {
+            "name": f"paged_decode_attention/{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      + PAGED_SOURCE[name.split("-")[0]],
+            "replaces": "src/repro/kernels/decode_attention/paged.py:136",
+            "launches": serve_launches("paged_decode_attention",
+                                       engine_of[name]),
+            "max_abs_err": errs[f"paged_decode_attention/{name}"],
+            "ms": time_ms(lambda: pg.paged_decode_attention(
+                q, kp, vp, pt, idx, k_scales=ks, v_scales=vs), 100),
+            "plain_ms": time_ms(plain, 20),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": None}
+        # bf16 pages run on no main path (the engine's pools are f32 or
+        # codes): timed and printed, but kept out of the kernels line
+        (rows if engine_of[name] else off_path).append(row)
+    for r in rows + off_path:
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']})")
+              f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), launches {r['launches']}"
+              + ("" if r in rows else " (on no main path)"))
     return rows
 
 
@@ -376,10 +767,13 @@ def main() -> int:
     inputs, errs = kernel_checks(cfg)
     print("phase 3: reduced molmoact-7b, card vs CPU")
     card_vs_cpu(cfg)
+    params = full_params(cfg)
     print("phase 4: full-width control step")
-    launches = full_width(cfg)
-    print("phase 5: kernel times")
-    rows = kernel_timings(inputs, errs, launches)
+    launches = full_width(cfg, params)
+    print("phase 5: full-width serving engine")
+    serving = serving_full(cfg, params)
+    print("phase 6: kernel times")
+    rows = kernel_timings(inputs, errs, launches, serving)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,14 +28,20 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the entry points; each returns the cudaError_t of its launch
 SIGNATURES = {
-    # q, k, v, index, out, q_bf16, B, S, N, K, h, kv_batch_stride, window,
-    # stream
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _L, _I, _P],
-    # q, k, v, index, out, q_bf16, B, S, L, N, K, h, bk, kv_batch_stride,
+    # q, k, v, index, out, q_bf16, kv_dtype, B, S, N, K, h, kv_batch_stride,
     # window, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _L, _I, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, index, out,
+    # q_bf16, kv_dtype, scale_mode, B, N, K, h, page_size, npg, window,
+    # stream
+    "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _P],
+    # q, k, v, index, out, q_bf16, kv_dtype, B, S, L, N, K, h, bk,
+    # kv_batch_stride, window, stream
     "chunk_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _L, _I, _P],
+                             _I, _I, _L, _I, _P],
 }
 
 
@@ -67,6 +73,8 @@ def build() -> Path:
     returns its path. A library already built from the same sources is
     reused."""
     srcs = sources()
+    if len({p.stem for p in srcs}) != len(srcs):
+        raise RuntimeError(f"kernel sources must have distinct names: {srcs}")
     out_dir = BUILD_ROOT / _digest(srcs)
     lib = out_dir / "libkernels.so"
     if lib.exists():
@@ -75,7 +83,7 @@ def build() -> Path:
     nvcc = _nvcc()
     objs, procs = [], []
     for src in srcs:
-        obj = out_dir / (src.parent.parent.name + ".o")
+        obj = out_dir / (src.stem + ".o")     # one object per source
         objs.append(obj)
         procs.append((src, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS,
+from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, KV_CODES,
                                                       kv_batch_stride,
                                                       slot_index)
 
@@ -66,8 +66,10 @@ def _check(q, k_cache, v_cache, bk):
                          f"{BLOCK_K}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise TypeError("the KV cache must be bfloat16")
+    if k_cache.dtype not in KV_CODES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"the KV cache view must be float32 or bfloat16 "
+                        f"(one type for K and V), got {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError("q and the cache view must be on one device")
 
@@ -75,7 +77,7 @@ def _check(q, k_cache, v_cache, bk):
 def chunk_prefill_attention(q, k_cache, v_cache, index, *,
                             window: int = GLOBAL_WINDOW, bk: int = BLOCK_K):
     """Banded chunk-prefill attention. q [B,S,N,h] f32/bf16 (the chunk,
-    already written to the cache); view [B,L,K,h] bf16, rows contiguous (a
+    already written to the cache); view [B,L,K,h] f32/bf16, rows contiguous (a
     sequence-axis slice of the cache); index int or per-slot [B] chunk
     starts. Key blocks of ``bk`` sit on the absolute partition from 0, so a
     row's result does not depend on the chunking. Returns [B,S,N,h]."""
@@ -91,7 +93,8 @@ def chunk_prefill_attention(q, k_cache, v_cache, index, *,
     out = torch.empty_like(q)
     _build.launch("chunk_prefill_launch", q.data_ptr(), k_cache.data_ptr(),
                   v_cache.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                  int(q.dtype == torch.bfloat16), B, S, L, N, K, h, bk,
+                  int(q.dtype == torch.bfloat16), KV_CODES[k_cache.dtype],
+                  B, S, L, N, K, h, bk,
                   kv_batch_stride(k_cache, v_cache), int(window),
                   torch.cuda.current_stream(q.device).cuda_stream)
     chunk_prefill_attention.launches += 1

@@ -17,6 +17,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 32          # query heads per KV head the kernel holds
+KV_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' kv_dtype
 
 
 def slot_index(index, B: int, device) -> torch.Tensor:
@@ -65,8 +66,10 @@ def _check(q, k_cache, v_cache):
         raise ValueError(f"head_dim {h} not in {HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise TypeError("the KV cache must be bfloat16")
+    if k_cache.dtype not in KV_CODES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"the KV cache must be float32 or bfloat16 (one "
+                        f"type for K and V), got {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError("q and the caches must be on one device")
 
@@ -80,7 +83,7 @@ def kv_batch_stride(k_cache, v_cache) -> int:
                 or t.stride(0) != k_cache.stride(0):
             raise ValueError("cache view rows must be contiguous "
                              "[L,K,h] with one slot stride for K and V")
-        if t.data_ptr() % 16 or t.stride(0) % 8:
+        if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
             raise ValueError("cache view must be 16-byte aligned")
     return k_cache.stride(0)
 
@@ -88,7 +91,7 @@ def kv_batch_stride(k_cache, v_cache) -> int:
 def decode_attention(q, k_cache, v_cache, index, *,
                      window: int = GLOBAL_WINDOW):
     """Single-token GQA flash decode. q [B,N,h] f32/bf16; caches [B,S,K,h]
-    bf16; index: position of the token being decoded, int or per-slot [B]
+    f32/bf16; index: position of the token being decoded, int or per-slot [B]
     (each < S). Returns [B,N,h] in q's dtype; head n reads KV head n // G.
     """
     _check(q, k_cache, v_cache)
@@ -103,8 +106,9 @@ def decode_attention(q, k_cache, v_cache, index, *,
     out = torch.empty_like(q)
     _build.launch("decode_attention_launch", q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N, K,
-                  h, kv_batch_stride(k_cache, v_cache), int(window),
+                  out.data_ptr(), int(q.dtype == torch.bfloat16),
+                  KV_CODES[k_cache.dtype], B, S, N, K, h,
+                  kv_batch_stride(k_cache, v_cache), int(window),
                   torch.cuda.current_stream(q.device).cuda_stream)
     decode_attention.launches += 1
     return out

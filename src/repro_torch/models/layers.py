@@ -1,6 +1,6 @@
-"""Layer math of the port (dense-cache subset of ``repro.models.layers``):
-norms, RoPE, attention (dense / banded chunk / decode), the routed
-attention sub-layer, and the MLP.
+"""Layer math of the port (the dense- and paged-cache subset of
+``repro.models.layers``): norms, RoPE, attention (dense / banded chunk /
+decode, dense or paged), the routed attention sub-layer, and the MLP.
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -18,6 +18,8 @@ from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
+from repro_torch.kernels.decode_attention.paged import paged_decode_attention
+from repro_torch.models import kv_quant
 
 NEG_INF = -1e30
 
@@ -215,6 +217,54 @@ def update_cache_chunk(cache, new, index):
     return cache
 
 
+def update_cache_paged(pages, new, page_table, index, scales=None):
+    """Write the decode token's KV ``new`` [B,1,K,h] into the page pool
+    ``pages`` [P, ps, K, h] in place, quantizing on write for an int8/fp8
+    pool. Position i of slot b lives at (page_table[b, i // ps], i % ps);
+    ``index`` is an int or per-slot [B]. Returns ``(pages, scales)``.
+
+    A slot whose table entry is the null page 0 (a retired slot) writes
+    zeros there, so page 0 stays all zero (scale 0) in every pool. Live
+    slots own distinct pages, so no two live writes collide.
+
+    Quantized pools follow the reference's two policies:
+    - ``scales`` [P, ps, K] ("token"): the row's codes and its scale are
+      replaced; nothing else is touched.
+    - ``scales`` [P, K] ("head"): the page's scale grows monotonically to
+      cover the token's amax and the whole page is re-encoded under it
+      (dequantize under the old scale, insert the row, encode). The
+      reference skips the page round trip with ``lax.cond`` when no scale
+      grew; here every step takes it, because a host branch would read a
+      device value. The result is bit-identical: at a fixed scale
+      ``encode(decode(c)) == c`` for int8 and fp8 codes."""
+    ps = pages.shape[1]
+    B = new.shape[0]
+    idx = slot_index(index, B, pages.device).long()
+    pid = page_table.long().gather(1, (idx // ps)[:, None])[:, 0]    # [B]
+    row = idx % ps
+    sink = (pid == 0)[:, None, None]                                 # [B,1,1]
+    if scales is None:
+        pages[pid, row] = torch.where(sink, 0.0, new[:, 0].float()).to(
+            pages.dtype)
+        return pages, None
+    tok = torch.where(sink, 0.0, new[:, 0].float())                  # [B,K,h]
+    tok_scale = tok.abs().amax(-1) / kv_quant.qmax(pages.dtype)      # [B,K]
+    if scales.dim() == 3:
+        pages[pid, row] = kv_quant.encode(tok, tok_scale[..., None],
+                                          pages.dtype)
+        scales[pid, row] = tok_scale
+        return pages, scales
+    old_scale = scales[pid]                                          # [B,K]
+    new_scale = torch.where(sink[:, :, 0], old_scale,
+                            torch.maximum(old_scale, tok_scale))
+    page_f = kv_quant.decode(pages[pid], old_scale[:, None, :, None])
+    page_f[torch.arange(B, device=pages.device), row] = tok
+    pages[pid] = kv_quant.encode(page_f, new_scale[:, None, :, None],
+                                 pages.dtype)
+    scales[pid] = new_scale
+    return pages, scales
+
+
 # ---------------------------------------------------------------------------
 # unified attention dispatch
 # ---------------------------------------------------------------------------
@@ -224,12 +274,17 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
     """The routing decision of every attention dispatch of the port:
     (mode x layout x shape) -> core name. Modes: ``decode`` (S == 1
     against a cache), ``chunk`` (S > 1 against a live cache view),
-    ``fresh`` (attention over exactly the new rows). Only the dense layout
-    is ported; whether ``decode_flash``/``chunk_flash`` launch a kernel or
-    run its plain version follows from the tensors' device."""
+    ``fresh`` (attention over exactly the new rows). Layouts: ``dense``,
+    ``paged`` (decode only so far) and ``none``. Whether a ``*_flash``
+    core launches a kernel or runs its plain version follows from the
+    tensors' device."""
+    if layout == "paged":
+        if mode == "decode":
+            return "decode_paged_flash"
+        raise NotImplementedError("prefill chunks through a page table "
+                                  "(chunk_paged_flash) are ROADMAP item 8")
     if layout not in ("dense", "none"):
-        raise NotImplementedError(f"{layout!r} caches are ROADMAP items 6 "
-                                  "(paged) and 12 (ring)")
+        raise NotImplementedError(f"{layout!r} caches are ROADMAP item 12")
     if mode == "decode":
         return "decode_flash"
     if mode == "chunk":
@@ -245,17 +300,24 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
 
 def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
                        window: int, causal: bool = True, q_pos=None,
-                       k_pos=None, index=None, live_len=None):
+                       k_pos=None, index=None, live_len=None,
+                       page_table=None, k_scales=None, v_scales=None):
     """Execute one routed attention core. ``k``/``v`` are the new rows
-    (fresh) or the dense cache [B, Smax, K, h] (decode/chunk). ``index`` is
-    the decode position / chunk start (int or per-slot [B]); ``live_len``
-    bounds the chunk cores' key axis (see ``band_len``). ``decode_dense``
-    and ``chunk_banded`` are the plain blockwise cores, kept as the
-    reference's fallbacks."""
+    (fresh), the dense cache [B, Smax, K, h] (decode/chunk) or the page
+    pools [P, ps, K, h] (paged routes, with ``page_table`` and, for a
+    quantized pool, ``*_scales``). ``index`` is the decode position /
+    chunk start (int or per-slot [B]); ``live_len`` bounds the chunk
+    cores' key axis (see ``band_len``). ``decode_dense`` and
+    ``chunk_banded`` are the plain cores, kept as the reference's
+    fallbacks."""
     if route == "decode_flash":
         return decode_attention(q[:, 0], k, v, index, window=window)[:, None]
     if route == "decode_dense":
         return attention_decode(q, k, v, index, window)
+    if route == "decode_paged_flash":
+        return paged_decode_attention(q[:, 0], k, v, page_table, index,
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      window=window)[:, None]
     if route in ("chunk_flash", "chunk_banded"):
         band = opts.prefill_band
         smax = k.shape[1]
@@ -275,13 +337,15 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
 
 def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
               positions, cache=None, cache_index=None, causal: bool = True,
-              live_len=None):
+              live_len=None, page_table=None):
     """Attention sub-layer: projections + RoPE + cache write path + the
     routed core + output projection. ``cache`` is a dense (k, v) pair of
     [B, Smax, K, h] tensors, written in place at ``cache_index``; S == 1 is
     decode, a chunk filling the whole buffer from 0 attends within itself,
     any other S > 1 runs the banded chunk core against the live cache.
-    Returns (out, cache)."""
+    With ``page_table`` [B, npg] the cache is a pair of page pools
+    [P, ps, K, h] (a 4-tuple adds a quantized pool's scales) and S must be
+    1. Returns (out, cache)."""
     B, S, _ = x.shape
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
@@ -292,7 +356,21 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
+    if cache is not None and page_table is not None:
+        if S != 1:
+            raise NotImplementedError("prefill chunks written through a "
+                                      "page table (update_cache_paged_chunk)"
+                                      " are ROADMAP item 8")
+        k_sc, v_sc = cache[2:] if len(cache) == 4 else (None, None)
+        update_cache_paged(cache[0], k, page_table, cache_index, k_sc)
+        update_cache_paged(cache[1], v, page_table, cache_index, v_sc)
+        route = attention_route("decode", "paged", S=S, Skv=1,
+                                window=window, opts=opts, causal=causal)
+        out = run_attention_core(route, q, cache[0], cache[1], opts=opts,
+                                 window=window, index=cache_index,
+                                 page_table=page_table, k_scales=k_sc,
+                                 v_scales=v_sc)
+    elif cache is not None:
         smax = cache[0].shape[1]
         if window != GLOBAL_WINDOW and smax == window:
             raise NotImplementedError("ring-buffer caches are ROADMAP "

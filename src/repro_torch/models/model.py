@@ -5,6 +5,7 @@
     logits   = forward(cfg, opts, params, batch)
     logits, caches = prefill(cfg, opts, params, batch, max_seq)
     logits, caches = decode_step(cfg, opts, params, tok, caches, index)
+    logits, caches = decode_step(..., page_table=table)   # paged pools
 
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
 tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
@@ -141,9 +142,13 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
 
 
 def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
-                caches, index, *, device="cuda"):
+                caches, index, page_table=None, *, device="cuda"):
     """One autoregressive step. token [B,1]; index: position of the token,
-    an int or a per-slot [B] tensor. Returns (logits [B,1,V], caches)."""
+    an int or a per-slot [B] tensor. ``page_table`` [B, npg] selects the
+    paged layout: the caches' attention leaves are page pools (from
+    ``init_caches(paged=True)``; a quantized pool carries its scale leaves)
+    and positions resolve through the table. Returns (logits [B,1,V],
+    caches)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     token = _on(token, dev, torch.long)
@@ -151,9 +156,12 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     positions = (torch.as_tensor(index, device=dev, dtype=torch.long)
                  .reshape(-1, 1).expand(B, 1))
     x = _embed_tokens(params, token)
+    if page_table is not None:
+        page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
                                      positions, caches=caches,
-                                     cache_index=index)
+                                     cache_index=index,
+                                     page_table=page_table)
     return _logits(params, x, cfg), caches
 
 

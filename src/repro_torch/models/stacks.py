@@ -1,5 +1,6 @@
 """Decoder stacks: templates and the loop over layers (the port of
-``repro.models.stacks`` for attention + dense-FFN stacks, dense caches).
+``repro.models.stacks`` for attention + dense-FFN stacks, with dense or
+paged caches).
 
 The stack is a repeating pattern of ``period`` sub-layers; parameters of
 the ``L // period`` blocks are stacked on a leading axis, the ``L % period``
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig, VisionConfig
+from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
 from repro_torch.models.params import PSpec, leaves, set_leaf, stack
 
@@ -164,13 +166,19 @@ def layer_slice(tree, i: int):
 
 def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                    kind: SubKind, positions, cache=None, cache_index=None,
-                   live_len=None):
+                   live_len=None, page_table=None):
     """One pre-norm attention + dense-FFN sub-layer; ``cache`` (a dict with
-    dense ``k``/``v``) is written in place. Returns x."""
+    ``k``/``v``, dense or page pools, plus ``k_scale``/``v_scale`` for a
+    quantized pool) is written in place. Returns x."""
     h = L.apply_norm(p, x, cfg, "ln1")
-    kv = (cache["k"], cache["v"]) if cache is not None else None
+    kv = None
+    if cache is not None:
+        kv = (cache["k"], cache["v"])
+        if "k_scale" in cache:
+            kv += (cache["k_scale"], cache["v_scale"])
     a, _ = L.attention(p, h, cfg, opts, kind.window, positions, cache=kv,
-                       cache_index=cache_index, live_len=live_len)
+                       cache_index=cache_index, live_len=live_len,
+                       page_table=page_table)
     x = x + a
     if kind.ffn == "dense":
         x = x + L.mlp(p, L.apply_norm(p, x, cfg, "ln2"), cfg)
@@ -178,9 +186,11 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
 
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
-                  positions, caches=None, cache_index=None, live_len=None):
+                  positions, caches=None, cache_index=None, live_len=None,
+                  page_table=None):
     """Run the decoder stack, layer by layer. ``caches`` (from
-    ``init_caches``) is updated in place. Returns (x, caches)."""
+    ``init_caches``) is updated in place; ``page_table`` [B, npg] marks
+    them as page pools. Returns (x, caches)."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
     layers = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
@@ -191,7 +201,8 @@ def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
                for j in range(ntail)]
     for p, kind, cache in layers:
         x = apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
-                           cache_index=cache_index, live_len=live_len)
+                           cache_index=cache_index, live_len=live_len,
+                           page_table=page_table)
     return x, caches
 
 
@@ -217,23 +228,90 @@ def apply_tower(params, embeds, enc: VisionConfig):
 # caches
 # ---------------------------------------------------------------------------
 
-def cache_template(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
-    """Shape tree of the dense decode cache: per attention sub-layer, K and
-    V buffers [batch, max_seq, K, h] (stacked like the parameters)."""
+def cache_template(cfg: ModelConfig, batch: int, max_seq: int, *,
+                   paged: bool = False, num_pages: int = 0,
+                   page_size: int = 0, kv_dtype: str = "bf16",
+                   scale_granularity: str = "head") -> Dict:
+    """Shape tree of the decode cache, stacked like the parameters.
+
+    Dense (default): per attention sub-layer, K and V buffers
+    [batch, max_seq, K, h]. Paged: K and V become shared pools
+    [num_pages, page_size, K, h] addressed through a per-slot page table
+    (``serving.kv_pool``). ``kv_dtype`` "int8"/"fp8" (paged only) adds an
+    f32 scale sibling per pool (``k_scale``/``v_scale``): [num_pages, K]
+    at "head" granularity, [num_pages, page_size, K] at "token"."""
     period, nblocks, ntail = stack_plan(cfg)
-    kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    quantized = kv_quant.quant_dtype(kv_dtype) is not None
+    if scale_granularity not in kv_quant.SCALE_GRANULARITIES:
+        raise ValueError(f"scale_granularity must be one of "
+                         f"{kv_quant.SCALE_GRANULARITIES}, "
+                         f"got {scale_granularity!r}")
+    K, h = cfg.num_kv_heads, cfg.head_dim
+    if paged:
+        if num_pages <= 0 or page_size <= 0:
+            raise ValueError("paged cache_template needs num_pages/page_size")
+        kv = (num_pages, page_size, K, h)
+    elif quantized:
+        raise ValueError("kv_dtype quantization requires the paged layout "
+                         "(the page pool is the quantization boundary)")
+    else:
+        kv = (batch, max_seq, K, h)
     sub = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
+    if quantized:
+        sshape = ((num_pages, page_size, K) if scale_granularity == "token"
+                  else (num_pages, K))
+        sub["k_scale"] = PSpec(sshape, "zeros")
+        sub["v_scale"] = PSpec(sshape, "zeros")
     t = {"blocks": stack({f"sub{j}": sub for j in range(period)}, nblocks)}
     if ntail:
         t["tail"] = {f"tail{j}": dict(sub) for j in range(ntail)}
     return t
 
 
+def cache_batch_axis(path: str) -> int:
+    """Batch (or page) axis of a cache leaf, from its "/"-joined path:
+    leaves under ``blocks`` are layer-stacked, so it sits at axis 1; tail
+    leaves carry it at axis 0."""
+    return 1 if path.split("/")[0] == "blocks" else 0
+
+
+def cache_dtype(path_key: str, dtype, kv_dtype: str = "bf16"):
+    """Storage dtype of a cache leaf named ``path_key``: scales are f32,
+    quantized pool values are 1-byte codes, anything else ``dtype``."""
+    if path_key in ("k_scale", "v_scale"):
+        return torch.float32
+    q = kv_quant.quant_dtype(kv_dtype)
+    if q is not None and path_key in ("k", "v"):
+        return q
+    return dtype
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16, *, device="cuda"):
-    """Zeroed dense caches (bf16 by default) on ``device``."""
+                dtype=torch.bfloat16, *, paged: bool = False,
+                num_pages: int = 0, page_size: int = 0,
+                kv_dtype: str = "bf16", scale_granularity: str = "head",
+                device="cuda"):
+    """Zeroed caches on ``device`` (see ``cache_template``); values in
+    ``dtype`` (bf16 by default) unless the pool stores codes."""
     dev = resolve_device(device)
     out: Dict = {}
-    for path, spec in leaves(cache_template(cfg, batch, max_seq)):
-        set_leaf(out, path, torch.zeros(spec.shape, dtype=dtype, device=dev))
+    for path, spec in leaves(cache_template(
+            cfg, batch, max_seq, paged=paged, num_pages=num_pages,
+            page_size=page_size, kv_dtype=kv_dtype,
+            scale_granularity=scale_granularity)):
+        leaf_dtype = cache_dtype(path.split("/")[-1], dtype, kv_dtype)
+        set_leaf(out, path, torch.zeros(spec.shape, dtype=leaf_dtype,
+                                        device=dev))
     return out
+
+
+def is_paged_leaf(path: str) -> bool:
+    """Whether a leaf of a paged cache lives in the pool layout (leading
+    axis = pages): attention ``k``/``v`` and their scale siblings. Only
+    meaningful for caches built with ``paged=True``."""
+    return path.split("/")[-1] in ("k", "v", "k_scale", "v_scale")
+
+
+def is_scale_leaf(path: str) -> bool:
+    """Whether a cache leaf is a quantization scale sibling of a pool."""
+    return path.split("/")[-1] in ("k_scale", "v_scale")

@@ -1,0 +1,820 @@
+"""Continuous-batching serving engine with a device-resident decode tick
+(the port of ``repro.serving.engine``: admit-stall admission, dense or
+paged caches, unquantized or int8/fp8 pools, fused or per-token decode, on
+one device).
+
+Decode runs over a fixed slot batch; each slot carries its own cache
+position. A finished slot is refilled from the queue: vision runs as its
+own stage, then a batch-1 prefill into an f32 cache whose rows are
+scattered into the slot's batch row (dense) or into pool pages (paged).
+
+- **fused** (default): ``_fused_tick`` runs ``min(tick_tokens,
+  max_steps)`` decode steps with sampling on the device and reads the
+  results back once. The reference exits its ``while_loop`` early when
+  every slot is done or a slot newly finishes; a Python ``if`` on a device
+  value would force a host sync, so here a device-side ``go`` flag masks
+  the steps after that point instead:
+  they change no carry value, and ``device_steps`` counts only the steps
+  where ``go`` held, as the reference counts its loop iterations. A masked
+  step still costs a full decode; the engine counts those in
+  ``masked_steps`` (not an ``EngineStats`` field).
+- **per-token** (``fused=False``, ``step()``): one decode step, one host
+  sync per token: the equivalence oracle.
+
+Temperature sampling draws counter-based noise keyed on (request key,
+position), the request key drawn at ``submit`` from a ``torch.Generator``
+seeded with ``seed``: a request's sampled stream does not depend on masked
+steps, tick sizes, fused or per-token mode, or its slot.
+
+Paged pools (``paged=True``) keep attention K/V in shared
+``[num_pages, page_size, K, h]`` pools addressed through the host-side
+``KVPool``'s page table; full prompt pages are shared through the prefix
+cache. ``kv_dtype="int8"/"fp8"`` stores 1-byte codes with f32 scales per
+(page, KV head) or per row (``scale_granularity``). On the card the paged
+decode kernel takes ``page_size`` 32 only.
+
+Not ported yet, and refused with ``NotImplementedError``: chunked prefill
+(ROADMAP item 8), speculative decode (item 9), a device mesh (item 11).
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.paged import PAGE_SIZE
+from repro_torch.models import kv_quant
+from repro_torch.models import model as M
+from repro_torch.models.layers import ModelOptions, band_len
+from repro_torch.models.params import leaves
+from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
+                                       is_scale_leaf)
+from repro_torch.serving import sampler as S
+from repro_torch.serving.kv_pool import KVPool, PoolExhausted
+from repro_torch.serving.scheduler import (BEST_EFFORT, insert_by_class,
+                                           is_realtime)
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                 # [S] int32
+    max_tokens: int
+    patches: Optional[np.ndarray] = None
+    out_tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    cancelled: bool = False            # aborted via ServingEngine.cancel()
+    t_submit: float = 0.0
+    t_prefill: float = 0.0
+    t_done: float = 0.0
+    queue_s: float = 0.0               # submit -> prefill start (queue wait)
+    ttft_s: float = 0.0                # submit -> first token
+    pages_used: int = 0                # paged engine: pages held at finish
+    pages_shared: int = 0              # paged engine: prefix-cache hits
+    priority: str = BEST_EFFORT        # scheduling class ("realtime" jumps
+    #                                    the queue, EDF within class)
+    deadline_s: float = 0.0            # relative SLO (0 = none)
+    t_deadline: float = math.inf       # t_submit + deadline_s (set by
+    #                                    ServingEngine.submit; inf = none)
+    sample_key: int = 0                # sampling-noise key (set by submit)
+
+
+@dataclass
+class EngineStats:
+    """Host-sync contract + phase + cache accounting for one engine
+    lifetime (the reference's fields, less those of speculative decode and
+    sharded serving, which come with ROADMAP items 9 and 11).
+
+    A "sync" is a device->host readback that blocks the Python loop: the
+    fused path pays one per tick, the per-token path one per token. The
+    cache fields are live only on the paged engine: ``pages_in_use`` /
+    ``pages_hwm`` count pool pages held by live slots, ``cache_bytes_hwm``
+    is the high-water of their device bytes at the pool's storage dtype
+    (codes plus scales for a quantized pool), ``prefix_hits`` counts pages
+    served from the prefix cache."""
+    decode_syncs: int = 0       # blocking readbacks on the decode path
+    prefill_syncs: int = 0      # blocking readbacks at admission
+    ticks: int = 0              # engine ticks (fused or per-token)
+    device_steps: int = 0       # decode steps executed on device
+    tokens_decoded: int = 0     # tokens emitted by the decode path
+    vision_time: float = 0.0
+    prefill_time: float = 0.0
+    decode_time: float = 0.0
+    prefill_tokens: int = 0     # prompt positions run through prefill
+    prefill_key_lanes: int = 0       # sum of rows x banded key length
+    prefill_key_lanes_full: int = 0  # rows x max_seq
+    pages_in_use: int = 0       # paged: current pool pages held by slots
+    pages_hwm: int = 0          # paged: high-water pages in use
+    cache_bytes_hwm: int = 0    # paged: high-water KV bytes actually held
+    prefix_hits: int = 0        # paged: pages reused via the prefix cache
+    queue_s: List[float] = field(default_factory=list)
+    ttft_s: List[float] = field(default_factory=list)
+    tick_s: List[float] = field(default_factory=list)    # whole-tick wall
+    decode_tick_s: List[float] = field(default_factory=list)  # decode stage
+    tick_prefill_tokens: List[int] = field(default_factory=list)
+    tick_key_lanes: List[int] = field(default_factory=list)
+    deadline_hit: Dict[str, int] = field(default_factory=dict)
+    deadline_miss: Dict[str, int] = field(default_factory=dict)
+    preemptions: Dict[str, int] = field(default_factory=dict)
+    tick_ewma_s: float = 0.0    # EWMA whole-tick wall (alpha 0.2)
+
+    def record_tick_wall(self, wall_s: float):
+        """Fold one tick's wall time into the EWMA (first sample seeds)."""
+        self.tick_ewma_s = (wall_s if self.tick_ewma_s == 0.0
+                            else 0.8 * self.tick_ewma_s + 0.2 * wall_s)
+
+    def record_deadline(self, req) -> None:
+        """Score a finishing request against its absolute deadline."""
+        if not (req.deadline_s > 0):
+            return
+        bucket = (self.deadline_hit if req.t_done <= req.t_deadline
+                  else self.deadline_miss)
+        bucket[req.priority] = bucket.get(req.priority, 0) + 1
+
+    def record_preemption(self, req) -> None:
+        self.preemptions[req.priority] = \
+            self.preemptions.get(req.priority, 0) + 1
+
+    def phase_report(self) -> Dict[str, float]:
+        """Wall-time decomposition (vision / prefill / decode seconds),
+        decode-tick p50/p99, queue-wait and TTFT p50/p99, the prefill
+        key-lane ratio, per-class deadline attainment and preemptions, and
+        the paged cache figures."""
+        rep = {"vision": self.vision_time, "prefill": self.prefill_time,
+               "decode": self.decode_time}
+        if self.decode_tick_s:
+            rep["decode_tick_p50"] = float(np.percentile(self.decode_tick_s,
+                                                         50))
+            rep["decode_tick_p99"] = float(np.percentile(self.decode_tick_s,
+                                                         99))
+        for name, samples in (("queue", self.queue_s), ("ttft", self.ttft_s)):
+            if samples:
+                rep[f"{name}_p50"] = float(np.percentile(samples, 50))
+                rep[f"{name}_p99"] = float(np.percentile(samples, 99))
+        if self.prefill_key_lanes_full:
+            rep["prefill_key_lane_ratio"] = (self.prefill_key_lanes
+                                             / self.prefill_key_lanes_full)
+        for cls in sorted(set(self.deadline_hit) | set(self.deadline_miss)):
+            hit = self.deadline_hit.get(cls, 0)
+            miss = self.deadline_miss.get(cls, 0)
+            rep[f"deadline_attainment_{cls}"] = hit / (hit + miss)
+            rep[f"deadline_total_{cls}"] = float(hit + miss)
+        for cls, n in sorted(self.preemptions.items()):
+            rep[f"preemptions_{cls}"] = float(n)
+        if self.tick_ewma_s:
+            rep["tick_ewma_s"] = float(self.tick_ewma_s)
+        if self.pages_hwm:
+            rep["pages_in_use"] = float(self.pages_in_use)
+            rep["pages_hwm"] = float(self.pages_hwm)
+            rep["cache_bytes_hwm"] = float(self.cache_bytes_hwm)
+            rep["prefix_hits"] = float(self.prefix_hits)
+        return rep
+
+
+def prefix_page_keys(cfg_name: str, page_size: int, kv_dtype: str,
+                     prompt: np.ndarray, patches: Optional[np.ndarray] = None,
+                     n_prefix: int = 0) -> List[bytes]:
+    """Prefix-closed digests, one per *full* page of a request's prompt
+    prefix: the content address a ``KVPool`` shares pages under. Key ``i``
+    covers every input that determines KV for positions
+    ``[0, (i+1)*page_size)``: the vision patches (one digest, repeated over
+    the ``n_prefix`` positions they fill) and the prompt tokens so far,
+    seeded with the model name, page size and pool storage dtype. The bytes
+    equal the reference's for the same inputs."""
+    h = hashlib.sha1(f"{cfg_name}:{page_size}:{kv_dtype}".encode())
+    items: List[bytes] = []
+    if n_prefix:
+        pd = hashlib.sha1(np.ascontiguousarray(patches).tobytes()).digest()
+        items.extend([pd] * n_prefix)
+    items.extend(int(t).to_bytes(8, "little", signed=True) for t in prompt)
+    keys = []
+    for i, item in enumerate(items):
+        h.update(item)
+        if (i + 1) % page_size == 0:
+            keys.append(h.digest())
+    return keys
+
+
+def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
+                temperature: float, top_k: int, params, tokens, caches,
+                index, budget, done, keys, max_steps: int, page_table=None,
+                *, device):
+    """``cap = min(K, max_steps)`` decode steps on the device, without a
+    host sync. Per-slot carry: current token [B,1], position ``index``
+    [B], remaining ``budget`` [B], ``done`` [B]; emitted tokens land in
+    ``out`` [B,K] (each live slot fills a prefix of its row, ``n_emit``
+    long). The reference stops when every slot is done or once any slot
+    newly finishes; here that condition is a device flag ``go``, and a
+    step taken after it turns false is
+    masked: every row counts as done, so no carry value changes and each
+    row's cache write lands where a done row's does in the reference (its
+    unchanged position: a retired slot's null page, a live slot's next
+    position, rewritten identically by its next real step). ``steps``
+    counts the steps where ``go`` held (the reference's loop count).
+    ``keys`` [B] are the slots' sampling keys; a step's noise is keyed on
+    the row's position, so masked steps consume no randomness. Returns (tokens, caches, index, budget, done, out, n_emit, steps)."""
+    B = tokens.shape[0]
+    out = torch.full((B, K), -1, dtype=torch.long, device=device)
+    n_emit = torch.zeros(B, dtype=torch.int32, device=device)
+    steps = torch.zeros((), dtype=torch.int32, device=device)
+    entry_done = done
+    for step in range(min(K, max_steps)):
+        go = ~done.all() & ~(done & ~entry_done).any()
+        logits, caches = M.decode_step(cfg, opts, params, tokens, caches,
+                                       index, page_table, device=device)
+        nxt = S.sample_token(logits, temperature, top_k, keys, index)  # [B]
+        live = ~done & go
+        out[:, step] = torch.where(live, nxt, -1)
+        n_emit = n_emit + live.int()
+        budget = torch.where(live, budget - 1, budget)
+        newly = live & ((nxt == eos) | (budget <= 0))
+        index = torch.where(live, index + 1, index)
+        tokens = torch.where(live[:, None], nxt[:, None], tokens)
+        done = done | newly
+        steps = steps + go.int()
+    return tokens, caches, index, budget, done, out, n_emit, steps
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, opts: ModelOptions, params,
+                 n_slots: int = 4, max_seq: int = 512, eos: int = 1,
+                 fused: bool = True, tick_tokens: int = 8,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 paged: bool = False, page_size: int = PAGE_SIZE,
+                 num_pages: Optional[int] = None, kv_dtype: str = "bf16",
+                 scale_granularity: Optional[str] = None,
+                 chunked_prefill: bool = False, spec_decode: bool = False,
+                 slo_hz: float = 0.0, mesh=None, *, device="cuda"):
+        """The reference's engine options, less those of the parts not
+        ported yet: ``chunked_prefill``, ``spec_decode`` and ``mesh`` are
+        accepted only to be refused, and ``slo_hz`` is refused without
+        chunked prefill, as in the reference. The reference's
+        ``stop_on_finish`` and ``prefix_cache`` are fixed on: a tick stops
+        when a slot finishes, and full prompt pages are always shared."""
+        if tick_tokens < 1:
+            raise ValueError(f"tick_tokens must be >= 1, got {tick_tokens}")
+        if mesh is not None:
+            raise NotImplementedError("sharded serving (mesh=) is ROADMAP "
+                                      "item 11")
+        if slo_hz < 0:
+            raise ValueError(f"slo_hz must be >= 0, got {slo_hz}")
+        if slo_hz > 0 and not chunked_prefill:
+            raise ValueError("slo_hz requires chunked_prefill=True: the SLO "
+                             "controller steers the per-tick decode depth "
+                             "and chunk quota, which only exist under the "
+                             "token-budget scheduler")
+        if kv_quant.quant_dtype(kv_dtype) is not None and not paged:
+            raise ValueError("kv_dtype quantization requires paged=True "
+                             "(the page pool is the quantization boundary)")
+        if chunked_prefill:
+            raise NotImplementedError("chunked_prefill is ROADMAP item 8")
+        if spec_decode:
+            raise NotImplementedError("spec_decode is ROADMAP item 9")
+        quantized = kv_quant.quant_dtype(kv_dtype) is not None
+        if scale_granularity is not None and not quantized:
+            raise ValueError("scale_granularity applies only to quantized "
+                             "pools (kv_dtype int8/fp8)")
+        if quantized:
+            scale_granularity = scale_granularity or "head"
+            if scale_granularity not in kv_quant.SCALE_GRANULARITIES:
+                raise ValueError(
+                    f"scale_granularity must be one of "
+                    f"{kv_quant.SCALE_GRANULARITIES}, "
+                    f"got {scale_granularity!r}")
+        self.device = dev = resolve_device(device)
+        if params["embed"].device.type != dev.type:
+            raise ValueError(f"parameters are on {params['embed'].device}, "
+                             f"the engine on {dev}")
+        if paged and dev.type == "cuda" and page_size != PAGE_SIZE:
+            raise ValueError(f"on the card the paged decode kernel takes "
+                             f"page_size {PAGE_SIZE}, got {page_size}")
+        self.scale_granularity = scale_granularity   # None when unquantized
+        self.cfg, self.opts, self.params = cfg, opts, params
+        self.n_slots, self.max_seq, self.eos = n_slots, max_seq, eos
+        self.fused, self.tick_tokens = fused, tick_tokens
+        self.temperature, self.top_k = temperature, top_k
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.index = np.zeros(n_slots, np.int32)       # per-slot position
+        self.budget = np.zeros(n_slots, np.int32)
+        self.tokens = np.zeros((n_slots, 1), np.int32)
+        self.keys = np.zeros(n_slots, np.int64)        # slots' sample keys
+        self.paged, self.page_size = paged, page_size
+        self.kv_dtype = kv_dtype
+        self.pool: Optional[KVPool] = None
+        self._bytes_per_page = 0
+        if paged:
+            if max_seq % page_size:
+                raise ValueError(f"max_seq {max_seq} must divide by "
+                                 f"page_size {page_size}")
+            pages_per_slot = max_seq // page_size
+            if num_pages is None:
+                # worst case every slot fills up, +1 for the null page
+                num_pages = 1 + n_slots * pages_per_slot
+            self.pool = KVPool(num_pages, page_size, n_slots, pages_per_slot)
+            self.caches = M.init_caches(
+                cfg, n_slots, max_seq, torch.float32, paged=True,
+                num_pages=num_pages, page_size=page_size, kv_dtype=kv_dtype,
+                scale_granularity=scale_granularity or "head", device=dev)
+            self._bytes_per_page = sum(
+                t.numel() * t.element_size() // num_pages
+                for path, t in leaves(self.caches) if is_paged_leaf(path))
+        else:
+            self.caches = M.init_caches(cfg, n_slots, max_seq, torch.float32,
+                                        device=dev)
+        self.stats = EngineStats()
+        self.masked_steps = 0       # fused-tick steps run after go fell
+        self.generator = torch.Generator().manual_seed(seed)
+
+    # -- queue -----------------------------------------------------------
+    def _sync(self):
+        """Wait for the device (stage timing only; reads nothing back)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _sample(self, logits, keys, pos):
+        """Admission / per-token sampling with the tick's temperature and
+        top_k (greedy by default) for rows with sample ``keys`` at
+        positions ``pos`` (host arrays); returns device tokens [B]."""
+        return S.sample_token(logits, self.temperature, self.top_k,
+                              self._device(keys, torch.long),
+                              self._device(pos, torch.long))
+
+    def submit(self, req: Request):
+        req.t_submit = time.perf_counter()
+        req.sample_key = int(torch.randint(0, 2 ** 31, (),
+                                           generator=self.generator))
+        req.t_deadline = (req.t_submit + req.deadline_s
+                          if req.deadline_s > 0 else math.inf)
+        insert_by_class(self.queue, req)
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished: queued + in slots."""
+        return len(self.queue) + sum(r is not None for r in self.slots)
+
+    def cancel(self, uid: int) -> bool:
+        """Abort request ``uid`` between ticks, queued or mid-decode: it is
+        marked ``cancelled``, not appended to ``finished``, and a slot's
+        pages return to the pool (its table row resets to the null page).
+        Returns whether the uid was found."""
+        for k, r in enumerate(self.queue):
+            if r.uid == uid:
+                self.queue.pop(k)
+                r.cancelled = True
+                return True
+        for s in range(self.n_slots):
+            req = self.slots[s]
+            if req is not None and req.uid == uid:
+                self.slots[s] = None
+                if self.paged:
+                    self.pool.free_slot(s)
+                    self._update_cache_stats()
+                req.cancelled = True
+                return True
+        return False
+
+    # -- paged bookkeeping ------------------------------------------------
+    def _prefix_page_keys(self, req: Request, n_prefix: int) -> List[bytes]:
+        """``prefix_page_keys`` with this engine's configuration."""
+        return prefix_page_keys(self.cfg.name, self.page_size, self.kv_dtype,
+                                req.prompt, req.patches, n_prefix)
+
+    def _update_cache_stats(self):
+        st, pool = self.stats, self.pool
+        st.pages_in_use = pool.pages_in_use
+        st.pages_hwm = max(st.pages_hwm, pool.pages_hwm)
+        st.cache_bytes_hwm = max(
+            st.cache_bytes_hwm,
+            pool.byte_stats(self._bytes_per_page)["bytes_in_use"])
+        st.prefix_hits = pool.prefix_hits
+
+    def _page_table_device(self):
+        """The page table for the decode tick. Done slots' rows are all
+        null page (``free_slot`` reset them), so their writes sink."""
+        return torch.as_tensor(self.pool.page_table, device=self.device)
+
+    def _preempt_slot(self, s: int):
+        """Evict a live slot under pool pressure: free its pages and requeue
+        the request from scratch at the head of its class (greedy streams
+        regenerate identically)."""
+        self.pool.free_slot(s)
+        req = self.slots[s]
+        if req is not None:
+            self.slots[s] = None
+            req.out_tokens = []
+            self.stats.record_preemption(req)
+            insert_by_class(self.queue, req, front=True)
+
+    def _ensure_pages(self, steps: int):
+        """Allocate pages covering every position the next tick may write
+        (index .. index+steps-1 per live slot, never past its budget) and
+        copy-on-write any shared page in that range. If growth exhausts the
+        pool, the live slot holding the most pages (best-effort first) is
+        preempted; a single request the pool cannot hold raises. Pages a
+        slot gained here get their scale rows zeroed before the tick, so the
+        monotone-amax write starts clean (history independence)."""
+        copies = []
+        held_before: Dict[int, set] = {}
+        for s in range(self.n_slots):
+            if self.slots[s] is None:
+                continue
+            held_before[s] = set(self.pool.slot_pages[s])
+            start = int(self.index[s])
+            end = min(start + min(steps, max(int(self.budget[s]), 1)),
+                      self.max_seq)
+            while True:
+                try:
+                    self.pool.ensure(s, end)
+                    copies += self.pool.prepare_write(s, start, end)
+                    break
+                except PoolExhausted:
+                    victims = [v for v in range(self.n_slots)
+                               if v != s and self.slots[v] is not None]
+                    if not victims:
+                        raise PoolExhausted(
+                            f"KV pool too small for a single request "
+                            f"(slot {s} needs pages for {end} positions)")
+                    be = [v for v in victims
+                          if not is_realtime(self.slots[v])]
+                    self._preempt_slot(max(
+                        be or victims,
+                        key=lambda v: len(self.pool.slot_pages[v])))
+            self.slots[s].pages_used = len(self.pool.slot_pages[s])
+        self._reset_fresh_scales(sorted(
+            {p for s, held in held_before.items()
+             if self.slots[s] is not None
+             for p in self.pool.slot_pages[s]
+             if p not in held}))
+        self._dispatch_copies(copies)
+        self._update_cache_stats()
+
+    def _dispatch_copies(self, copies: List):
+        """Materialize copy-on-write (src, dst) page pairs on the device."""
+        if not copies:
+            return
+        src, dst = (torch.as_tensor(c, device=self.device)
+                    for c in zip(*copies))
+        _copy_pages_impl(self.caches, src, dst)
+
+    def _reset_fresh_scales(self, fresh: List[int]):
+        """Quantized pools: zero the scale rows of pages just handed to a
+        slot, so the monotone-amax write does not inherit a dead request's
+        range."""
+        if not fresh or kv_quant.quant_dtype(self.kv_dtype) is None:
+            return
+        _reset_page_scales_impl(self.caches,
+                                torch.as_tensor(fresh, device=self.device))
+
+    def _clamped_budget(self, req: Request, pos: int) -> int:
+        """Clamp generation to cache capacity: decode writes positions
+        pos..pos+budget-1, which must stay < max_seq in both layouts."""
+        budget = min(req.max_tokens - 1, self.max_seq - pos)
+        if budget < req.max_tokens - 1:
+            warnings.warn(
+                f"request {req.uid}: max_tokens {req.max_tokens} "
+                f"exceeds cache capacity (prompt {pos} + budget > "
+                f"max_seq {self.max_seq}); clamping",
+                RuntimeWarning, stacklevel=2)
+        return budget
+
+    def _finish_slot(self, s: int, now: float):
+        req = self.slots[s]
+        req.done = True
+        req.t_done = now
+        self.stats.record_deadline(req)
+        if self.paged:
+            req.pages_used = len(self.pool.slot_pages[s])
+            self.pool.free_slot(s)
+            self._update_cache_stats()
+        self.finished.append(req)
+        self.slots[s] = None
+
+    def _admit(self):
+        """Admit-stall admission: pop the queue head into every free slot.
+        Per request: a pool capacity check (prompt plus the first decode
+        write) before anything is paid for; vision as its own stage; the
+        batch-1 f32 prefill and its first token (one readback, the TTFT
+        boundary); then the page-wise (paged) or batch-row (dense) scatter.
+        A request that finishes at prefill never takes the slot."""
+        for s in range(self.n_slots):
+            while self.slots[s] is None and self.queue:
+                req = self.queue[0]
+                n_prefix = (self.cfg.vision.num_tokens
+                            if req.patches is not None and self.cfg.vision
+                            else 0)
+                pos = n_prefix + len(req.prompt)
+                keys = (self._prefix_page_keys(req, n_prefix)
+                        if self.paged else [])
+                need = (0 if req.max_tokens <= 1
+                        else min(pos + 1, self.max_seq))
+                if self.paged and need and not self.pool.can_admit(need,
+                                                                   keys):
+                    if not any(r is not None for r in self.slots):
+                        raise PoolExhausted(
+                            f"KV pool ({self.pool.num_pages - 1} pages) too "
+                            f"small for request {req.uid} "
+                            f"({self.pool.num_pages_for(need)} pages)")
+                    return          # defer until a finishing slot frees pages
+                self.queue.pop(0)
+                t0 = time.perf_counter()
+                req.queue_s = t0 - req.t_submit
+                self.stats.queue_s.append(req.queue_s)
+                batch = {"tokens": req.prompt[None, :]}
+                if n_prefix:
+                    batch["prefix"] = M.encode_vision(
+                        self.cfg, self.opts, self.params, req.patches[None],
+                        device=self.device)
+                    self._sync()
+                    t1 = time.perf_counter()
+                    self.stats.vision_time += t1 - t0
+                    t0 = t1
+                logits, cache1 = M.prefill(self.cfg, self.opts, self.params,
+                                           batch, self.max_seq,
+                                           cache_dtype=torch.float32,
+                                           device=self.device)
+                tok = int(self._sample(logits, [req.sample_key],
+                                       [pos - 1])[0])
+                self.stats.prefill_syncs += 1
+                req.t_prefill = time.perf_counter()
+                self.stats.prefill_time += req.t_prefill - t0
+                self.stats.prefill_tokens += pos
+                lanes = band_len(pos, self.opts.prefill_band, self.max_seq)
+                self.stats.prefill_key_lanes += pos * lanes
+                self.stats.prefill_key_lanes_full += pos * self.max_seq
+                req.ttft_s = req.t_prefill - req.t_submit
+                self.stats.ttft_s.append(req.ttft_s)
+                req.out_tokens.append(tok)
+                budget = self._clamped_budget(req, pos)
+                if tok == self.eos or req.max_tokens <= 1 or budget <= 0:
+                    req.done = True
+                    req.t_done = req.t_prefill
+                    self.stats.record_deadline(req)
+                    self.finished.append(req)
+                    continue
+                if self.paged:
+                    try:
+                        pages, n_shared = self.pool.admit(s, pos, keys)
+                    except PoolExhausted:
+                        # can_admit() raced a cached-page eviction: defer,
+                        # rolling this attempt's stats back
+                        self.queue.insert(0, req)
+                        req.out_tokens.pop()
+                        self.stats.queue_s.pop()
+                        self.stats.ttft_s.pop()
+                        self.stats.prefill_tokens -= pos
+                        self.stats.prefill_key_lanes -= pos * lanes
+                        self.stats.prefill_key_lanes_full -= (
+                            pos * self.max_seq)
+                        return
+                    req.pages_used = len(pages)
+                    req.pages_shared = n_shared
+                    # shared pages already hold this prefix's KV
+                    dest = np.zeros(self.pool.pages_per_slot, np.int32)
+                    dest[n_shared:len(pages)] = pages[n_shared:]
+                    _scatter_pages_impl(self.caches, cache1, dest,
+                                        self.page_size)
+                    self._update_cache_stats()
+                else:
+                    _scatter_slot(self.caches, cache1, s)
+                self.index[s] = pos
+                self.budget[s] = budget
+                self.tokens[s, 0] = tok
+                self.keys[s] = req.sample_key
+                self.slots[s] = req
+
+    # -- one engine tick ---------------------------------------------------
+    def _end_tick(self, t_tick: float, pf0: int, kl0: int):
+        self.stats.tick_prefill_tokens.append(
+            self.stats.prefill_tokens - pf0)
+        self.stats.tick_key_lanes.append(self.stats.prefill_key_lanes - kl0)
+        wall = time.perf_counter() - t_tick
+        self.stats.tick_s.append(wall)
+        self.stats.record_tick_wall(wall)
+
+    def _device(self, array, dtype):
+        return torch.as_tensor(array, dtype=dtype, device=self.device)
+
+    def step(self) -> int:
+        """Per-token path: one decode step, one host sync per token."""
+        t_tick = time.perf_counter()
+        pf0, kl0 = self.stats.prefill_tokens, self.stats.prefill_key_lanes
+        self._admit()
+        active = [s for s in range(self.n_slots) if self.slots[s] is not None]
+        if active and self.paged:
+            self._ensure_pages(1)
+            active = [s for s in range(self.n_slots)
+                      if self.slots[s] is not None]
+        if not active:
+            self._end_tick(t_tick, pf0, kl0)
+            return 0
+        pt = self._page_table_device() if self.paged else None
+        t0 = time.perf_counter()
+        logits, self.caches = M.decode_step(
+            self.cfg, self.opts, self.params,
+            self._device(self.tokens, torch.long), self.caches,
+            self._device(self.index, torch.int32), pt, device=self.device)
+        nxt = self._sample(logits, self.keys, self.index).tolist()
+        now = time.perf_counter()
+        self.stats.decode_syncs += 1
+        self.stats.ticks += 1
+        self.stats.device_steps += 1
+        self.stats.tokens_decoded += len(active)
+        self.stats.decode_time += now - t0
+        self.stats.decode_tick_s.append(now - t0)
+        for s in active:
+            req = self.slots[s]
+            tok = int(nxt[s])
+            req.out_tokens.append(tok)
+            self.index[s] += 1
+            self.budget[s] -= 1
+            if tok == self.eos or self.budget[s] <= 0:
+                self._finish_slot(s, now)
+            else:
+                self.tokens[s, 0] = tok
+        self._end_tick(t_tick, pf0, kl0)
+        return len(active)
+
+    def step_fused(self) -> int:
+        """Fused path: up to ``tick_tokens`` decode steps per host sync."""
+        t_tick = time.perf_counter()
+        pf0, kl0 = self.stats.prefill_tokens, self.stats.prefill_key_lanes
+        self._admit()
+        emitted = self._decode_tick(self.tick_tokens)
+        self._end_tick(t_tick, pf0, kl0)
+        return emitted
+
+    def _decode_tick(self, max_steps: int) -> int:
+        """The fused decode stage of one tick: ``min(max_steps,
+        tick_tokens)`` device steps and one readback of the out, n_emit,
+        index, budget, done, tokens and steps tensors together."""
+        active = [s for s in range(self.n_slots) if self.slots[s] is not None]
+        if not active:
+            return 0
+        pt = None
+        cap = min(max_steps, self.tick_tokens)
+        if self.paged:
+            self._ensure_pages(cap)
+            pt = self._page_table_device()
+            # growth may have preempted a slot under pool pressure
+            active = [s for s in range(self.n_slots)
+                      if self.slots[s] is not None]
+            if not active:
+                return 0
+        t0 = time.perf_counter()
+        done0 = np.asarray([self.slots[s] is None
+                            for s in range(self.n_slots)])
+        tokens, self.caches, index, budget, done, out, n_emit, steps = \
+            _fused_tick(self.cfg, self.opts, self.tick_tokens, self.eos,
+                        self.temperature, self.top_k, self.params,
+                        self._device(self.tokens, torch.long), self.caches,
+                        self._device(self.index, torch.int32),
+                        self._device(self.budget, torch.int32),
+                        self._device(done0, torch.bool),
+                        self._device(self.keys, torch.long), cap, pt,
+                        device=self.device)
+        B, K = out.shape
+        host = torch.cat([out.reshape(-1), n_emit.long(), index.long(),
+                          budget.long(), done.long(), tokens[:, 0],
+                          steps.long().reshape(1)]).cpu().numpy()
+        now = time.perf_counter()
+        out_h = host[:B * K].reshape(B, K)
+        n_emit_h, idx_h, bud_h, done_h, tok_h = \
+            host[B * K:B * K + 5 * B].reshape(5, B)
+        steps_h = int(host[-1])
+        self.stats.decode_syncs += 1
+        self.stats.ticks += 1
+        self.stats.device_steps += steps_h
+        self.masked_steps += cap - steps_h
+        self.stats.decode_time += now - t0
+        self.stats.decode_tick_s.append(now - t0)
+        self.index = idx_h.astype(np.int32)
+        self.budget = bud_h.astype(np.int32)
+        self.tokens = tok_h.astype(np.int32)[:, None]
+        emitted = 0
+        for s in active:
+            req = self.slots[s]
+            k = int(n_emit_h[s])
+            req.out_tokens.extend(int(t) for t in out_h[s, :k])
+            emitted += k
+            if done_h[s]:
+                self._finish_slot(s, now)
+        self.stats.tokens_decoded += emitted
+        return emitted
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        """Drive ticks until the queue and slots drain, or ``max_ticks`` is
+        hit; a hit tick budget is surfaced as a warning with the pending
+        count and the phase decomposition."""
+        step = self.step_fused if self.fused else self.step
+        ticks = 0
+        while self.pending and ticks < max_ticks:
+            step()
+            ticks += 1
+        if self.pending:
+            ph = self.stats.phase_report()
+            diag = (f"phases vision={ph['vision']:.3f}s "
+                    f"prefill={ph['prefill']:.3f}s "
+                    f"decode={ph['decode']:.3f}s")
+            for k in ("queue_p50", "queue_p99", "ttft_p50", "ttft_p99",
+                      "decode_tick_p99"):
+                if k in ph:
+                    diag += f"; {k}={ph[k]:.4f}s"
+            warnings.warn(
+                f"ServingEngine.run: tick budget ({max_ticks}) exhausted "
+                f"with {self.pending} requests pending "
+                f"({len(self.queue)} queued, "
+                f"{sum(r is not None for r in self.slots)} in flight; "
+                f"{diag})",
+                RuntimeWarning, stacklevel=2)
+        return self.finished
+
+
+# ---------------------------------------------------------------------------
+# cache maintenance, in place on the engine's cache tensors
+# ---------------------------------------------------------------------------
+
+def _scatter_slot(caches, cache1, slot: int):
+    """Copy a batch-1 prefill cache into slot ``slot`` of dense slot
+    caches, along each leaf's batch axis (``cache_batch_axis``). A paged
+    engine of the port has no slot-batched leaves (its decoders are
+    attention-only), so its admission scatters pages only."""
+    small = dict(leaves(cache1))
+    for path, big in leaves(caches):
+        axis = cache_batch_axis(path)
+        big.select(axis, slot).copy_(small[path].select(axis, 0))
+    return caches
+
+
+def _scatter_pages_impl(caches, cache1, dest_pages, page_size: int):
+    """Scatter a batch-1 dense prefill cache into pool pages, quantizing on
+    the way in for an int8/fp8 pool. ``dest_pages`` [pages_per_slot] (host
+    ints) holds each prompt page's destination; entries 0 (prefix-shared
+    pages, pages past the allocation) are skipped, so the null page stays
+    all zero. A quantized page's scales are its amax / qmax at the pool's
+    granularity (read from the scale leaf's shape), written beside the
+    codes they encode."""
+    dest = np.asarray(dest_pages).reshape(-1)
+    keep = np.flatnonzero(dest)
+    if not len(keep):
+        return caches
+    big = dict(leaves(caches))
+    small = dict(leaves(cache1))
+    src_idx = torch.as_tensor(keep)
+    for path, leaf in big.items():
+        if not is_paged_leaf(path) or is_scale_leaf(path):
+            continue
+        stacked = cache_batch_axis(path) == 1
+        dense = small[path]                     # [(nb,) 1, S, K, h]
+        dst = torch.as_tensor(dest[keep], device=leaf.device)
+        lead = dense.shape[:1] if stacked else ()
+        rows = dense.reshape(*lead, -1, page_size, *dense.shape[-2:])
+        rows = rows[:, src_idx.to(rows.device)] if stacked \
+            else rows[src_idx.to(rows.device)]
+        if kv_quant.is_quantized(leaf.dtype):
+            sc = big[path + "_scale"]
+            gran = "token" if sc.dim() == (4 if stacked else 3) else "head"
+            rows, scales = kv_quant.quantize_page_rows(rows, leaf.dtype, gran)
+            if stacked:
+                sc[:, dst] = scales
+            else:
+                sc[dst] = scales
+        if stacked:
+            leaf[:, dst] = rows.to(leaf.dtype)
+        else:
+            leaf[dst] = rows.to(leaf.dtype)
+    return caches
+
+
+def _reset_page_scales_impl(caches, page_ids):
+    """Zero the quantization-scale rows of ``page_ids`` (the null page 0 is
+    harmless to reset): pages entering a slot through decode growth must
+    not carry their previous owner's scales into the monotone-amax write."""
+    for path, leaf in leaves(caches):
+        if is_scale_leaf(path):
+            if cache_batch_axis(path) == 1:
+                leaf[:, page_ids] = 0.0
+            else:
+                leaf[page_ids] = 0.0
+    return caches
+
+
+def _copy_pages_impl(caches, src_pages, dst_pages):
+    """Copy-on-write on the device: page dst <- page src for every pair,
+    values and scales alike (0 -> 0 pairs are null-page no-ops)."""
+    for path, leaf in leaves(caches):
+        if is_paged_leaf(path):
+            if cache_batch_axis(path) == 1:
+                leaf[:, dst_pages] = leaf[:, src_pages]
+            else:
+                leaf[dst_pages] = leaf[src_pages]
+    return caches

@@ -3,15 +3,18 @@
 Marked ``gpu``; each test skips with a reason where no CUDA device exists
 (the kernels have no CPU mode). This file imports no JAX, so it runs on the
 machine with the card: ``PYTHONPATH=src python -m pytest -q -m gpu
-tests/test_torch_gpu.py``. Inputs are bf16 at the main path's shapes;
-outputs must agree within 1e-2 x max(1, |plain|) (bf16 output rounding and
-f32 sums in another order).
+tests/test_torch_gpu.py``. Inputs are at the main path's shapes; outputs
+must agree within 1e-2 x max(1, |plain|) (bf16 output rounding and f32
+sums in another order). A paged launch and a dense launch over the same
+rows at page_size 32 must be bit-equal.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.kernels.decode_attention import paged as pg
+from repro_torch.models import kv_quant
 
 
 def _cuda():
@@ -21,35 +24,42 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _close(got, want):
+    return bool(((got.float() - want.float()).abs()
+                 <= 1e-2 * want.float().abs().clamp(min=1)).all())
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("index", [0, 511, 831, (640, 700, 783, 831)])
-def test_decode_kernel_on_card(index):
+def test_decode_kernel_on_card(index, kv):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(4, 28, 128, generator=g, device=dev).bfloat16()
-    kc = torch.randn(4, 833, 4, 128, generator=g, device=dev).bfloat16()
-    vc = torch.randn(4, 833, 4, 128, generator=g, device=dev).bfloat16()
+    kc = torch.randn(4, 833, 4, 128, generator=g, device=dev).to(kv)
+    vc = torch.randn(4, 833, 4, 128, generator=g, device=dev).to(kv)
     idx = torch.tensor(index, dtype=torch.int32, device=dev) \
         if isinstance(index, tuple) else index
-    got = da.decode_attention(q, kc, vc, idx).float()
+    got = da.decode_attention(q, kc, vc, idx)
     want = da.decode_attention_ref(q.float(), kc, vc, idx)
     torch.cuda.synchronize()
-    assert ((got - want).abs() <= 1e-2 * want.abs().clamp(min=1)).all()
+    assert _close(got, want)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("index", [0, 320])
-def test_chunk_kernel_on_card(index):
+def test_chunk_kernel_on_card(index, kv):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(4, 640 - index, 28, 128, generator=g,
                     device=dev).bfloat16()
-    kc = torch.randn(4, 640, 4, 128, generator=g, device=dev).bfloat16()
-    vc = torch.randn(4, 640, 4, 128, generator=g, device=dev).bfloat16()
-    got = cp.chunk_prefill_attention(q, kc, vc, index).float()
+    kc = torch.randn(4, 640, 4, 128, generator=g, device=dev).to(kv)
+    vc = torch.randn(4, 640, 4, 128, generator=g, device=dev).to(kv)
+    got = cp.chunk_prefill_attention(q, kc, vc, index)
     want = cp.chunk_prefill_ref(q.float(), kc, vc, index)
     torch.cuda.synchronize()
-    assert ((got - want).abs() <= 1e-2 * want.abs().clamp(min=1)).all()
+    assert _close(got, want)
 
 
 @pytest.mark.gpu
@@ -71,9 +81,93 @@ def test_kernels_count_launches_on_card():
     dev = _cuda()
     q = torch.zeros(1, 4, 16, device=dev)
     kv = torch.zeros(1, 8, 2, 16, device=dev).bfloat16()
-    before = da.decode_attention.launches, cp.chunk_prefill_attention.launches
+    pages = torch.zeros(2, 32, 2, 16, device=dev)
+    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    counters = (da.decode_attention, cp.chunk_prefill_attention,
+                pg.paged_decode_attention)
+    before = [f.launches for f in counters]
     da.decode_attention(q, kv, kv, 3)
     cp.chunk_prefill_attention(q[:, None], kv, kv, 3)
+    pg.paged_decode_attention(q, pages, pages, table, 3)
     torch.cuda.synchronize()
-    assert (da.decode_attention.launches - before[0],
-            cp.chunk_prefill_attention.launches - before[1]) == (1, 1)
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1]
+
+
+def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2):
+    """A shuffled, non-contiguous K and V page pool at the serving engine's
+    shapes (B=8 slots, 4 KV heads, h=128, page 32) holding the rows of
+    dense f32 caches [B, npg*32, 4, 128]. ``gran`` is the scale granularity
+    of an int8/fp8 pool, else the storage ("f32" or "bf16"). Returns
+    (dense k, dense v, k pages, v pages, k scales, v scales, table)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * npg]
+    table = (perm + 1).reshape(B, npg).to(torch.int32)
+    qd = kv_quant.quant_dtype(kv_dtype)
+    store = qd or (torch.float32 if gran == "f32" else torch.bfloat16)
+    out = []
+    for _ in range(2):
+        dense = torch.randn(B, npg * 32, 4, 128, generator=g, device=dev)
+        pages = torch.zeros(num_pages, 32, 4, 128, dtype=store, device=dev)
+        rows = dense.reshape(B * npg, 32, 4, 128)
+        scales = None
+        if qd is not None:
+            rows, sc = kv_quant.quantize_page_rows(rows, qd, gran)
+            scales = torch.zeros((num_pages,) + sc.shape[1:], device=dev)
+            scales[table.reshape(-1).long()] = sc
+        pages[table.reshape(-1).long()] = rows.to(store)
+        out.append((dense.to(store) if qd is None else dense, pages, scales))
+    (dk, kp, ks), (dv, vp, vs) = out
+    return dk, dv, kp, vp, ks, vs, table
+
+
+MIXED = (0, 31, 32, 300, 639, 700, 831, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", [("bf16", "f32"), ("bf16", "bf16"),
+                                     ("int8", "head"), ("int8", "token"),
+                                     ("fp8", "head"), ("fp8", "token")])
+@pytest.mark.parametrize("index", [0, 31, 32, 639, 831, "mixed"])
+def test_paged_kernel_on_card(index, storage):
+    dev = _cuda()
+    _, _, kp, vp, ks, vs, table = _pool(dev, *storage)
+    q = torch.randn(8, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev).bfloat16()
+    idx = (torch.tensor(MIXED, dtype=torch.int32, device=dev)
+           if index == "mixed" else index)
+    got = pg.paged_decode_attention(q, kp, vp, table, idx, k_scales=ks,
+                                    v_scales=vs)
+    if ks is None:
+        want = pg.paged_decode_attention_ref(q.float(), kp, vp, table, idx)
+    else:
+        want = pg.paged_decode_attention_quant_ref(q.float(), kp, vp, ks, vs,
+                                                   table, idx)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 64])
+def test_paged_kernel_bit_equal_to_dense_on_card(store, window):
+    """At page_size 32 a paged launch runs the dense kernel's tile body on
+    the same rows in the same order: the outputs are bit-equal."""
+    dev = _cuda()
+    dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", store)
+    q = torch.randn(8, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev).bfloat16()
+    idx = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    a = pg.paged_decode_attention(q, kp, vp, table, idx, window=window)
+    b = da.decode_attention(q, dk, dv, idx, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_other_page_sizes_on_card():
+    dev = _cuda()
+    q = torch.zeros(1, 4, 16, device=dev)
+    pages = torch.zeros(3, 16, 2, 16, device=dev)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="page_size"):
+        pg.paged_decode_attention(q, pages, pages, table, 3)

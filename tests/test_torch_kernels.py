@@ -2,7 +2,8 @@
 
 On the CPU each wrapper runs its plain PyTorch version; it is held to the
 reference's oracle (``ref.py``) and to the Pallas kernel in interpret mode,
-on the same inputs made with numpy. Both frameworks round the caches to
+on the same inputs made with numpy, with bf16 caches (the control step's)
+and f32 caches (the serving engine's). Both frameworks round the caches to
 bf16 the same way (round to nearest even), and q stays f32, so the
 comparisons are f32 at 1e-5. The CUDA kernels themselves are held to the
 plain versions on the card by ``test_torch_gpu.py``.
@@ -24,15 +25,19 @@ from repro_torch.models import layers as TL
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _inputs(seed, q_shape, kv_shape):
+KV_TYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
+            "f32": (jnp.float32, torch.float32)}
+
+
+def _inputs(seed, q_shape, kv_shape, kv="bf16"):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal(q_shape, dtype=np.float32)
     k = rng.standard_normal(kv_shape, dtype=np.float32)
     v = rng.standard_normal(kv_shape, dtype=np.float32)
-    jq, jk, jv = jnp.asarray(q), jnp.asarray(k, jnp.bfloat16), \
-        jnp.asarray(v, jnp.bfloat16)
-    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k).bfloat16(), \
-        torch.from_numpy(v).bfloat16()
+    jt, tt = KV_TYPES[kv]
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k, jt), jnp.asarray(v, jt)
+    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k).to(tt), \
+        torch.from_numpy(v).to(tt)
     return (jq, jk, jv), (tq, tk, tv)
 
 
@@ -52,9 +57,12 @@ DECODE_CASES = [
 ]
 
 
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
 @pytest.mark.parametrize("B,S,N,K,h,index,window,bk", DECODE_CASES)
-def test_decode_plain_matches_reference(B, S, N, K, h, index, window, bk):
-    (jq, jk, jv), (tq, tk, tv) = _inputs(B * S + h, (B, N, h), (B, S, K, h))
+def test_decode_plain_matches_reference(B, S, N, K, h, index, window, bk,
+                                        kv):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * S + h, (B, N, h), (B, S, K, h),
+                                         kv)
     ji, ti = _index(index)
     got = da.decode_attention(tq, tk, tv, ti, window=window).numpy()
     oracle = jdref.decode_attention_ref(jq, jk, jv, ji, window=window)
@@ -78,10 +86,11 @@ CHUNK_CASES = [
 ]
 
 
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
 @pytest.mark.parametrize("B,S,L,N,K,h,index,window", CHUNK_CASES)
-def test_chunk_plain_matches_reference(B, S, L, N, K, h, index, window):
+def test_chunk_plain_matches_reference(B, S, L, N, K, h, index, window, kv):
     (jq, jk, jv), (tq, tk, tv) = _inputs(B * L + S, (B, S, N, h),
-                                         (B, L, K, h))
+                                         (B, L, K, h), kv)
     ji, ti = _index(index)
     got = cp.chunk_prefill_attention(tq, tk, tv, ti, window=window).numpy()
     oracle = jcref.chunk_prefill_ref(jq, jk, jv, ji, window=window)
@@ -108,7 +117,7 @@ def test_banded_core_chunking_invariance():
 def test_wrappers_reject_unsupported_inputs(bad):
     q = torch.zeros(1, 4, 32 if bad == "head_dim" else 16)
     kv = torch.zeros(1, 8, 2, q.shape[-1],
-                     dtype=torch.float32 if bad == "cache_dtype"
+                     dtype=torch.float16 if bad == "cache_dtype"
                      else torch.bfloat16)
     if bad == "group":
         q, kv = torch.zeros(1, 66, 16), torch.zeros(1, 8, 2, 16).bfloat16()

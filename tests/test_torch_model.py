@@ -21,6 +21,7 @@ from repro_torch.core import vla as tvla
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import params as TP
+from repro_torch.serving import ServingEngine
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -160,8 +161,10 @@ def test_routes():
                  causal=False) == "fresh_dense"
     with pytest.raises(NotImplementedError):
         route("fresh", "none", S=4096, Skv=4096, window=0, opts=opts)
-    with pytest.raises(NotImplementedError):
-        route("decode", "paged", S=1, Skv=1, window=0, opts=opts)
+    assert route("decode", "paged", S=1, Skv=1, window=0,
+                 opts=opts) == "decode_paged_flash"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        route("chunk", "paged", S=8, Skv=8, window=0, opts=opts)
     assert TL.band_len(640, 32, 833) == 640
     assert TL.band_len(641, 32, 833) == 672
     assert TL.band_len(833, 32, 833) == 833
@@ -231,6 +234,7 @@ ENTRY_POINTS = {
     "forward": lambda cfg: TM.forward(cfg, TL.ModelOptions(), {}, {}),
     "vla_control_step": lambda cfg: tvla.vla_control_step(
         cfg, TL.ModelOptions(), {}, {"tokens": [[0]]}),
+    "ServingEngine": lambda cfg: ServingEngine(cfg, TL.ModelOptions(), {}),
 }
 
 
