@@ -4,13 +4,15 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-main paths (and the paged decode kernel bit-equal to the dense one at page
-size 32), ties the card to the CPU port on the reduced molmoact-7b (control
-step and serving engine), then drives two full-width molmoact-7b paths with
-seeded random weights and checks that each ran through the kernels: one
-VLA control step (B=4 robots) through ``vla_control_step``, and the serving
-engine answering 16 robot requests on 8 slots, dense and paged (f32, int8
-and fp8 pools). Prints the card, the phase numbers, one JSON line
+main paths (the paged kernels bit-equal to the dense ones at page size 32,
+the chunk kernels chunking-invariant), ties the card to the CPU port on the
+reduced molmoact-7b (control step, admit-stall and chunked serving
+engines), then drives the full-width molmoact-7b paths with seeded random
+weights and checks that each ran through the kernels: one VLA control step
+(B=4 robots) through ``vla_control_step``, and the serving engine answering
+16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
+pools) and chunked under the token-budget scheduler (dense; paged f32,
+int8 and fp8 pools). Prints the card, the phase numbers, one JSON line
 describing each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, without that line, when there is no CUDA device or any phase
 fails.
@@ -58,6 +60,20 @@ SERVE_ENGINES = [
     ("paged-fp8-token", dict(paged=True, kv_dtype="fp8",
                              scale_granularity="token")),
 ]
+# chunked serving: the same 16 requests under the token-budget scheduler;
+# prompt chunks of 128 positions, 256 positions of work per tick
+CHUNK_SIZE, TOKEN_BUDGET = 128, 256
+CHUNKED = dict(chunked_prefill=True, chunk_size=CHUNK_SIZE,
+               token_budget=TOKEN_BUDGET)
+CHUNKED_ENGINES = [
+    ("dense-chunked", dict(CHUNKED)),
+    ("paged-f32-chunked", dict(CHUNKED, paged=True)),
+    ("paged-int8-head-chunked", dict(CHUNKED, paged=True, kv_dtype="int8")),
+    ("paged-fp8-token-chunked", dict(CHUNKED, paged=True, kv_dtype="fp8",
+                                     scale_granularity="token")),
+]
+CMP_LAYERS = 4       # depth of the f32 chunked-vs-monolithic comparison
+CMP_TOL = 1e-4       # f32 weights; GEMM and attention sums in other orders
 # paged storage variants: (row name, kv_dtype, granularity or page dtype)
 PAGED_VARIANTS = [("f32", "bf16", "f32"), ("bf16", "bf16", "bf16"),
                   ("int8-head", "int8", "head"),
@@ -194,9 +210,10 @@ def kernel_checks(cfg):
         record("chunk_prefill_f32", label, got, want)
 
     paged = paged_checks(cfg, g, errs)
+    paged_chunk = paged_chunk_checks(cfg, g, errs)
     return {"decode": (q, kc, vc), "decode_f32": (qs, ks32, vs32),
             "chunk": (qc, kv, vv), "chunk_f32": (q1, k1, v1),
-            "paged": paged}, errs
+            "paged": paged, "paged_chunk": paged_chunk}, errs
 
 
 def make_pool(g, kv_dtype: str, store: str, num_pages: int, B: int,
@@ -295,6 +312,86 @@ def paged_checks(cfg, g, errs):
     return q, pools
 
 
+def band_table(table, live: int):
+    """A table sliced to the pages of the live band [0, live), as the
+    chunk route slices it."""
+    return table[:, :-(-live // PAGE)].contiguous()
+
+
+def paged_chunk_checks(cfg, g, errs):
+    """The paged chunk-prefill kernel against its plain version at the
+    chunked engine's shapes (128-row chunks of a 640-position prompt, N=28,
+    K=4, h=128, a shuffled 217-page pool) for every storage type: one slot
+    at starts 0, 480 and 512, two slots at mixed starts, window 0 and 64;
+    bit-equal to the dense chunk kernel over the same rows (f32 and bf16
+    pages); and chunking-invariant bit for bit (a 640-row prompt as chunks
+    of 32, 128 and 640). Returns (q of the last chunk, pools)."""
+    import torch
+    from repro_torch.kernels.chunk_prefill import ops as cp
+    from repro_torch.kernels.chunk_prefill import paged as pcp
+    from repro_torch.kernels.decode_attention import paged as pg
+    dev = torch.device("cuda")
+    N, K, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S, npg = CHUNK_SIZE, 640 // PAGE
+    num_pages = 1 + SERVE_SLOTS * (SERVE_MAX_SEQ // PAGE)
+    q2 = torch.randn(2, S, N, h, generator=g, device=dev).bfloat16()
+    mixed = torch.tensor([512, 256], dtype=torch.int32, device=dev)
+    cases = [(1, start, window) for start in (0, 480, 512)
+             for window in (0, 64)] + [(2, mixed, 0), (2, mixed, 64)]
+    pools = {}
+    for name, kv_dtype, store in PAGED_VARIANTS:
+        kp, vp, ks, vs, table = make_pool(g, kv_dtype, store, num_pages, 2,
+                                          npg, K, h)
+        pools[name] = (kp, vp, ks, vs, table)
+        print(f"paged_chunk_prefill vs plain, {name} pages "
+              f"{tuple(kp.shape)} {kp.dtype}, q [B,{S},{N},{h}]")
+        for B, start, window in cases:
+            q = q2[:B]
+            top = int(start.max()) if B > 1 else start
+            pt = band_table(table[:B], top + S)
+            got = pcp.paged_chunk_prefill_attention(
+                q, kp, vp, pt, start, k_scales=ks, v_scales=vs,
+                window=window)
+            want = pcp.paged_chunk_prefill_ref(q.float(), kp, vp, pt, start,
+                                               ks, vs, window)
+            label = (f"B={B} start="
+                     f"{start if B == 1 else start.tolist()} window={window}")
+            key = f"paged_chunk_prefill/{name}"
+            errs[key] = max(errs.get(key, 0.0),
+                            check(label, got, want, KERNEL_TOL))
+    for name in ("f32", "bf16"):
+        kp, vp, _, _, table = pools[name]
+        kd = pg.gather_pages(kp, table).contiguous()
+        vd = pg.gather_pages(vp, table).contiguous()
+        for window in (0, 64):
+            a = pcp.paged_chunk_prefill_attention(q2, kp, vp, table, mixed,
+                                                  window=window)
+            b = cp.chunk_prefill_attention(q2, kd, vd, mixed, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"paged ({name}) and dense chunk "
+                                     f"prefill differ, window {window}")
+        print(f"  paged vs dense chunk prefill over the same {name} rows: "
+              f"bit-equal (starts {mixed.tolist()}, window 0 and 64)")
+    qp = torch.randn(1, 640, N, h, generator=g, device=dev).bfloat16()
+    for name in ("f32", "int8-head", "fp8-token"):
+        kp, vp, ks, vs, table = pools[name]
+        outs = []
+        for c in (32, 128, 640):
+            outs.append(torch.cat([pcp.paged_chunk_prefill_attention(
+                qp[:, s:s + c].contiguous(), kp, vp,
+                band_table(table[:1], s + c), s, k_scales=ks, v_scales=vs)
+                for s in range(0, 640, c)], dim=1))
+        torch.cuda.synchronize()
+        if not (torch.equal(outs[0], outs[1])
+                and torch.equal(outs[1], outs[2])):
+            raise AssertionError(f"paged chunk prefill ({name}): chunks of "
+                                 f"32, 128 and 640 give different rows")
+        print(f"  chunking invariance ({name} pages): a 640-row prompt as "
+              f"chunks of 32, 128 and 640 gives bit-equal rows")
+    return q2[:1].contiguous(), pools
+
+
 def card_vs_cpu(cfg_full):
     """Phase 3: reduced molmoact-7b on the card (kernels) and on the CPU
     (plain versions): equal token streams, prefill logits within
@@ -343,20 +440,34 @@ def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
              rng.standard_normal((cfg.vision.num_tokens,
                                   cfg.vision.embed_dim), dtype=np.float32))
             for n, m in ((6, 9), (9, 4), (4, 14), (7, 6), (5, 11))]
-    for name, kw in SERVE_ENGINES:
+    # chunked engines: prompts of 8 + 21..52 positions in chunks of 32
+    long_reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+                  rng.standard_normal((cfg.vision.num_tokens,
+                                       cfg.vision.embed_dim),
+                                      dtype=np.float32))
+                 for n, m in ((30, 9), (52, 4), (21, 14), (44, 6), (36, 11))]
+    chunked = dict(chunked_prefill=True, chunk_size=PAGE, token_budget=48)
+    runs = [(name, kw, reqs, 64) for name, kw in SERVE_ENGINES]
+    runs += [(name, dict(chunked, **kw), long_reqs, 128)
+             for name, kw in (("dense-chunked", {}),
+                              ("paged-f32-chunked", dict(paged=True)),
+                              ("paged-int8-token-chunked",
+                               dict(paged=True, kv_dtype="int8",
+                                    scale_granularity="token")))]
+    for name, kw, rq, max_seq in runs:
         streams = []
         for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
             eng = ServingEngine(cfg, M.ModelOptions(), params, n_slots=2,
-                                max_seq=64, eos=-1, tick_tokens=4,
+                                max_seq=max_seq, eos=-1, tick_tokens=4,
                                 page_size=PAGE, device=dev, **kw)
-            for i, (prompt, m, px) in enumerate(reqs):
+            for i, (prompt, m, px) in enumerate(rq):
                 eng.submit(Request(uid=i, prompt=prompt, max_tokens=m,
                                    patches=px))
             streams.append({r.uid: r.out_tokens for r in eng.run()})
-        if streams[0] != streams[1] or len(streams[0]) != len(reqs):
+        if streams[0] != streams[1] or len(streams[0]) != len(rq):
             raise AssertionError(f"reduced serving ({name}): card "
                                  f"{streams[0]} vs CPU {streams[1]}")
-        print(f"  reduced serving engine, {name}: {len(reqs)} streams equal "
+        print(f"  reduced serving engine, {name}: {len(rq)} streams equal "
               f"on card and CPU ({sum(map(len, streams[0].values()))} "
               f"tokens)")
 
@@ -379,12 +490,15 @@ def full_params(cfg):
 
 def reset_launches():
     from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
+    from repro_torch.kernels.chunk_prefill.paged import (
+        paged_chunk_prefill_attention)
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.paged import (
         paged_decode_attention)
     kernels = {"decode_attention": decode_attention,
                "chunk_prefill": chunk_prefill_attention,
-               "paged_decode_attention": paged_decode_attention}
+               "paged_decode_attention": paged_decode_attention,
+               "paged_chunk_prefill": paged_chunk_prefill_attention}
     for fn in kernels.values():
         fn.launches = 0
     return kernels
@@ -422,7 +536,7 @@ def full_width(cfg, params):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"chunk_prefill": cfg.num_layers,
             "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "paged_chunk_prefill": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
@@ -512,113 +626,325 @@ def decode_breakdown(cfg, params, caches, start: int, wall_ms: float):
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
 
 
-def serving_full(cfg, params):
-    """Phase 5: the full-width serving engine. 16 requests from 8 seeded
-    observations (576 patches, 64 instruction tokens; each observation sent
-    twice in a row, so its twin hits the prefix cache), 193 tokens each
-    (eos=-1 never fires), on 8 slots with max_seq 864 and 8-token ticks,
-    for every engine of SERVE_ENGINES. Gates: every request finishes with
-    193 tokens; paged-f32 streams equal dense streams; a paged pool drains
-    to 0 pages with >= 8 x 20 prefix hits; each decode step launches the
-    engine's decode kernel 28 times and the other one never; 28 chunk
-    prefills per request; one readback per tick. Returns {engine:
-    (launches, stats)}."""
+def observations(cfg, vocab: int, seed: int):
+    """SERVE_OBS seeded observations: FULL_TEXT instruction tokens below
+    ``vocab`` and the vision tower's patches."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_vis, emb = cfg.vision.num_tokens, cfg.vision.embed_dim
+    return [(torch.randint(0, vocab, (FULL_TEXT,), generator=gen,
+                           device="cuda").cpu().numpy().astype(np.int32),
+             torch.randn((n_vis, emb), generator=gen,
+                         device="cuda").cpu().numpy())
+            for _ in range(SERVE_OBS)]
+
+
+def run_engine(cfg, params, obs, kw, device):
+    """The 16 requests (each observation twice in a row) on one engine;
+    returns (engine, {uid: tokens}, wall seconds)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serving import Request, ServingEngine
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    n_vis, emb = cfg.vision.num_tokens, cfg.vision.embed_dim
-    obs = [(torch.randint(0, cfg.vocab_size, (FULL_TEXT,), generator=gen,
-                          device=dev).cpu().numpy().astype(np.int32),
-            torch.randn((n_vis, emb), generator=gen,
-                        device=dev).cpu().numpy())
-           for _ in range(SERVE_OBS)]
-    prompt_pages = (n_vis + FULL_TEXT) // PAGE
+    eng = ServingEngine(cfg, M.ModelOptions(), params, n_slots=SERVE_SLOTS,
+                        max_seq=SERVE_MAX_SEQ, eos=-1,
+                        tick_tokens=SERVE_TICK, device=device, **kw)
+    for i in range(2 * SERVE_OBS):
+        prompt, px = obs[i // 2]
+        eng.submit(Request(uid=i, prompt=prompt, max_tokens=SERVE_TOKENS,
+                           patches=px))
+    t0 = time.perf_counter()
+    done = eng.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return eng, {r.uid: r.out_tokens for r in done}, \
+        time.perf_counter() - t0
+
+
+PLAN_FIELDS = ("ticks", "device_steps", "prefill_tokens", "prefill_skipped",
+               "prefix_hits", "pages_hwm", "tick_prefill_tokens")
+
+
+def plan_counts(eng):
+    """The counters a chunked engine's host plan fixes: they follow from
+    the requests' lengths and the pool alone (eos never fires)."""
+    return {f: getattr(eng.stats, f) for f in PLAN_FIELDS} | {
+        "masked_steps": eng.masked_steps}
+
+
+def host_plans(cfg):
+    """The chunked engines' host plan, replayed on the CPU: a model of the
+    reduced width with the full model's vision prefix (576 positions) gets
+    the same request lengths, twins, slots, pool and budget, so it runs the
+    same ticks, chunks, prefix hits and pages; the counts of the card's
+    engines must equal these. Returns {"dense": counts, "paged": counts}."""
+    import torch
+    from repro_torch.models import model as M
+    small = cfg.reduced()
+    small = dataclasses.replace(small, vision=dataclasses.replace(
+        small.vision, num_tokens=cfg.vision.num_tokens))
+    params = M.init_params(small, torch.Generator().manual_seed(SEED),
+                           torch.float32, device="cpu")
+    obs = observations(small, small.vocab_size, SEED + 4)
+    plans = {}
+    for layout, kw in (("dense", {}), ("paged", dict(paged=True))):
+        t0 = time.perf_counter()
+        eng, out, _ = run_engine(small, params, obs, dict(CHUNKED, **kw),
+                                 "cpu")
+        if len(out) != 2 * SERVE_OBS:
+            raise AssertionError(f"host plan ({layout}): {len(out)} "
+                                 f"requests finished")
+        plans[layout] = plan_counts(eng)
+        c = plans[layout]
+        print(f"  host plan ({layout}, replayed on the CPU in "
+              f"{time.perf_counter() - t0:.1f} s): ticks {c['ticks']}, "
+              f"device steps {c['device_steps']}, masked steps "
+              f"{c['masked_steps']}, prefill_tokens {c['prefill_tokens']}, "
+              f"prefill_skipped {c['prefill_skipped']}, prefix_hits "
+              f"{c['prefix_hits']}, pages_hwm {c['pages_hwm']}")
+    return plans
+
+
+def serving_full(cfg, params):
+    """Phase 5: the full-width serving engine. 16 requests from 8 seeded
+    observations (576 patches, 64 instruction tokens; each observation sent
+    twice in a row, so its twin can hit the prefix cache), 193 tokens each
+    (eos=-1 never fires), on 8 slots with max_seq 864 and 8-token ticks,
+    for every engine of SERVE_ENGINES (admit-stall) and CHUNKED_ENGINES.
+    Gates: every request finishes with 193 tokens; paged-f32 streams equal
+    dense streams in each mode; a paged pool drains to 0 pages; each decode
+    step launches the engine's decode kernel 28 times and the other one
+    never; admit-stall: 28 dense chunk prefills per request and >= 8 x 20
+    prefix hits; chunked: 28 launches of the layout's chunk kernel per
+    chunk run and none of the other, prefill_tokens + prefill_skipped =
+    16 x 640, no tick's prefill positions above the token budget, one
+    first-token readback per request, and the host plan's counts (ticks,
+    steps, prefix hits, pages) equal to its CPU replay's; one readback per
+    decode tick. Returns {engine: (launches, stats, masked steps)}."""
+    import torch
+    obs = observations(cfg, cfg.vocab_size, SEED + 3)
+    prompt_len = cfg.vision.num_tokens + FULL_TEXT
+    prompt_pages = prompt_len // PAGE
     L = cfg.num_layers
+    plans = host_plans(cfg)
     results, streams = {}, {}
-    for name, kw in SERVE_ENGINES:
+    for name, kw in SERVE_ENGINES + CHUNKED_ENGINES:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        eng = ServingEngine(cfg, M.ModelOptions(), params,
-                            n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
-                            eos=-1, tick_tokens=SERVE_TICK, device=dev, **kw)
-        for i in range(2 * SERVE_OBS):
-            prompt, px = obs[i // 2]
-            eng.submit(Request(uid=i, prompt=prompt, max_tokens=SERVE_TOKENS,
-                               patches=px))
         kernels = reset_launches()
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        eng, out, wall = run_engine(cfg, params, obs, kw, "cuda")
         launches = read_launches(kernels)
         st = eng.stats
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        out = {r.uid: r.out_tokens for r in done}
         streams[name] = out
         n_tok = sum(map(len, out.values()))
         steps = st.device_steps + eng.masked_steps
         rep = st.phase_report()
+        chunked = eng.scheduler is not None
         decode_kernel = ("paged_decode_attention" if eng.paged
                          else "decode_attention")
-        other = ("decode_attention" if eng.paged
-                 else "paged_decode_attention")
+        chunk_kernel = ("paged_chunk_prefill" if eng.paged and chunked
+                        else "chunk_prefill")
+        idle = [k for k in launches if k not in (decode_kernel,
+                                                 chunk_kernel)]
+        # a chunk run adds chunk_size x max_seq full-view key lanes
+        runs = (st.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
+                if chunked else 2 * SERVE_OBS)
         print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
               f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
               f"{st.ticks}, device steps {st.device_steps}, masked steps "
               f"{eng.masked_steps}; TTFT p50/p99 "
               f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
               f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
-              f"{rep['decode_tick_p99'] * 1e3:.2f} ms; phases vision "
+              f"{rep['decode_tick_p99'] * 1e3:.2f} ms; tick p50/p99 "
+              f"{np.percentile(st.tick_s, 50) * 1e3:.2f}/"
+              f"{np.percentile(st.tick_s, 99) * 1e3:.2f} ms; phases vision "
               f"{st.vision_time:.3f} s prefill {st.prefill_time:.3f} s "
-              f"decode {st.decode_time:.3f} s; pages_hwm {st.pages_hwm}, "
-              f"cache_bytes_hwm {st.cache_bytes_hwm}, prefix_hits "
-              f"{st.prefix_hits}; peak memory {peak_gb:.2f} GB; launches "
-              f"{launches}")
+              f"decode {st.decode_time:.3f} s; prefill_tokens "
+              f"{st.prefill_tokens}, prefill_skipped {st.prefill_skipped}, "
+              f"max tick prefill {max(st.tick_prefill_tokens)}; "
+              f"{'chunk runs ' + str(runs) + '; ' if chunked else ''}"
+              f"pages_hwm {st.pages_hwm}, cache_bytes_hwm "
+              f"{st.cache_bytes_hwm}, prefix_hits {st.prefix_hits}; peak "
+              f"memory {peak_gb:.2f} GB; launches {launches}")
         gates = {
             "every request finishes with 193 tokens":
                 len(out) == 2 * SERVE_OBS
                 and all(len(t) == SERVE_TOKENS for t in out.values()),
             f"{decode_kernel} launches == {L} x tick steps":
                 launches[decode_kernel] == L * steps,
-            f"{other} never launched": launches[other] == 0,
-            f"chunk_prefill launches == {L} x 16":
-                launches["chunk_prefill"] == L * 2 * SERVE_OBS,
-            "decode_syncs == ticks": st.decode_syncs == st.ticks,
+            f"{chunk_kernel} launches == {L} x {runs} prefill runs":
+                launches[chunk_kernel] == L * runs,
+            f"{idle} never launched": not any(launches[k] for k in idle),
+            "one readback per decode tick":
+                st.decode_syncs == len(st.decode_tick_s) <= st.ticks,
+            "one first-token readback per request":
+                st.prefill_syncs == 2 * SERVE_OBS,
         }
+        if chunked:
+            plan = plans["paged" if eng.paged else "dense"]
+            gates.update({
+                f"prefill_tokens + prefill_skipped == 16 x {prompt_len}":
+                    st.prefill_tokens + st.prefill_skipped
+                    == 2 * SERVE_OBS * prompt_len,
+                f"no tick prefills more than {TOKEN_BUDGET} positions":
+                    max(st.tick_prefill_tokens) <= TOKEN_BUDGET,
+                "host plan counts equal the CPU replay's":
+                    plan_counts(eng) == plan,
+            })
+        else:
+            gates["decode_syncs == ticks"] = st.decode_syncs == st.ticks
         if eng.paged:
             gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
-            gates[f"prefix_hits >= {SERVE_OBS} x {prompt_pages}"] = \
-                st.prefix_hits >= SERVE_OBS * prompt_pages
+            if not chunked:
+                gates[f"prefix_hits >= {SERVE_OBS} x {prompt_pages}"] = \
+                    st.prefix_hits >= SERVE_OBS * prompt_pages
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width serving ({name}): {failed}")
         results[name] = (launches, st, eng.masked_steps)
-        del eng, done
-    if streams["paged-f32"] != streams["dense"]:
-        raise AssertionError("full-width serving: paged-f32 streams differ "
-                             "from dense streams")
-    print("  paged-f32 streams equal dense streams")
-    ref = streams["paged-f32"]
+        del eng
+    for paged, dense in (("paged-f32", "dense"),
+                         ("paged-f32-chunked", "dense-chunked")):
+        if streams[paged] != streams[dense]:
+            raise AssertionError(f"full-width serving: {paged} streams "
+                                 f"differ from {dense} streams")
+        print(f"  {paged} streams equal {dense} streams")
+
+    def share(out, ref):
+        same = sum(a == b for u in out for a, b in zip(out[u], ref[u]))
+        return same / sum(len(t) for t in ref.values())
     for name, out in streams.items():
         if "int8" in name or "fp8" in name:
-            same = sum(a == b for u in out for a, b in zip(out[u], ref[u]))
-            total = sum(len(t) for t in ref.values())
-            print(f"  {name}: share of tokens equal to the f32 pool's "
-                  f"streams {same / total:.4f} (reported, not a gate)")
+            ref = "paged-f32-chunked" if "chunked" in name else "paged-f32"
+            print(f"  {name}: share of tokens equal to {ref}'s streams "
+                  f"{share(out, streams[ref]):.4f} (reported, not a gate)")
+    print(f"  dense-chunked vs dense (admit-stall): share of equal tokens "
+          f"{share(streams['dense-chunked'], streams['dense']):.4f} "
+          f"(reported, not a gate)")
     return results
+
+
+def prefill_consistency(cfg, params):
+    """Phase 5b: chunked against monolithic prefill of one 640-position
+    prompt at full width in f32 (f32 copies of the seeded weights, the
+    first CMP_LAYERS layers): ``prefill`` from 0 against ``embed_prompt``
+    and five 128-row ``prefill_chunk`` calls on a fresh f32 cache. The last
+    logits and every cached K/V row must agree within CMP_TOL x max(1,
+    |monolithic|). The same comparison in the engines' arithmetic (bf16
+    weights, all layers) and ``shape_dependence`` are reported: they show
+    where chunked and admit-stall streams part."""
+    import torch
+    from repro_torch.core.vla import control_step_lengths
+    from repro_torch.models.params import leaves, set_leaf
+    cut = dataclasses.replace(cfg, num_layers=CMP_LAYERS)
+    p32 = {}
+    for path, t in leaves(params):
+        if path.startswith("decoder/blocks/"):
+            t = t[:CMP_LAYERS]
+        set_leaf(p32, path, t.float())
+    (tokens, patches), = observations(cfg, cfg.vocab_size, SEED + 5)[:1]
+    batch = {"tokens": tokens[None], "patches": patches[None]}
+    P = control_step_lengths(cfg, FULL_TEXT)[0]
+    (mono, c_mono), (chunked, c_chunk) = both_prefills(cut, p32, batch, P)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs()
+                / b.float().abs().clamp(min=1.0)).max().item()
+    err_logits = rel(chunked, mono)
+    err_kv = max(rel(a[..., :P, :, :], b[..., :P, :, :])
+                 for (_, a), (_, b) in zip(leaves(c_chunk), leaves(c_mono)))
+    print(f"  chunked (5 x {CHUNK_SIZE}) vs monolithic prefill, {P} "
+          f"positions, {CMP_LAYERS} layers at full width in f32: last "
+          f"logits max rel diff {err_logits:.3g}, K/V rows max rel diff "
+          f"{err_kv:.3g} (tol {CMP_TOL:g} x max(1, |monolithic|))")
+    if not (err_logits <= CMP_TOL and err_kv <= CMP_TOL):
+        raise AssertionError("chunked and monolithic prefill disagree")
+    del p32, c_mono, c_chunk
+    torch.cuda.empty_cache()
+    (mono, c_mono), (chunked, c_chunk) = both_prefills(cfg, params, batch, P)
+    pairs = [(a[..., :P, :, :], b[..., :P, :, :])
+             for (_, a), (_, b) in zip(leaves(c_chunk), leaves(c_mono))]
+    print(f"  the same in the engines' arithmetic (bf16 weights, f32 "
+          f"caches, {cfg.num_layers} layers): last logits max abs diff "
+          f"{(chunked.float() - mono.float()).abs().max().item():.3g}, "
+          f"argmax equal {bool(chunked.argmax() == mono.argmax())}, "
+          f"{sum(int((a != b).sum()) for a, b in pairs)} of "
+          f"{sum(a.numel() for a, _ in pairs)} K/V values differ "
+          f"(reported, not a gate)")
+    del c_mono, c_chunk
+    shape_dependence(cfg, params, P)
+
+
+def both_prefills(cfg, params, batch, P: int):
+    """One prompt of P positions through ``prefill`` from 0 and through
+    ``embed_prompt`` and CHUNK_SIZE-row ``prefill_chunk`` calls, each into
+    a fresh f32 cache: ((logits, caches) monolithic, (logits, caches)
+    chunked)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import band_len
+    dev = torch.device("cuda")
+    opts = M.ModelOptions()
+    mono = M.prefill(cfg, opts, params, batch, SERVE_MAX_SEQ,
+                     cache_dtype=torch.float32, device=dev)
+    embeds = M.embed_prompt(cfg, opts, params, batch, device=dev)
+    caches = M.init_caches(cfg, 1, SERVE_MAX_SEQ, torch.float32, device=dev)
+    for s in range(0, P, CHUNK_SIZE):
+        logits, _ = M.prefill_chunk(
+            cfg, opts, params, embeds[:, s:s + CHUNK_SIZE], caches,
+            torch.tensor(s, dtype=torch.int32, device=dev),
+            n_valid=torch.tensor(CHUNK_SIZE, dtype=torch.int32, device=dev),
+            live_len=band_len(s + CHUNK_SIZE, opts.prefill_band,
+                              SERVE_MAX_SEQ), device=dev)
+    torch.cuda.synchronize()
+    return mono, (logits, caches)
+
+
+def shape_dependence(cfg, params, P: int):
+    """Which of layer 0's row-wise operations give other bits for P rows
+    run in one call than for the same rows in CHUNK_SIZE-row calls, in the
+    engines' bf16 (seeded random inputs of each operation's width): cuBLAS
+    and PyTorch's reduction kernels may sum in another order for another
+    shape, which separates chunked from admit-stall streams. Reported, not
+    a gate."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.stacks import layer_slice
+    p = layer_slice(params["decoder"]["blocks"], 0)["sub0"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    mats = {n: (p[n].reshape(-1, p[n].shape[-1]) if n == "wo"
+                else p[n].reshape(p[n].shape[0], -1))
+            for n in ("wq", "wk", "wv", "wo", "wi", "wg", "wo_mlp")}
+    ops = {n: (lambda x, w=w: x @ w) for n, w in mats.items()}
+    ops["rms_norm"] = lambda x: L.rms_norm(x, p["ln1_w"], cfg.norm_eps)
+    width = {n: w.shape[0] for n, w in mats.items()}
+    width["rms_norm"] = cfg.d_model
+    counts = {}
+    for name, op in ops.items():
+        x = torch.randn(P, width[name], generator=g,
+                        device="cuda").bfloat16()
+        whole = op(x)
+        parts = torch.cat([op(x[s:s + CHUNK_SIZE])
+                           for s in range(0, P, CHUNK_SIZE)])
+        counts[name] = int((whole != parts).sum())
+    torch.cuda.synchronize()
+    print(f"  layer-0 bf16 operations on {P} rows in one call vs in "
+          f"{CHUNK_SIZE}-row calls, outputs that differ: {counts} "
+          f"(reported, not a gate)")
 
 
 def kernel_timings(inputs, errs, launches, serving):
     """Phase 6: each kernel's time, its plain version's, the library
     yardstick where one PyTorch call computes the same function, and the
-    bound, at the main paths' shapes; the paged kernel per storage type at
-    index 736 of the serving engine's pool."""
+    bound, at the main paths' shapes; the paged decode kernel per storage
+    type at index 736 of the serving engine's pool, the paged chunk kernel
+    per storage type at the chunked engine's last chunk of a prompt (128
+    rows from 512, 20 live pages)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.chunk_prefill import ops as cp
+    from repro_torch.kernels.chunk_prefill import paged as pcp
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention import paged as pg
     rows, off_path = [], []
@@ -679,7 +1005,8 @@ def kernel_timings(inputs, errs, launches, serving):
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 20)}
 
-    dense_engines = [n for n, kw in SERVE_ENGINES if not kw.get("paged")]
+    dense_engines = [n for n, kw in SERVE_ENGINES + CHUNKED_ENGINES
+                     if not kw.get("paged")]
     rows.append(decode_row("decode_attention", "decode_attention",
                            *inputs["decode"],
                            launches["decode_attention"], 200))
@@ -696,11 +1023,11 @@ def kernel_timings(inputs, errs, launches, serving):
     q, pools = inputs["paged"]
     B, N, h = q.shape
     idx = torch.full((B,), pos, dtype=torch.int32, device=q.device)
-    engine_of = {"f32": ["paged-f32"], "bf16": [],
-                 "int8-head": ["paged-int8-head"],
+    engine_of = {"f32": ["paged-f32", "paged-f32-chunked"], "bf16": [],
+                 "int8-head": ["paged-int8-head", "paged-int8-head-chunked"],
                  "int8-token": ["paged-int8-token"],
                  "fp8-head": ["paged-fp8-head"],
-                 "fp8-token": ["paged-fp8-token"]}
+                 "fp8-token": ["paged-fp8-token", "paged-fp8-token-chunked"]}
     # the file that instantiates each storage type's kernel (the template
     # itself is paged_kernel.cuh)
     PAGED_SOURCE = {"f32": "paged_decode_attention.cu",
@@ -741,6 +1068,51 @@ def kernel_timings(inputs, errs, launches, serving):
         # bf16 pages run on no main path (the engine's pools are f32 or
         # codes): timed and printed, but kept out of the kernels line
         (rows if engine_of[name] else off_path).append(row)
+
+    qc, cpools = inputs["paged_chunk"]
+    B, S, N, h = qc.shape
+    start = 512                         # the last chunk of a 640 prompt
+    live = start + S
+    pairs = S * start + S * (S + 1) // 2       # causal (row, key) pairs
+    chunk_engine_of = {"f32": ["paged-f32-chunked"],
+                       "int8-head": ["paged-int8-head-chunked"],
+                       "fp8-token": ["paged-fp8-token-chunked"]}
+    CHUNK_SOURCE = {"f32": "paged_chunk_prefill.cu",
+                    "bf16": "paged_chunk_prefill.cu",
+                    "int8": "paged_chunk_int8.cu",
+                    "fp8": "paged_chunk_fp8.cu"}
+    for name, _, store in PAGED_VARIANTS:
+        kp, vp, ks, vs, table = cpools[name]
+        K = kp.shape[2]
+        pt = band_table(table[:1], live)
+        n_pages = pt.shape[1]
+        nbytes = (2 * qc.numel() * qc.element_size()
+                  + B * live * K * h * 2 * kp.element_size()
+                  + B * n_pages * 4)                          # table entries
+        if ks is not None:  # scales: one per (page, head), or per row
+            nbytes += B * 2 * 4 * (n_pages * K if ks.dim() == 2
+                                   else live * K)
+        t_b, by = bound(nbytes, 4 * B * N * h * pairs, kp.dtype)
+        names = chunk_engine_of.get(name, [])
+        row = {
+            "name": f"paged_chunk_prefill/{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
+                      + CHUNK_SOURCE[name.split("-")[0]],
+            "replaces": "src/repro/kernels/chunk_prefill/paged.py:135",
+            "launches": serve_launches("paged_chunk_prefill", names),
+            "max_abs_err": errs[f"paged_chunk_prefill/{name}"],
+            "ms": time_ms(lambda kp=kp, vp=vp, ks=ks, vs=vs, pt=pt:
+                          pcp.paged_chunk_prefill_attention(
+                              qc, kp, vp, pt, start, k_scales=ks,
+                              v_scales=vs), 50),
+            "plain_ms": time_ms(lambda kp=kp, vp=vp, ks=ks, vs=vs, pt=pt:
+                                pcp.paged_chunk_prefill_ref(
+                                    qc, kp, vp, pt, start, ks, vs), 10),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": None}
+        # storage types no chunked engine of phase 5 runs: timed and
+        # printed, but kept out of the kernels line
+        (rows if names else off_path).append(row)
     for r in rows + off_path:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -772,6 +1144,7 @@ def main() -> int:
     launches = full_width(cfg, params)
     print("phase 5: full-width serving engine")
     serving = serving_full(cfg, params)
+    prefill_consistency(cfg, params)
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
     print(json.dumps({"kernels": rows}))

@@ -42,6 +42,11 @@ SIGNATURES = {
     # kv_batch_stride, window, stream
     "chunk_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _L, _I, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, index, out,
+    # q_bf16, kv_dtype, scale_mode, B, S, N, K, h, page_size, npg, window,
+    # stream
+    "paged_chunk_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

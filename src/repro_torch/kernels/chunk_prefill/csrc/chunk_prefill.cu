@@ -16,91 +16,29 @@
 // arithmetic on the f32 CUDA cores, not the tensor cores, so it runs far
 // from that bound; tensor-core tiles are the next step for this kernel.
 //
-// Design: the TPU kernel keeps a whole chunk's [S,h] f32 accumulator per
-// grid cell (320 KB at S=640, h=128), more than a block's 227 KB of shared
-// memory, so the query axis is tiled: one block per (32-row query tile,
-// query head, slot). Each row walks key blocks of exactly bk = 32 keys on
-// the absolute partition from position 0, in ascending order, skipping
-// blocks dead for every row of the tile. Every row's arithmetic (dot order,
-// the lane-per-key butterfly reductions, the sequential P.V sum) is the same
-// whatever tile or chunk the row sits in, and a block fully masked for a
-// row is an exact no-op for it (-1e30 masking, p = exp(s - m) * mask), so a
-// row's result does not depend on how the prompt was chunked: the
-// chunking-invariance contract of the TPU kernel holds bit for bit.
-//
-// The view is f32 (the serving engine's admission cache) or bf16 (the
-// control step's); an f32 tile pair needs ~53 KB of shared memory, past the
-// 48 KB default, so the tiles are dynamic shared memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design (the tile body, chunk_tile.cuh, is shared with the paged chunk
+// kernel): the query axis is tiled, one block per (32-row query tile,
+// query head, slot); each row walks 32-key blocks on the absolute
+// partition from position 0, so a row's result does not depend on the
+// chunking: the chunking-invariance contract of the TPU kernel holds bit
+// for bit. The view is f32 (the serving engine's admission cache) or bf16
+// (the control step's); an f32 tile pair needs ~53 KB of shared memory,
+// past the 48 KB default, so the tiles are dynamic shared memory.
+#include "chunk_tile.cuh"
 
 namespace {
 
-constexpr int NT = 128;        // threads per block: 4 warps
-constexpr int BQ = 32;         // query rows per block
-constexpr int BK = 32;         // keys per block (= prefill_band): one per lane
-constexpr float NEG_INF = -1e30f;
+using namespace chunk_tile;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// The elements of storage type T packed in one 32-bit word, widened to
-// f32 in order (the K tile is read a word at a time).
-template <typename T> struct Unpack;
-template <> struct Unpack<float> {
-  static constexpr int N = 1;
-  static __device__ __forceinline__ void run(uint32_t w, float* f) {
-    f[0] = __uint_as_float(w);
-  }
-};
-template <> struct Unpack<__nv_bfloat16> {
-  static constexpr int N = 2;
-  static __device__ __forceinline__ void run(uint32_t w, float* f) {
-    f[0] = __uint_as_float(w << 16);            // exact, as __bfloat162float
-    f[1] = __uint_as_float(w & 0xffff0000u);
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared-memory layout of one block, in bytes: the V tile, the padded K
-// tile (rows 4 bytes longer: lanes reading one column of their own rows hit
-// distinct banks), then q [BQ][H], p [BQ][BK], m, l, corr [BQ] in f32.
-template <int H, typename TKV>
-struct Layout {
-  static constexpr int KP = H + 4 / (int)sizeof(TKV);
-  static constexpr int K_OFF = BK * H * (int)sizeof(TKV);
-  static constexpr int F_OFF =
-      K_OFF + (BK * KP * (int)sizeof(TKV) + 15) / 16 * 16;
-  static constexpr size_t BYTES =
-      (size_t)F_OFF + 4 * ((size_t)BQ * H + BQ * BK + 3 * BQ);
+template <typename TKV>
+struct DenseSrc {
+  const TKV* kb;               // slot b, KV head kh, position 0
+  const TKV* vb;
+  size_t row_stride;
+  __device__ const TKV* k(int t0) const { return kb + t0 * row_stride; }
+  __device__ const TKV* v(int t0) const { return vb + t0 * row_stride; }
+  __device__ float k_scale(int, int) const { return 1.f; }
+  __device__ float v_scale(int, int) const { return 1.f; }
 };
 
 template <int H, typename TKV, typename T>
@@ -109,123 +47,11 @@ __global__ void __launch_bounds__(NT) chunk_kernel(
     const TKV* __restrict__ v, const int* __restrict__ index,
     T* __restrict__ out, int S, int L, int N, int K, long long kv_bstride,
     int window) {
-  using Lay = Layout<H, TKV>;
-  constexpr int KP = Lay::KP;
-  constexpr int VEC = 16 / (int)sizeof(TKV);   // elements per 16-byte load
-  constexpr int CPR = H / VEC;                 // 16-byte chunks per row
-  constexpr int CHUNKS = BK * CPR;
-  constexpr int RG = NT / H;             // row groups of the P.V stage
-  constexpr int RPT = BQ / RG;           // rows per thread in the P.V stage
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  TKV* v_s = reinterpret_cast<TKV*>(smem);                   // [BK][H]
-  TKV* k_s = reinterpret_cast<TKV*>(smem + Lay::K_OFF);      // [BK][KP]
-  float* q_s = reinterpret_cast<float*>(smem + Lay::F_OFF);  // [BQ][H]
-  float* p_s = q_s + BQ * H;                                 // [BQ][BK]
-  float* m_s = p_s + BQ * BK;
-  float* l_s = m_s + BQ;
-  float* corr_s = l_s + BQ;
-
-  const int s0 = blockIdx.x * BQ, n = blockIdx.y, b = blockIdx.z;
-  const int kh = n / (N / K);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int idx = index[b];
-  const float scale = (float)(1.0 / sqrt((double)H));
-  const int s_last = min(S, s0 + BQ) - 1;
-  // keys live for some row of the tile: causal bound from the youngest
-  // row, window bound from the oldest
-  const int last = min(L - 1, idx + s_last);
-  const int first = window > 0 ? max(0, idx + s0 - window + 1) : 0;
-
-  for (int i = tid; i < BQ * H; i += NT) {
-    const int r = i / H, s = s0 + r;
-    q_s[r * H + i % H] =
-        s < S ? to_f32<T>(q[(((size_t)b * S + s) * N + n) * H + i % H]) : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-
-  const TKV* kb = k + b * kv_bstride + (size_t)kh * H;
-  const TKV* vb = v + b * kv_bstride + (size_t)kh * H;
-  const size_t row_stride = (size_t)K * H;
-
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  const int d = tid % H, rg = tid / H;
-
-  for (int k0 = first / BK * BK; k0 <= last; k0 += BK) {
-    // stage the key block; lanes dead for every row of the tile are zero
-    for (int c = tid; c < CHUNKS; c += NT) {
-      const int row = c / CPR, col = (c % CPR) * VEC;
-      const int kpos = k0 + row;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (kpos >= first && kpos <= last) {
-        const size_t off = kpos * row_stride + col;
-        kv4 = *reinterpret_cast<const uint4*>(kb + off);
-        vv4 = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + row * KP + col);
-      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
-      *reinterpret_cast<uint4*>(v_s + row * H + col) = vv4;
-    }
-    __syncthreads();
-
-    // scores and softmax statistics: a warp per query row, a lane per key
-    const int kpos = k0 + lane;
-    const uint32_t* krow = reinterpret_cast<const uint32_t*>(k_s + lane * KP);
-    using U = Unpack<TKV>;
-    for (int r = warp; r < BQ; r += NT / 32) {
-      const int qpos = idx + s0 + r;
-      const bool live = s0 + r < S && kpos < L && kpos <= qpos &&
-                        (window <= 0 || qpos - kpos < window);
-      const float* qr = q_s + r * H;
-      float dot = 0.f;
-#pragma unroll
-      for (int w = 0; w < H / U::N; ++w) {
-        float f[U::N];
-        U::run(krow[w], f);
-#pragma unroll
-        for (int e = 0; e < U::N; ++e) dot += qr[w * U::N + e] * f[e];
-      }
-      const float s = live ? dot * scale : NEG_INF;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = expf(s - m_new) * (live ? 1.f : 0.f);
-      const float corr = expf(m_old - m_new);
-      const float psum = warp_sum(p);
-      p_s[r * BK + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + psum;
-        corr_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc[r][d] = acc * corr + sum_t p[r][t] * v[t][d]
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg + RG * i;
-      float pv = 0.f;
-#pragma unroll
-      for (int t = 0; t < BK; ++t)
-        pv += p_s[r * BK + t] * to_f32<TKV>(v_s[t * H + d]);
-      acc[i] = acc[i] * corr_s[r] + pv;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + RG * i, s = s0 + r;
-    if (s < S)
-      out[(((size_t)b * S + s) * N + n) * H + d] =
-          from_f32<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
-  }
+  const int n = blockIdx.y, b = blockIdx.z;
+  const size_t off = b * kv_bstride + (size_t)(n / (N / K)) * H;
+  const DenseSrc<TKV> src{k + off, v + off, (size_t)K * H};
+  chunk_rows<H, TKV, SCALE_NONE, T>(q, out, S, L, N, K, index[b], window,
+                                    src);
 }
 
 template <int H, typename TKV, typename T>
@@ -235,11 +61,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const auto kernel = chunk_kernel<H, TKV, T>;
   constexpr size_t bytes = Layout<H, TKV>::BYTES;
-  if (bytes > 48 * 1024) {
-    static const cudaError_t setup = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (setup != cudaSuccess) return setup;
-  }
+  static const cudaError_t setup = decode_tile::allow_smem(kernel, bytes);
+  if (setup != cudaSuccess) return setup;
   const dim3 grid((S + BQ - 1) / BQ, N, B);
   kernel<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const TKV*>(k),

@@ -1,0 +1,54 @@
+// Banded chunk-prefill attention through a page table, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel paged_chunk_prefill_attention_kernel
+// (src/repro/kernels/chunk_prefill/paged.py, bodies _paged_kernel,
+// _paged_quant_kernel, _paged_quant_tok_kernel). One prefill chunk of S
+// queries at positions index[b] .. index[b]+S-1, already written into a
+// shared pool [num_pages, 32, K, h], attends to the slot's pages: logical
+// positions [p*32, (p+1)*32) live in page page_table[b, p]. Pages hold f32
+// or bf16 values, or int8 / fp8 e4m3 codes with f32 scales per (page, KV
+// head) [num_pages, K] or per row [num_pages, 32, K].
+//
+// What bounds it on the H100: at the serving engine's last chunk of a
+// 640-position prompt (S = 128 from 512, 20 live pages, N = 28, K = 4,
+// h = 128, f32 pages) the causal work is 4*h*N*sum(pos+1) = 1.06 GFLOP
+// against ~6.3 MB moved: the operations bound it, ~16 us on the f32 CUDA
+// cores. Design answer: the dense chunk kernel's tile body
+// (chunk_tile.cuh) with a page as its key block (page_size must be 32, the
+// prefill band), so a paged launch is bit-equal to a dense launch over the
+// same rows and keeps the chunking-invariance contract; blocks past the
+// live band or older than the window are never read, codes are widened
+// and scaled in registers. A simple version first: f32 CUDA cores, no
+// tensor cores, TMA or wgmma.
+#include "paged_chunk_kernel.cuh"
+
+using namespace paged_chunk;
+
+// q [B,S,N,h] (f32, or bf16 when q_bf16); k/v pages [num_pages, 32, K, h],
+// contiguous, of kv_dtype 0 f32, 1 bf16 (scale_mode 0, scales null), 2
+// int8 or 3 fp8 e4m3 (scale_mode 1: f32 scales [num_pages, K]; 2:
+// [num_pages, 32, K]); page_table [B, npg] int32; index [B] int32 chunk
+// starts; out [B,S,N,h] in q's type. Returns the launch's cudaError_t.
+extern "C" int paged_chunk_prefill_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* page_table,
+    const void* index, void* out, int q_bf16, int kv_dtype, int scale_mode,
+    int B, int S, int N, int K, int h, int page_size, int npg, int window,
+    void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || npg <= 0 || N % K != 0 ||
+      page_size != BK || N > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q,  k_pages, v_pages, k_scales, v_scales, page_table, index,
+               out, B,      S,       N,        K,        npg,        window,
+               static_cast<cudaStream_t>(stream)};
+  const bool quant = kv_dtype >= 2;
+  if (quant != (scale_mode != SCALE_NONE)) return (int)cudaErrorInvalidValue;
+  switch (kv_dtype) {
+    case 0: return (int)by_q<float, SCALE_NONE>(q_bf16, h, a);
+    case 1: return (int)by_q<__nv_bfloat16, SCALE_NONE>(q_bf16, h, a);
+    case 2: return (int)launch_int8(scale_mode, q_bf16, h, a);
+    case 3: return (int)launch_fp8(scale_mode, q_bf16, h, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,6 +1,7 @@
 """Layer math of the port (the dense- and paged-cache subset of
 ``repro.models.layers``): norms, RoPE, attention (dense / banded chunk /
-decode, dense or paged), the routed attention sub-layer, and the MLP.
+decode, dense or paged caches), the cache write paths (decode rows and
+prefill chunks), the routed attention sub-layer, and the MLP.
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -16,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
+from repro_torch.kernels.chunk_prefill.paged import (
+    paged_chunk_prefill_attention)
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
@@ -204,16 +207,28 @@ def update_cache(cache, new, index: int):
     return cache
 
 
-def update_cache_chunk(cache, new, index):
+def update_cache_chunk(cache, new, index, n_valid=None):
     """Write ``new`` [B,C,K,h] into ``cache`` [B,Smax,K,h] at positions
     ``index .. index+C-1`` (``index`` int or per-slot [B] tensor), in
-    place; positions are computed on the device, so a device index costs
-    no host sync."""
+    place. With ``n_valid`` (int or [B]; the padding tail of a partial
+    final chunk), rows at or past it, and rows past the cache, are dropped,
+    as the reference's out-of-bounds scatter drops them. Positions and the
+    drop are computed on the device, so a device index or ``n_valid``
+    costs no host sync: a dropped row rewrites the value its target
+    already holds, and a target past the cache moves back by C, below the
+    chunk's first position, so no two rows of one slot share a target."""
     B, C = new.shape[:2]
-    pos = (slot_index(index, B, cache.device).long()[:, None]
-           + torch.arange(C, device=cache.device)[None])          # [B, C]
-    rows = torch.arange(B, device=cache.device)[:, None]
-    cache[rows, pos] = new.to(cache.dtype)
+    dev = cache.device
+    r = torch.arange(C, device=dev)[None]                         # [1, C]
+    pos = slot_index(index, B, dev).long()[:, None] + r           # [B, C]
+    rows = torch.arange(B, device=dev)[:, None]
+    new = new.to(cache.dtype)
+    if n_valid is not None:
+        inside = pos < cache.shape[1]
+        keep = inside & (r < slot_index(n_valid, B, dev).long()[:, None])
+        pos = torch.where(inside, pos, pos - C)
+        new = torch.where(keep[..., None, None], new, cache[rows, pos])
+    cache[rows, pos] = new
     return cache
 
 
@@ -265,6 +280,80 @@ def update_cache_paged(pages, new, page_table, index, scales=None):
     return pages, scales
 
 
+def update_cache_paged_chunk(pages, new, page_table, start, n_valid=None,
+                             scales=None):
+    """Write one prefill chunk ``new`` [B,C,K,h] into the page pool in
+    place, at logical positions ``start .. start+C-1`` of each slot
+    (``start`` int or [B]); rows at or past ``n_valid`` (int or [B]; the
+    padding tail of a partial final chunk) go to the null page as zeros.
+    Returns ``(pages, scales)`` like ``update_cache_paged``.
+
+    - Unquantized and token-scale pools: one vectorised encode and
+      scatter (valid rows hit distinct (page, offset) cells; a token row's
+      codes and scale depend on that row alone).
+    - Head-scale pools: the rows replay ``update_cache_paged``'s
+      monotone-amax write in position order. The reference replays one
+      row at a time through the pool; pages are independent and a page's
+      rows are written in offset order either way, so here the pages the
+      chunk touches are gathered once, iteration ``o`` writes the row at
+      offset ``o`` of every one of them at once (``ps`` iterations instead
+      of C), and the pages are scattered back: bit for bit the same pool.
+      An iteration with no valid row for a page re-encodes it at its
+      unchanged scale, which leaves every code as it was. The reference's
+      replay runs in a compiled loop, where XLA divides by qmax as a
+      multiplication by its reciprocal; the replay does the same, so its
+      scales equal the reference's bit for bit."""
+    B, C = new.shape[:2]
+    dev = pages.device
+    ps, npg = pages.shape[1], page_table.shape[1]
+    st = slot_index(start, B, dev).long()
+    nv = slot_index(C if n_valid is None else n_valid, B, dev).long()
+    if scales is None or scales.dim() == 3:
+        r = torch.arange(C, device=dev)[None]
+        idx = st[:, None] + r                                       # [B, C]
+        live = r < nv[:, None]
+        pid = page_table.long().gather(1, (idx // ps).clamp(max=npg - 1))
+        pid = torch.where(live, pid, 0)
+        rows = torch.where(live[..., None, None], new.float(), 0.0)
+        if scales is None:
+            pages[pid, idx % ps] = rows.to(pages.dtype)
+            return pages, None
+        row_scale = rows.abs().amax(-1) / kv_quant.qmax(pages.dtype)
+        pages[pid, idx % ps] = kv_quant.encode(rows, row_scale[..., None],
+                                               pages.dtype)
+        scales[pid, idx % ps] = row_scale
+        return pages, scales
+    # head scales: chunk row i sits at offset o of page slot j, where
+    # (start // ps + j) * ps + o = start + i
+    span = -(-C // ps) + 1                    # page slots a chunk can touch
+    K, h = new.shape[2:]
+    slot = st[:, None] // ps + torch.arange(span, device=dev)   # [B, span]
+    i = ((slot * ps - st[:, None])[..., None]
+         + torch.arange(ps, device=dev))                     # [B, span, ps]
+    ok = (i >= 0) & (i < C) & (i < nv[:, None, None])
+    # a page slot with no valid row writes back to the null page (zeros)
+    pid = page_table.long().gather(1, slot.clamp(max=npg - 1))
+    pid = torch.where(ok.any(-1), pid, 0).reshape(-1)           # [B*span]
+    rows = new.float().gather(1, i.clamp(0, C - 1).reshape(B, -1, 1, 1)
+                              .expand(-1, -1, K, h))
+    rows = rows.reshape(B * span, ps, K, h)
+    ok = ok.reshape(B * span, ps)
+    codes, sc = pages[pid], scales[pid]          # [M, ps, K, h], [M, K]
+    recip = 1.0 / kv_quant.qmax(pages.dtype)
+    for o in range(ps):
+        tok, live = rows[:, o], ok[:, o, None]
+        grown = torch.where(live, torch.maximum(sc, tok.abs().amax(-1)
+                                                * recip), sc)
+        page_f = kv_quant.decode(codes, sc[:, None, :, None])
+        page_f[:, o] = torch.where(live[..., None], tok, page_f[:, o])
+        codes = kv_quant.encode(page_f, grown[:, None, :, None],
+                                pages.dtype)
+        sc = grown
+    pages[pid] = codes
+    scales[pid] = sc
+    return pages, scales
+
+
 # ---------------------------------------------------------------------------
 # unified attention dispatch
 # ---------------------------------------------------------------------------
@@ -275,14 +364,16 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
     (mode x layout x shape) -> core name. Modes: ``decode`` (S == 1
     against a cache), ``chunk`` (S > 1 against a live cache view),
     ``fresh`` (attention over exactly the new rows). Layouts: ``dense``,
-    ``paged`` (decode only so far) and ``none``. Whether a ``*_flash``
-    core launches a kernel or runs its plain version follows from the
-    tensors' device."""
+    ``paged`` (decode and chunk) and ``none``. Whether a ``*_flash`` core
+    launches a kernel or runs its plain version follows from the tensors'
+    device."""
     if layout == "paged":
         if mode == "decode":
             return "decode_paged_flash"
-        raise NotImplementedError("prefill chunks through a page table "
-                                  "(chunk_paged_flash) are ROADMAP item 8")
+        if mode == "chunk":
+            return "chunk_paged_flash"
+        raise NotImplementedError(f"{mode!r} attention through a page "
+                                  "table has no route")
     if layout not in ("dense", "none"):
         raise NotImplementedError(f"{layout!r} caches are ROADMAP item 12")
     if mode == "decode":
@@ -327,6 +418,14 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
             return chunk_prefill_attention(q, kb, vb, index, window=window,
                                            bk=band)
         return attention_chunk_banded(q, kb, vb, index, window, band)
+    if route == "chunk_paged_flash":
+        # the live band through the table: whole pages up to the band bound
+        ps, npg = k.shape[1], page_table.shape[1]
+        Lb = band_len(live_bound(live_len, npg * ps), opts.prefill_band,
+                      npg * ps)
+        return paged_chunk_prefill_attention(
+            q, k, v, page_table[:, :(Lb + ps - 1) // ps], index,
+            k_scales=k_scales, v_scales=v_scales, window=window)
     if route == "fresh_dense":
         q_pos = q_pos[0] if q_pos.dim() == 2 else q_pos
         k_pos = k_pos[0] if k_pos.dim() == 2 else k_pos
@@ -337,15 +436,17 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
 
 def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
               positions, cache=None, cache_index=None, causal: bool = True,
-              live_len=None, page_table=None):
+              live_len=None, page_table=None, n_valid=None):
     """Attention sub-layer: projections + RoPE + cache write path + the
     routed core + output projection. ``cache`` is a dense (k, v) pair of
     [B, Smax, K, h] tensors, written in place at ``cache_index``; S == 1 is
     decode, a chunk filling the whole buffer from 0 attends within itself,
-    any other S > 1 runs the banded chunk core against the live cache.
-    With ``page_table`` [B, npg] the cache is a pair of page pools
-    [P, ps, K, h] (a 4-tuple adds a quantized pool's scales) and S must be
-    1. Returns (out, cache)."""
+    any other S > 1 runs the banded chunk core against the live cache
+    (``live_len`` bounds its key axis). With ``page_table`` [B, npg] the
+    cache is a pair of page pools [P, ps, K, h] (a 4-tuple adds a quantized
+    pool's scales): S == 1 writes one row per slot, S > 1 scatters a
+    prefill chunk page-wise and attends through the pool. ``n_valid`` drops
+    a chunk's padding rows from the write path. Returns (out, cache)."""
     B, S, _ = x.shape
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
@@ -357,19 +458,22 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
         k = rope(k, positions, cfg.rope_theta)
 
     if cache is not None and page_table is not None:
-        if S != 1:
-            raise NotImplementedError("prefill chunks written through a "
-                                      "page table (update_cache_paged_chunk)"
-                                      " are ROADMAP item 8")
         k_sc, v_sc = cache[2:] if len(cache) == 4 else (None, None)
-        update_cache_paged(cache[0], k, page_table, cache_index, k_sc)
-        update_cache_paged(cache[1], v, page_table, cache_index, v_sc)
-        route = attention_route("decode", "paged", S=S, Skv=1,
-                                window=window, opts=opts, causal=causal)
+        if S == 1:
+            update_cache_paged(cache[0], k, page_table, cache_index, k_sc)
+            update_cache_paged(cache[1], v, page_table, cache_index, v_sc)
+        else:
+            update_cache_paged_chunk(cache[0], k, page_table, cache_index,
+                                     n_valid, k_sc)
+            update_cache_paged_chunk(cache[1], v, page_table, cache_index,
+                                     n_valid, v_sc)
+        route = attention_route("decode" if S == 1 else "chunk", "paged",
+                                S=S, Skv=S, window=window, opts=opts,
+                                causal=causal)
         out = run_attention_core(route, q, cache[0], cache[1], opts=opts,
                                  window=window, index=cache_index,
                                  page_table=page_table, k_scales=k_sc,
-                                 v_scales=v_sc)
+                                 v_scales=v_sc, live_len=live_len)
     elif cache is not None:
         smax = cache[0].shape[1]
         if window != GLOBAL_WINDOW and smax == window:
@@ -377,8 +481,8 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
                                       "item 12")
         if S > smax:
             raise ValueError(f"prefill length {S} exceeds cache {smax}")
-        update_cache_chunk(cache[0], k, cache_index)
-        update_cache_chunk(cache[1], v, cache_index)
+        update_cache_chunk(cache[0], k, cache_index, n_valid)
+        update_cache_chunk(cache[1], v, cache_index, n_valid)
         whole = (isinstance(cache_index, int) and cache_index == 0
                  and S == smax)
         mode = "decode" if S == 1 else ("fresh" if whole else "chunk")

@@ -4,6 +4,10 @@
     params   = init_params(cfg, generator, device=...)   # or params.from_jax
     logits   = forward(cfg, opts, params, batch)
     logits, caches = prefill(cfg, opts, params, batch, max_seq)
+    logits, caches = prefill(..., caches=caches, cache_index=5)  # a suffix
+    embeds = embed_prompt(cfg, opts, params, batch)    # chunked prefill:
+    logits, caches = prefill_chunk(cfg, opts, params, embeds[:, s:s + C],
+                                   caches, s, n_valid=n)
     logits, caches = decode_step(cfg, opts, params, tok, caches, index)
     logits, caches = decode_step(..., page_table=table)   # paged pools
 
@@ -25,9 +29,9 @@ from repro_torch.models import stacks
 from repro_torch.models.layers import ModelOptions, apply_norm
 from repro_torch.models.stacks import init_caches  # re-export
 
-__all__ = ["model_template", "forward", "prefill", "decode_step",
-           "decode_loop", "encode_vision", "init_params", "init_caches",
-           "ModelOptions"]
+__all__ = ["model_template", "forward", "prefill", "embed_prompt",
+           "prefill_chunk", "decode_step", "decode_loop", "encode_vision",
+           "init_params", "init_caches", "ModelOptions"]
 
 
 def model_template(cfg: ModelConfig) -> Dict:
@@ -116,6 +120,13 @@ def _sequence(params, batch, cfg, dev):
     return x, positions
 
 
+def _positions(index, B: int, S: int, dev):
+    """Positions [B, S] of S rows from ``index`` (int, or a 0-d or [B]
+    tensor, kept on the device)."""
+    start = torch.as_tensor(index, device=dev, dtype=torch.long)
+    return (start.reshape(-1, 1) + torch.arange(S, device=dev)).expand(B, S)
+
+
 def forward(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
             device="cuda"):
     """Full-sequence forward -> logits [B, S_total, V]."""
@@ -127,18 +138,95 @@ def forward(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
 
 
 def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
-            max_seq: int, cache_dtype=torch.bfloat16, *, device="cuda"):
-    """Process the prompt from position 0, filling a fresh dense cache
-    sized ``max_seq``. Returns (last-position logits [B,1,V], caches).
-    Prefill from a later position is ROADMAP item 8."""
+            max_seq: int, cache_dtype=torch.bfloat16, caches=None,
+            cache_index=0, page_table=None, live_len=None, *,
+            device="cuda"):
+    """Process the prompt, filling a decode cache sized ``max_seq``.
+    Returns (last-position logits [B,1,V], caches).
+
+    From position 0 (the default) a fresh dense cache is allocated.
+    ``cache_index > 0`` is prefill-from-position: ``batch['tokens']`` is a
+    suffix starting there, written into the given ``caches`` (in place)
+    and attending to everything already in them. Positioned prefill is
+    tokens-only (a vision prefix fills positions 0..n_vis-1, before any
+    suffix) and needs ``caches``. ``page_table`` [B, npg] routes writes and
+    reads through a paged pool. ``live_len`` bounds the banded chunk
+    core's key axis to ``[0, live_len)``; an int ``cache_index`` derives
+    it, a device one leaves the whole view unless it is given."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    x, positions = _sequence(params, batch, cfg, dev)
-    caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype, device=dev)
+    positioned = caches is not None or page_table is not None \
+        or not (isinstance(cache_index, int) and cache_index == 0)
+    if not positioned:
+        x, positions = _sequence(params, batch, cfg, dev)
+        caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype,
+                             device=dev)
+        if live_len is None:
+            live_len = x.shape[1]
+    else:
+        if caches is None:
+            raise ValueError("prefill from cache_index > 0 (or through a "
+                             "page table) needs existing caches")
+        if "prefix" in batch or "patches" in batch:
+            raise ValueError("positioned prefill is tokens-only; fold the "
+                             "vision prefix in at cache_index == 0 (or use "
+                             "prefill_chunk over precomputed embeddings)")
+        tokens = _on(batch["tokens"], dev, torch.long)
+        B, S = tokens.shape
+        positions = _positions(cache_index, B, S, dev)
+        x = _embed_tokens(params, tokens)
+        if page_table is not None:
+            page_table = _on(page_table, dev, torch.int32)
+        if live_len is None and isinstance(cache_index, int):
+            live_len = cache_index + S
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
-                                     positions, caches=caches, cache_index=0,
-                                     live_len=x.shape[1])
+                                     positions, caches=caches,
+                                     cache_index=cache_index,
+                                     live_len=live_len,
+                                     page_table=page_table)
     return _logits(params, x[:, -1:], cfg), caches
+
+
+def embed_prompt(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
+                 device="cuda"):
+    """The prompt's embedding sequence [B, S_total, d_model] exactly as
+    ``prefill`` builds it (vision prefix folded in). The chunked scheduler
+    computes it once per request and slices it into ``prefill_chunk``
+    calls."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    return _sequence(params, batch, cfg, dev)[0]
+
+
+def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
+                  caches, cache_index, n_valid=None, page_table=None,
+                  live_len=None, *, device="cuda"):
+    """Positioned prefill over one chunk of precomputed embeddings
+    (``embed_prompt``'s output sliced to [B, C, d], zero-padded to C) at
+    ``cache_index`` (int or device tensor). Returns (logits at the last
+    valid row [B,1,V], caches), the caches written in place.
+
+    The chunk's queries attend to every cache position up to their own,
+    earlier chunks and prefix-cache pages alike, through the banded chunk
+    core over ``[0, live_len)`` (None: the whole view). ``n_valid`` (int or
+    device scalar) is how many rows are real prompt: padding rows are kept
+    out of the cache (dense writes dropped, paged writes sent to the null
+    page), and only row ``n_valid - 1``, picked by a device index, goes
+    through the lm head."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    B, C, _ = embeds.shape
+    positions = _positions(cache_index, B, C, dev)
+    if page_table is not None:
+        page_table = _on(page_table, dev, torch.int32)
+    x, caches = stacks.apply_decoder(params["decoder"], embeds, cfg, opts,
+                                     positions, caches=caches,
+                                     cache_index=cache_index,
+                                     page_table=page_table, n_valid=n_valid,
+                                     live_len=live_len)
+    last = torch.as_tensor(C if n_valid is None else n_valid, device=dev,
+                           dtype=torch.long).reshape(1) - 1
+    return _logits(params, x.index_select(1, last), cfg), caches
 
 
 def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
@@ -153,8 +241,7 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     _check_params(params, dev)
     token = _on(token, dev, torch.long)
     B = token.shape[0]
-    positions = (torch.as_tensor(index, device=dev, dtype=torch.long)
-                 .reshape(-1, 1).expand(B, 1))
+    positions = _positions(index, B, 1, dev)
     x = _embed_tokens(params, token)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)

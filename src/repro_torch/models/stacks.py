@@ -166,10 +166,11 @@ def layer_slice(tree, i: int):
 
 def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                    kind: SubKind, positions, cache=None, cache_index=None,
-                   live_len=None, page_table=None):
+                   live_len=None, page_table=None, n_valid=None):
     """One pre-norm attention + dense-FFN sub-layer; ``cache`` (a dict with
     ``k``/``v``, dense or page pools, plus ``k_scale``/``v_scale`` for a
-    quantized pool) is written in place. Returns x."""
+    quantized pool) is written in place, a prefill chunk's rows at or past
+    ``n_valid`` dropped. Returns x."""
     h = L.apply_norm(p, x, cfg, "ln1")
     kv = None
     if cache is not None:
@@ -178,7 +179,7 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
             kv += (cache["k_scale"], cache["v_scale"])
     a, _ = L.attention(p, h, cfg, opts, kind.window, positions, cache=kv,
                        cache_index=cache_index, live_len=live_len,
-                       page_table=page_table)
+                       page_table=page_table, n_valid=n_valid)
     x = x + a
     if kind.ffn == "dense":
         x = x + L.mlp(p, L.apply_norm(p, x, cfg, "ln2"), cfg)
@@ -187,10 +188,11 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
                   positions, caches=None, cache_index=None, live_len=None,
-                  page_table=None):
+                  page_table=None, n_valid=None):
     """Run the decoder stack, layer by layer. ``caches`` (from
     ``init_caches``) is updated in place; ``page_table`` [B, npg] marks
-    them as page pools. Returns (x, caches)."""
+    them as page pools; ``n_valid`` masks a prefill chunk's padding rows
+    out of every layer's cache write. Returns (x, caches)."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
     layers = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
@@ -202,7 +204,7 @@ def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
     for p, kind, cache in layers:
         x = apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
                            cache_index=cache_index, live_len=live_len,
-                           page_table=page_table)
+                           page_table=page_table, n_valid=n_valid)
     return x, caches
 
 

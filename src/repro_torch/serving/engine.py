@@ -31,10 +31,17 @@ Paged pools (``paged=True``) keep attention K/V in shared
 ``KVPool``'s page table; full prompt pages are shared through the prefix
 cache. ``kv_dtype="int8"/"fp8"`` stores 1-byte codes with f32 scales per
 (page, KV head) or per row (``scale_granularity``). On the card the paged
-decode kernel takes ``page_size`` 32 only.
+kernels take ``page_size`` 32 only.
 
-Not ported yet, and refused with ``NotImplementedError``: chunked prefill
-(ROADMAP item 8), speculative decode (item 9), a device mesh (item 11).
+Chunked prefill (``chunked_prefill=True``) replaces admit-stall admission
+with the token-budget scheduler (``serving.scheduler``): a request takes a
+slot as a prefill task, and each tick runs its prompt in ``chunk_size``
+chunks under ``token_budget`` beside the budget-capped decode stage
+(``_tick_chunked``); ``slo_hz`` adds the SLO controller. Chunks write a
+batch-1 dense cache (dense engines) or the slot's pool pages in place.
+
+Not ported yet, and refused with ``NotImplementedError``: speculative
+decode (ROADMAP item 9), a device mesh (item 11).
 """
 from __future__ import annotations
 
@@ -59,8 +66,11 @@ from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
                                        is_scale_leaf)
 from repro_torch.serving import sampler as S
 from repro_torch.serving.kv_pool import KVPool, PoolExhausted
-from repro_torch.serving.scheduler import (BEST_EFFORT, insert_by_class,
-                                           is_realtime)
+from repro_torch.serving.scheduler import (BEST_EFFORT, ChunkedScheduler,
+                                           ChunkPlan, PrefillTask,
+                                           SLOController, eviction_victims,
+                                           insert_by_class, is_realtime,
+                                           req_deadline)
 
 
 @dataclass
@@ -79,6 +89,7 @@ class Request:
     ttft_s: float = 0.0                # submit -> first token
     pages_used: int = 0                # paged engine: pages held at finish
     pages_shared: int = 0              # paged engine: prefix-cache hits
+    prefill_skipped: int = 0           # prompt positions skipped (prefix hit)
     priority: str = BEST_EFFORT        # scheduling class ("realtime" jumps
     #                                    the queue, EDF within class)
     deadline_s: float = 0.0            # relative SLO (0 = none)
@@ -109,6 +120,7 @@ class EngineStats:
     prefill_time: float = 0.0
     decode_time: float = 0.0
     prefill_tokens: int = 0     # prompt positions run through prefill
+    prefill_skipped: int = 0    # prompt positions skipped via prefix hits
     prefill_key_lanes: int = 0       # sum of rows x banded key length
     prefill_key_lanes_full: int = 0  # rows x max_seq
     pages_in_use: int = 0       # paged: current pool pages held by slots
@@ -251,14 +263,19 @@ class ServingEngine:
                  paged: bool = False, page_size: int = PAGE_SIZE,
                  num_pages: Optional[int] = None, kv_dtype: str = "bf16",
                  scale_granularity: Optional[str] = None,
-                 chunked_prefill: bool = False, spec_decode: bool = False,
-                 slo_hz: float = 0.0, mesh=None, *, device="cuda"):
+                 chunked_prefill: bool = False, chunk_size: int = 32,
+                 token_budget: int = 64,
+                 reserve_pages: Optional[int] = None,
+                 spec_decode: bool = False, slo_hz: float = 0.0, mesh=None,
+                 *, device="cuda"):
         """The reference's engine options, less those of the parts not
-        ported yet: ``chunked_prefill``, ``spec_decode`` and ``mesh`` are
-        accepted only to be refused, and ``slo_hz`` is refused without
-        chunked prefill, as in the reference. The reference's
-        ``stop_on_finish`` and ``prefix_cache`` are fixed on: a tick stops
-        when a slot finishes, and full prompt pages are always shared."""
+        ported yet: ``spec_decode`` and ``mesh`` are accepted only to be
+        refused, and ``slo_hz`` is refused without chunked prefill, as in
+        the reference. The reference's ``stop_on_finish`` and
+        ``prefix_cache`` are fixed on: a tick stops when a slot finishes,
+        and full prompt pages are always shared. ``reserve_pages`` (paged)
+        is the decode headroom admission never takes: n_slots by default
+        under chunked prefill, else 0."""
         if tick_tokens < 1:
             raise ValueError(f"tick_tokens must be >= 1, got {tick_tokens}")
         if mesh is not None:
@@ -275,7 +292,17 @@ class ServingEngine:
             raise ValueError("kv_dtype quantization requires paged=True "
                              "(the page pool is the quantization boundary)")
         if chunked_prefill:
-            raise NotImplementedError("chunked_prefill is ROADMAP item 8")
+            if not fused:
+                raise ValueError("chunked_prefill requires the fused decode "
+                                 "path (fused=True)")
+            if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
+                raise ValueError("chunked_prefill requires attention-only "
+                                 "decoders (SSM prefill state is not "
+                                 "chunk-resumable yet)")
+            if paged and chunk_size % page_size:
+                raise ValueError(f"chunk_size {chunk_size} must divide by "
+                                 f"page_size {page_size} so chunk writes "
+                                 f"start page-aligned")
         if spec_decode:
             raise NotImplementedError("spec_decode is ROADMAP item 9")
         quantized = kv_quant.quant_dtype(kv_dtype) is not None
@@ -294,8 +321,21 @@ class ServingEngine:
             raise ValueError(f"parameters are on {params['embed'].device}, "
                              f"the engine on {dev}")
         if paged and dev.type == "cuda" and page_size != PAGE_SIZE:
-            raise ValueError(f"on the card the paged decode kernel takes "
+            raise ValueError(f"on the card the paged kernels take "
                              f"page_size {PAGE_SIZE}, got {page_size}")
+        if chunked_prefill and dev.type == "cuda":
+            if chunk_size % PAGE_SIZE:
+                raise ValueError(f"on the card chunk_size must divide by "
+                                 f"{PAGE_SIZE} (the kernels' query tile "
+                                 f"and page), got {chunk_size}")
+            if paged and page_size != opts.prefill_band:
+                # the paged chunk kernel blocks the key axis per page, the
+                # dense one per prefill_band: bit-equality across
+                # chunkings and layouts needs one absolute partition
+                raise ValueError(
+                    f"chunked_prefill with paged=True on the card requires "
+                    f"page_size ({page_size}) == ModelOptions.prefill_band "
+                    f"({opts.prefill_band})")
         self.scale_granularity = scale_granularity   # None when unquantized
         self.cfg, self.opts, self.params = cfg, opts, params
         self.n_slots, self.max_seq, self.eos = n_slots, max_seq, eos
@@ -334,6 +374,21 @@ class ServingEngine:
         self.stats = EngineStats()
         self.masked_steps = 0       # fused-tick steps run after go fell
         self.generator = torch.Generator().manual_seed(seed)
+        self.chunk_size = chunk_size
+        self.scheduler: Optional[ChunkedScheduler] = (
+            ChunkedScheduler(chunk_size, token_budget) if chunked_prefill
+            else None)
+        self._slo = SLOController(slo_hz) if slo_hz > 0 else None
+        # slot -> last time it made progress (a chunk ran, tokens came
+        # out); pool-pressure admission evicts the longest-idle stalled task
+        self._last_active = np.zeros(n_slots, np.float64)
+        if paged:
+            # decode headroom: admission never takes the last pages an
+            # in-flight decode needs to grow into
+            if reserve_pages is None:
+                reserve_pages = n_slots if chunked_prefill else 0
+            self.pool.set_reserve(min(reserve_pages,
+                                      max(0, self.pool.num_pages - 2)))
 
     # -- queue -----------------------------------------------------------
     def _sync(self):
@@ -349,24 +404,54 @@ class ServingEngine:
                               self._device(keys, torch.long),
                               self._device(pos, torch.long))
 
+    def _fresh_cache1(self):
+        """A zeroed batch-1 f32 dense cache for one chunked admission
+        (dense engines): its chunks write it in place, and the finished
+        prefill is scattered into the slot's batch row."""
+        return M.init_caches(self.cfg, 1, self.max_seq, torch.float32,
+                             device=self.device)
+
     def submit(self, req: Request):
         req.t_submit = time.perf_counter()
         req.sample_key = int(torch.randint(0, 2 ** 31, (),
                                            generator=self.generator))
         req.t_deadline = (req.t_submit + req.deadline_s
                           if req.deadline_s > 0 else math.inf)
-        insert_by_class(self.queue, req)
+        if self.scheduler is not None:
+            self.scheduler.submit(req)
+        else:
+            insert_by_class(self.queue, req)
 
     @property
     def pending(self) -> int:
-        """Requests not yet finished: queued + in slots."""
-        return len(self.queue) + sum(r is not None for r in self.slots)
+        """Requests not yet finished: queued + mid-prefill + in slots."""
+        n = len(self.queue) + sum(r is not None for r in self.slots)
+        if self.scheduler is not None:
+            n += self.scheduler.pending
+        return n
 
     def cancel(self, uid: int) -> bool:
-        """Abort request ``uid`` between ticks, queued or mid-decode: it is
-        marked ``cancelled``, not appended to ``finished``, and a slot's
-        pages return to the pool (its table row resets to the null page).
-        Returns whether the uid was found."""
+        """Abort request ``uid`` between ticks, queued, mid-prefill
+        (chunked engines: the task is dropped without requeue) or
+        mid-decode: it is marked ``cancelled``, not appended to
+        ``finished``, and a slot's pages return to the pool (its table row
+        resets to the null page; full prompt pages its finished chunks
+        registered stay in the prefix cache). Returns whether the uid was
+        found."""
+        if self.scheduler is not None:
+            for k, r in enumerate(self.scheduler.waiting):
+                if r.uid == uid:
+                    self.scheduler.waiting.pop(k)
+                    r.cancelled = True
+                    return True
+            for s, t in list(self.scheduler.tasks.items()):
+                if t.req.uid == uid:
+                    self.scheduler.tasks.pop(s)
+                    if self.paged:
+                        self.pool.free_slot(s)
+                        self._update_cache_stats()
+                    t.req.cancelled = True
+                    return True
         for k, r in enumerate(self.queue):
             if r.uid == uid:
                 self.queue.pop(k)
@@ -400,20 +485,58 @@ class ServingEngine:
 
     def _page_table_device(self):
         """The page table for the decode tick. Done slots' rows are all
-        null page (``free_slot`` reset them), so their writes sink."""
-        return torch.as_tensor(self.pool.page_table, device=self.device)
+        null page (``free_slot`` reset them), so their writes sink. A
+        mid-prefill slot's row is live (its chunks need it), so it is
+        nulled in this snapshot only: the tick's write at that slot's stale
+        index must not land on chunk rows already written."""
+        pt = self.pool.page_table
+        if self.scheduler is not None and self.scheduler.tasks:
+            pt = pt.copy()
+            for s in self.scheduler.tasks:
+                pt[s, :] = 0
+        return torch.as_tensor(pt, device=self.device)
+
+    def _slot_req(self, s: int) -> Optional[Request]:
+        """The request holding slot ``s``, decoding or mid-prefill."""
+        if self.slots[s] is not None:
+            return self.slots[s]
+        if self.scheduler is not None and s in self.scheduler.tasks:
+            return self.scheduler.tasks[s].req
+        return None
 
     def _preempt_slot(self, s: int):
         """Evict a live slot under pool pressure: free its pages and requeue
         the request from scratch at the head of its class (greedy streams
-        regenerate identically)."""
+        regenerate identically). A mid-prefill slot's chunks are dropped;
+        full prompt pages its finished chunks registered stay in the prefix
+        cache, so the retry may skip them."""
         self.pool.free_slot(s)
         req = self.slots[s]
         if req is not None:
             self.slots[s] = None
             req.out_tokens = []
             self.stats.record_preemption(req)
-            insert_by_class(self.queue, req, front=True)
+            if self.scheduler is not None:
+                self.scheduler.submit(req, front=True)
+            else:
+                insert_by_class(self.queue, req, front=True)
+        elif self.scheduler is not None:
+            task = self.scheduler.requeue_task(s)
+            if task is not None:
+                self.stats.record_preemption(task.req)
+
+    def _evict_longest_idle(self, exclude: int = -1) -> bool:
+        """Pool-pressure admission policy: preempt the longest-idle
+        *stalled* best-effort prefill task (``eviction_victims``), never a
+        decoder or a task that is progressing, which free their pages by
+        finishing. Returns whether a victim was evicted."""
+        if self.scheduler is None:
+            return False
+        cands = eviction_victims(self.scheduler.tasks, exclude=exclude)
+        if not cands:
+            return False
+        self._preempt_slot(min(cands, key=lambda s: self._last_active[s]))
+        return True
 
     def _ensure_pages(self, steps: int):
         """Allocate pages covering every position the next tick may write
@@ -439,13 +562,15 @@ class ServingEngine:
                     break
                 except PoolExhausted:
                     victims = [v for v in range(self.n_slots)
-                               if v != s and self.slots[v] is not None]
+                               if v != s and self._slot_req(v) is not None]
                     if not victims:
                         raise PoolExhausted(
                             f"KV pool too small for a single request "
                             f"(slot {s} needs pages for {end} positions)")
+                    # best-effort work yields first; realtime only when
+                    # nothing else can free pages
                     be = [v for v in victims
-                          if not is_realtime(self.slots[v])]
+                          if not is_realtime(self._slot_req(v))]
                     self._preempt_slot(max(
                         be or victims,
                         key=lambda v: len(self.pool.slot_pages[v])))
@@ -606,6 +731,9 @@ class ServingEngine:
 
     def step(self) -> int:
         """Per-token path: one decode step, one host sync per token."""
+        if self.scheduler is not None:
+            raise RuntimeError("chunked_prefill engines tick via "
+                               "step_fused()/run() (fused only)")
         t_tick = time.perf_counter()
         pf0, kl0 = self.stats.prefill_tokens, self.stats.prefill_key_lanes
         self._admit()
@@ -645,7 +773,11 @@ class ServingEngine:
         return len(active)
 
     def step_fused(self) -> int:
-        """Fused path: up to ``tick_tokens`` decode steps per host sync."""
+        """Fused path: up to ``tick_tokens`` decode steps per host sync;
+        a chunked engine's tick also packs prefill chunks under the token
+        budget (``_tick_chunked``)."""
+        if self.scheduler is not None:
+            return self._tick_chunked()
         t_tick = time.perf_counter()
         pf0, kl0 = self.stats.prefill_tokens, self.stats.prefill_key_lanes
         self._admit()
@@ -655,8 +787,9 @@ class ServingEngine:
 
     def _decode_tick(self, max_steps: int) -> int:
         """The fused decode stage of one tick: ``min(max_steps,
-        tick_tokens)`` device steps and one readback of the out, n_emit,
-        index, budget, done, tokens and steps tensors together."""
+        tick_tokens)`` device steps (a chunked engine's planned depth) and
+        one readback of the out, n_emit, index, budget, done, tokens and
+        steps tensors together."""
         active = [s for s in range(self.n_slots) if self.slots[s] is not None]
         if not active:
             return 0
@@ -706,9 +839,270 @@ class ServingEngine:
             k = int(n_emit_h[s])
             req.out_tokens.extend(int(t) for t in out_h[s, :k])
             emitted += k
+            if k:
+                self._last_active[s] = now
             if done_h[s]:
                 self._finish_slot(s, now)
         self.stats.tokens_decoded += emitted
+        return emitted
+
+    # -- chunked prefill ---------------------------------------------------
+    def _admit_chunked(self):
+        """Admission in scheduler mode: waiting requests take free slots as
+        prefill tasks (no prompt compute yet: chunks run under the tick
+        budget). A paged engine allocates chunk by chunk: shared prefix
+        pages plus the first chunk's pages now, the rest as chunks arrive.
+        On a prefix-cache hit chunking starts at the first position not
+        shared, capped one position before the prompt's end so that the
+        last position's logits are computed."""
+        sched = self.scheduler
+        for s in range(self.n_slots):
+            # re-read the head each pass: an eviction requeues its victim
+            # at the front of the waiting queue
+            while (sched.waiting and self.slots[s] is None
+                   and s not in sched.tasks):
+                req = sched.waiting[0]
+                n_prefix = (self.cfg.vision.num_tokens
+                            if req.patches is not None and self.cfg.vision
+                            else 0)
+                total = n_prefix + len(req.prompt)
+                if total > self.max_seq:
+                    raise ValueError(
+                        f"request {req.uid}: prompt ({total} positions) "
+                        f"exceeds max_seq {self.max_seq}")
+                n_skip = 0
+                keys: List[bytes] = []
+                if self.paged:
+                    keys = self._prefix_page_keys(req, n_prefix)
+                    n_hit = self.pool.match_prefix(keys)
+                    # never skip the final position: its logits seed decode
+                    skip_pages = min(n_hit, (total - 1) // self.page_size)
+                    n_skip = skip_pages * self.page_size
+                    first_len = min(total, n_skip + self.chunk_size)
+                    need_total = min(
+                        total + (0 if req.max_tokens <= 1 else 1),
+                        self.max_seq)
+                    # a request that can never complete raises now: the
+                    # pool must hold the prompt and the first decode page,
+                    # and, when any prompt page is new, the whole prompt
+                    # outside the decode reserve
+                    usable = self.pool.num_pages - 1
+                    prefill_pages = self.pool.num_pages_for(total)
+                    if (self.pool.num_pages_for(need_total) > usable
+                            or (prefill_pages - n_hit > 0 and prefill_pages
+                                > usable - self.pool.reserve)):
+                        raise PoolExhausted(
+                            f"KV pool ({usable} pages, {self.pool.reserve} "
+                            f"reserved) too small for request {req.uid} "
+                            f"({prefill_pages} prompt pages, "
+                            f"{n_hit} prefix-shared)")
+                    if not self.pool.can_admit(first_len, keys):
+                        in_flight = any(self._slot_req(v) is not None
+                                        for v in range(self.n_slots))
+                        if not in_flight:
+                            raise PoolExhausted(
+                                f"KV pool cannot admit request {req.uid} "
+                                f"with nothing in flight to free pages")
+                        # evict the longest-idle stalled task and look at
+                        # the (maybe new) head again; with no such victim,
+                        # wait for work in flight to free pages
+                        if not self._evict_longest_idle():
+                            return
+                        continue
+                    try:
+                        pages, n_shared = self.pool.admit(s, first_len, keys,
+                                                          register=False)
+                        # recomputed positions may land in shared pages
+                        # when the skip cap pulled below the hit run
+                        copies = self.pool.prepare_write(s, n_skip, total)
+                    except PoolExhausted:
+                        self.pool.free_slot(s)
+                        return
+                    req.pages_shared = n_shared
+                    self._reset_fresh_scales(list(pages[n_shared:])
+                                             + [d for _, d in copies])
+                    self._dispatch_copies(copies)
+                    self._update_cache_stats()
+                sched.waiting.pop(0)
+                t0 = time.perf_counter()
+                req.queue_s = t0 - req.t_submit
+                self.stats.queue_s.append(req.queue_s)
+                batch = {"tokens": req.prompt[None, :]}
+                if n_prefix:
+                    if n_skip < n_prefix:
+                        batch["prefix"] = M.encode_vision(
+                            self.cfg, self.opts, self.params,
+                            req.patches[None], device=self.device)
+                        self._sync()
+                        t1 = time.perf_counter()
+                        self.stats.vision_time += t1 - t0
+                        t0 = t1
+                    else:
+                        # the whole vision prefix is shared: its KV is in
+                        # pool pages, so the tower does not run (no chunk
+                        # reads these rows)
+                        batch["prefix"] = torch.zeros(
+                            1, n_prefix, self.cfg.d_model,
+                            dtype=self.params["embed"].dtype,
+                            device=self.device)
+                embeds = M.embed_prompt(self.cfg, self.opts, self.params,
+                                        batch, device=self.device)
+                req.prefill_skipped = n_skip
+                self.stats.prefill_skipped += n_skip
+                sched.start_task(PrefillTask(
+                    req=req, slot=s, total=total, n_skip=n_skip,
+                    embeds=embeds,
+                    cache1=None if self.paged else self._fresh_cache1(),
+                    prefix_keys=keys, t_start=t0))
+                self._last_active[s] = t0
+
+    def _run_chunk(self, cp: ChunkPlan):
+        """Run one planned prefill chunk: grow the slot's pages to cover it
+        (paged), pad the embedding slice to ``chunk_size`` rows, run the
+        positioned chunk prefill with its start and valid-row count on the
+        device (no host read), and on the final chunk sample the first
+        token and hand the slot to decode."""
+        task, s = cp.task, cp.task.slot
+        t0 = time.perf_counter()
+        pt_row = None
+        if self.paged:
+            end = cp.start + cp.n_tok
+            held0 = set(self.pool.slot_pages[s])
+            stalled = False
+            try:
+                self.pool.ensure(s, end, use_reserve=False)
+            except PoolExhausted:
+                # admission-side growth must not eat the decode headroom:
+                # mark the task stalled, try evicting another stalled task,
+                # else retry next tick
+                task.stalled = stalled = True
+                if self._evict_longest_idle(exclude=s):
+                    try:
+                        self.pool.ensure(s, end, use_reserve=False)
+                        stalled = False
+                    except PoolExhausted:
+                        pass
+            # pages gained here, even by a raising ensure(), lose their
+            # previous owner's scales
+            self._reset_fresh_scales(sorted(
+                p for p in self.pool.slot_pages[s] if p not in held0))
+            if stalled:
+                return
+            pt_row = self._device(self.pool.page_table[s:s + 1], torch.int32)
+        emb = task.embeds
+        chunk = torch.zeros(1, self.chunk_size, emb.shape[-1],
+                            dtype=emb.dtype, device=self.device)
+        chunk[:, :cp.n_tok] = emb[:, cp.start:cp.start + cp.n_tok]
+        start = self._device(cp.start, torch.int32)
+        n_valid = self._device(cp.n_tok, torch.int32)
+        # the chunk attends the live prefix [0, start + n_tok), rounded up
+        # to whole bands
+        live = band_len(cp.start + cp.n_tok, self.opts.prefill_band,
+                        self.max_seq)
+        caches = self.caches if self.paged else task.cache1
+        logits, _ = M.prefill_chunk(self.cfg, self.opts, self.params, chunk,
+                                    caches, start, n_valid=n_valid,
+                                    page_table=pt_row, live_len=live,
+                                    device=self.device)
+        if self.paged:
+            self.pool.register_prefix_pages(s, task.prefix_keys or (),
+                                            cp.start + cp.n_tok)
+            self._update_cache_stats()
+        self.stats.prefill_key_lanes += self.chunk_size * live
+        self.stats.prefill_key_lanes_full += self.chunk_size * self.max_seq
+        task.pos = cp.start + cp.n_tok
+        task.stalled = False
+        self.stats.prefill_tokens += cp.n_tok
+        self._last_active[s] = time.perf_counter()
+        if task.pos >= task.total:
+            self._finish_prefill(task, logits)
+        self.stats.prefill_time += time.perf_counter() - t0
+
+    def _finish_prefill(self, task: PrefillTask, logits):
+        """Last chunk done: sample the first token (one readback, the TTFT
+        boundary) from the chunk's last valid row, then finish the request
+        outright (eos, max_tokens <= 1, no cache headroom) or hand the slot
+        to the decode stage."""
+        req, s = task.req, task.slot
+        pos = task.total
+        tok = int(self._sample(logits, [req.sample_key], [pos - 1])[0])
+        self.stats.prefill_syncs += 1
+        now = time.perf_counter()
+        req.t_prefill = now
+        req.ttft_s = now - req.t_submit
+        self.stats.ttft_s.append(req.ttft_s)
+        req.out_tokens.append(tok)
+        budget = self._clamped_budget(req, pos)
+        self.scheduler.finish_task(s)
+        if tok == self.eos or req.max_tokens <= 1 or budget <= 0:
+            req.done = True
+            req.t_done = now
+            self.stats.record_deadline(req)
+            if self.paged:
+                req.pages_used = len(self.pool.slot_pages[s])
+                self.pool.free_slot(s)
+                self._update_cache_stats()
+            self.finished.append(req)
+            return
+        if self.paged:
+            req.pages_used = len(self.pool.slot_pages[s])
+        else:
+            _scatter_slot(self.caches, task.cache1, s)
+            task.cache1 = None
+        self.index[s] = pos
+        self.budget[s] = budget
+        self.tokens[s, 0] = tok
+        self.keys[s] = req.sample_key
+        self.slots[s] = req
+        self._last_active[s] = now
+
+    def _tick_chunked(self) -> int:
+        """One scheduler tick, in four stages:
+
+        1. Admit (``_admit_chunked``): every free slot without a task gets
+           one; ``scheduler.tasks`` then names the mid-prefill slots.
+        2. Plan (``ChunkedScheduler.plan_tick``, with the SLO controller's
+           context when ``slo_hz`` is set): the decode reservation first,
+           then chunks in class order into the rest of the budget.
+           ``n_active`` is read before chunks run, so a prefill finishing
+           in this tick joins this tick's decode stage.
+        3. Chunks (``_run_chunk``), each checked against live state first:
+           a task preempted or finished by an earlier entry is skipped, and
+           so is a chunk whose predecessor stalled (positions are written
+           in order).
+        4. Decode (``_decode_tick(plan.decode_steps)``).
+
+        ``tick_prefill_tokens`` records each tick's prefill positions; no
+        entry exceeds the token budget."""
+        t_tick = time.perf_counter()
+        pf0, kl0 = self.stats.prefill_tokens, self.stats.prefill_key_lanes
+        sched = self.scheduler
+        self._admit_chunked()
+        n_active = sum(r is not None for r in self.slots)
+        slo = None
+        if self._slo is not None:
+            rt_decode = [(int(self.budget[s]), req_deadline(self.slots[s]))
+                         for s in range(self.n_slots)
+                         if self.slots[s] is not None
+                         and is_realtime(self.slots[s])]
+            rt_prefill = (any(is_realtime(t.req)
+                              for t in sched.tasks.values())
+                          or any(is_realtime(r) for r in sched.waiting))
+            slo = self._slo.plan(t_tick, self.stats.tick_ewma_s, rt_decode,
+                                 rt_prefill)
+        plan = sched.plan_tick(n_active, self.tick_tokens, slo=slo)
+        for cp in plan.chunks:
+            if sched.tasks.get(cp.task.slot) is not cp.task:
+                continue    # finished or preempted earlier this tick
+            if cp.task.pos != cp.start:
+                continue    # an earlier chunk of this task stalled
+            self._run_chunk(cp)
+        emitted = 0
+        if n_active:
+            emitted = self._decode_tick(plan.decode_steps)
+        elif plan.chunks:
+            self.stats.ticks += 1
+        self._end_tick(t_tick, pf0, kl0)
         return emitted
 
     def run(self, max_ticks: int = 10_000) -> List[Request]:
@@ -721,6 +1115,8 @@ class ServingEngine:
             step()
             ticks += 1
         if self.pending:
+            queued = (len(self.scheduler.waiting) if self.scheduler
+                      else len(self.queue))
             ph = self.stats.phase_report()
             diag = (f"phases vision={ph['vision']:.3f}s "
                     f"prefill={ph['prefill']:.3f}s "
@@ -732,7 +1128,7 @@ class ServingEngine:
             warnings.warn(
                 f"ServingEngine.run: tick budget ({max_ticks}) exhausted "
                 f"with {self.pending} requests pending "
-                f"({len(self.queue)} queued, "
+                f"({queued} queued, "
                 f"{sum(r is not None for r in self.slots)} in flight; "
                 f"{diag})",
                 RuntimeWarning, stacklevel=2)

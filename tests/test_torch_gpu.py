@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.chunk_prefill import ops as cp
+from repro_torch.kernels.chunk_prefill import paged as pcp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.models import kv_quant
@@ -84,13 +85,15 @@ def test_kernels_count_launches_on_card():
     pages = torch.zeros(2, 32, 2, 16, device=dev)
     table = torch.tensor([[1]], dtype=torch.int32, device=dev)
     counters = (da.decode_attention, cp.chunk_prefill_attention,
-                pg.paged_decode_attention)
+                pg.paged_decode_attention,
+                pcp.paged_chunk_prefill_attention)
     before = [f.launches for f in counters]
     da.decode_attention(q, kv, kv, 3)
     cp.chunk_prefill_attention(q[:, None], kv, kv, 3)
     pg.paged_decode_attention(q, pages, pages, table, 3)
+    pcp.paged_chunk_prefill_attention(q[:, None], pages, pages, table, 3)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1]
+    assert [f.launches - n for f, n in zip(counters, before)] == [1] * 4
 
 
 def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2):
@@ -171,3 +174,81 @@ def test_paged_kernel_rejects_other_page_sizes_on_card():
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="page_size"):
         pg.paged_decode_attention(q, pages, pages, table, 3)
+
+
+STORAGES = [("bf16", "f32"), ("bf16", "bf16"), ("int8", "head"),
+            ("int8", "token"), ("fp8", "head"), ("fp8", "token")]
+# (B, S, start): the serving engine's 128-row chunks of a 640-position
+# prompt (first, one mid-way, the last) and two slots at mixed starts
+CHUNKS = [(1, 128, 0), (1, 128, 480), (1, 128, 512), (2, 96, (0, 544))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_paged_chunk_kernel_on_card(chunk, window, storage):
+    dev = _cuda()
+    B, S, start = chunk
+    _, _, kp, vp, ks, vs, table = _pool(dev, *storage, B=B, npg=20,
+                                        num_pages=41)
+    q = torch.randn(B, S, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev).bfloat16()
+    idx = (torch.tensor(start, dtype=torch.int32, device=dev)
+           if isinstance(start, tuple) else start)
+    got = pcp.paged_chunk_prefill_attention(q, kp, vp, table, idx,
+                                            k_scales=ks, v_scales=vs,
+                                            window=window)
+    want = pcp.paged_chunk_prefill_ref(q.float(), kp, vp, table, idx, ks,
+                                       vs, window)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 64])
+def test_paged_chunk_kernel_bit_equal_to_dense_on_card(store, window):
+    """At page_size 32 a page is one key block of the dense chunk kernel:
+    a paged launch and a dense launch over the same rows are bit-equal."""
+    dev = _cuda()
+    dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", store, B=2, npg=20,
+                                        num_pages=41)
+    q = torch.randn(2, 128, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev).bfloat16()
+    idx = torch.tensor([512, 320], dtype=torch.int32, device=dev)
+    a = pcp.paged_chunk_prefill_attention(q, kp, vp, table, idx,
+                                          window=window)
+    b = cp.chunk_prefill_attention(q, dk, dv, idx, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", [("bf16", "f32"), ("int8", "head"),
+                                     ("fp8", "token")])
+def test_paged_chunk_kernel_chunking_invariance_on_card(storage):
+    """A 640-row prompt run as chunks of 32, 128 and 640 rows gives the
+    same rows bit for bit."""
+    dev = _cuda()
+    _, _, kp, vp, ks, vs, table = _pool(dev, *storage, B=1, npg=20,
+                                        num_pages=21)
+    q = torch.randn(1, 640, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(10), device=dev).bfloat16()
+    outs = []
+    for c in (32, 128, 640):
+        outs.append(torch.cat([pcp.paged_chunk_prefill_attention(
+            q[:, s:s + c].contiguous(), kp, vp, table, s, k_scales=ks,
+            v_scales=vs) for s in range(0, 640, c)], dim=1))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.gpu
+def test_paged_chunk_kernel_rejects_other_page_sizes_on_card():
+    dev = _cuda()
+    q = torch.zeros(1, 4, 4, 16, device=dev)
+    pages = torch.zeros(3, 16, 2, 16, device=dev)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="page_size"):
+        pcp.paged_chunk_prefill_attention(q, pages, pages, table, 3)

@@ -163,8 +163,10 @@ def test_routes():
         route("fresh", "none", S=4096, Skv=4096, window=0, opts=opts)
     assert route("decode", "paged", S=1, Skv=1, window=0,
                  opts=opts) == "decode_paged_flash"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        route("chunk", "paged", S=8, Skv=8, window=0, opts=opts)
+    assert route("chunk", "paged", S=8, Skv=8, window=0,
+                 opts=opts) == "chunk_paged_flash"
+    with pytest.raises(NotImplementedError):
+        route("fresh", "paged", S=8, Skv=8, window=0, opts=opts)
     assert TL.band_len(640, 32, 833) == 640
     assert TL.band_len(641, 32, 833) == 672
     assert TL.band_len(833, 32, 833) == 833

@@ -250,13 +250,27 @@ def test_sampled_streams_do_not_depend_on_masked_steps(layout):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(chunked_prefill=True), "item 8"),
     (dict(spec_decode=True), "item 9"),
     (dict(mesh=object()), "item 11")])
 def test_unported_options_name_their_roadmap_item(option, item):
     cfg, params = port_params("smollm-135m")
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(cfg, TOpts(), params, device="cpu", **option)
+
+
+def test_chunked_prefill_option_is_accepted():
+    """chunked_prefill (ROADMAP item 8) is ported: the engine takes it,
+    with its chunk size, budget and decode reserve, and validates it."""
+    cfg, params = port_params("smollm-135m")
+    eng = ServingEngine(cfg, TOpts(), params, device="cpu", max_seq=64,
+                        chunked_prefill=True, chunk_size=16, token_budget=48,
+                        paged=True, page_size=8)
+    assert (eng.scheduler.chunk_size, eng.scheduler.token_budget) == (16, 48)
+    assert eng.pool.reserve == eng.n_slots
+    with pytest.raises(ValueError, match="must divide by page_size"):
+        ServingEngine(cfg, TOpts(), params, device="cpu", max_seq=64,
+                      chunked_prefill=True, chunk_size=12, paged=True,
+                      page_size=8)
 
 
 def test_engine_validations():
