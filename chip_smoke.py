@@ -12,14 +12,20 @@ weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
 16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
 pools) and chunked under the token-budget scheduler (dense; paged f32,
-int8 and fp8 pools). Prints the card, the phase numbers, one JSON line
-describing each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
-non-zero, without that line, when there is no CUDA device or any phase
-fails.
+int8 and fp8 pools; the serving engines on molmoact's first 14 layers).
+The MoE family follows: the grouped-expert kernels
+against their plain versions at granite-moe-3b-a800m's width, the reduced
+granite engine on card and CPU, and the full-width granite-moe-3b-a800m
+serving the same 16-request shape through three engines (admit-stall
+dense and paged f32, chunked paged f32) with its decode breakdown. Prints
+the card, the phase numbers, one JSON line describing each kernel and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
+line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -48,6 +54,11 @@ PHASE_REPEATS = 3                  # timed control steps after the first
 # twice), 144 CoT + 48 action tokens + the prefill token per request
 SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
 SERVE_MAX_SEQ, SERVE_TICK = 864, 8
+# molmoact-7b's serving engines run its first 14 of 28 layers (full
+# width; every engine and gate kept), so that the script, with the MoE
+# phases, stays near half its time limit; the control step and the f32
+# prefill check keep every layer
+SERVE_LAYERS = 14
 PAGE = 32
 # (name, engine options): the first three carry the gates of the phase
 SERVE_ENGINES = [
@@ -79,6 +90,17 @@ PAGED_VARIANTS = [("f32", "bf16", "f32"), ("bf16", "bf16", "bf16"),
                   ("int8-head", "int8", "head"),
                   ("int8-token", "int8", "token"),
                   ("fp8-head", "fp8", "head"), ("fp8-token", "fp8", "token")]
+# the MoE family: granite-moe-3b-a800m served in molmoact's serving shape
+# (8 prompts of 640 random tokens, each sent twice, 193 tokens each)
+MOE_ARCH, MOE_PROMPT = "granite-moe-3b-a800m", 640
+# expert capacities on the served path: decode at 8 slots, a 128-row
+# chunk, a 640-row admission prefill; and a ragged one for the checks
+MOE_C, MOE_RAGGED_C = (2, 32, 160), 7
+MOE_ENGINES = [
+    ("moe-dense", {}),
+    ("moe-paged-f32", dict(paged=True)),
+    ("moe-paged-f32-chunked", dict(CHUNKED, paged=True)),
+]
 
 
 def card_line() -> str:
@@ -111,16 +133,17 @@ def bound(nbytes: float, ops: float, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(name: str, got, want, tol: float) -> float:
+def check(name: str, got, want, tol: float, quiet: bool = False) -> float:
     """Fail unless |got - want| <= tol * max(1, |want|) everywhere; returns
-    the largest absolute error."""
+    the largest absolute error (printed unless ``quiet`` and it held)."""
     import torch
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     ok = bool(torch.isfinite(got).all()) and bool(
         (diff <= tol * want.float().abs().clamp(min=1.0)).all())
-    print(f"  {name}: max_abs_err={err:.3g} (tol {tol:g} x max(1, |plain|))"
-          f"{'' if ok else '  FAILED'}")
+    if not (ok and quiet):
+        print(f"  {name}: max_abs_err={err:.3g} (tol {tol:g} x max(1, "
+              f"|plain|)){'' if ok else '  FAILED'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err} > {tol})")
@@ -392,6 +415,51 @@ def paged_chunk_checks(cfg, g, errs):
     return q2[:1].contiguous(), pools
 
 
+def moe_experts(g, cfg, C: int, dtype):
+    """Seeded capacity buffer x [E,C,D] and expert weights wi, wg [E,D,F],
+    wo [E,F,D] (normal / sqrt(fan_in)) of ``cfg`` on the card."""
+    import torch
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+
+    def rnd(*shape, fan_in=1):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * fan_in ** -0.5).to(dtype)
+    return (rnd(E, C, D), rnd(E, D, F, fan_in=D), rnd(E, D, F, fan_in=D),
+            rnd(E, F, D, fan_in=F))
+
+
+def moe_kernel_checks(cfg):
+    """Phase 2b: gmm_gated, gmm_down and grouped_mlp against their plain
+    versions at granite-moe-3b-a800m's width (E=40, D=1536, F=512), at the
+    served capacities and a ragged one, in bf16 and f32, for every
+    activation. Returns the largest errors by (kernel, C)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for C in MOE_C + (MOE_RAGGED_C,):
+            x, wi, wg, wo = moe_experts(g, cfg, C, dtype)
+            line = {}
+            for act in ("silu", "gelu", "gelu_plain"):
+                h = gmm.gmm_gated(x, wi, wg, act=act)
+                for name, got, want in (
+                        ("gmm_gated", h, gmm.gmm_gated_ref(x, wi, wg, act)),
+                        ("gmm_down", gmm.gmm_down(h, wo),
+                         gmm.gmm_down_ref(h, wo)),
+                        ("grouped_mlp", gmm.grouped_mlp(x, wi, wg, wo, act),
+                         gmm.grouped_mlp_ref(x, wi, wg, wo, act))):
+                    err = check(f"{name} {dtype} C={C} {act}", got, want,
+                                KERNEL_TOL, quiet=True)
+                    line[name] = max(line.get(name, 0.0), err)
+                    errs[name, C] = max(errs.get((name, C), 0.0), err)
+            print(f"  {str(dtype).replace('torch.', '')} C={C} (silu, gelu, "
+                  f"gelu_plain): max_abs_err " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in line.items())
+                  + f" (tol {KERNEL_TOL:g} x max(1, |plain|))")
+    return errs
+
+
 def card_vs_cpu(cfg_full):
     """Phase 3: reduced molmoact-7b on the card (kernels) and on the CPU
     (plain versions): equal token streams, prefill logits within
@@ -433,8 +501,6 @@ def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
     the CPU (plain versions): 5 requests with mixed budgets on 2 slots;
     greedy streams equal for the dense layout and paged f32, int8 and fp8
     pools."""
-    from repro_torch.models import model as M
-    from repro_torch.serving import Request, ServingEngine
     rng = np.random.default_rng(SEED + 1)
     reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
              rng.standard_normal((cfg.vision.num_tokens,
@@ -454,12 +520,22 @@ def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
                               ("paged-int8-token-chunked",
                                dict(paged=True, kv_dtype="int8",
                                     scale_granularity="token")))]
+    engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=2)
+
+
+def engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots: int):
+    """Each run (name, engine options, requests, max_seq) on the card
+    (kernels) and on the CPU (plain versions): every request finishes and
+    the greedy streams are equal."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import Request, ServingEngine
     for name, kw, rq, max_seq in runs:
         streams = []
         for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
-            eng = ServingEngine(cfg, M.ModelOptions(), params, n_slots=2,
-                                max_seq=max_seq, eos=-1, tick_tokens=4,
-                                page_size=PAGE, device=dev, **kw)
+            eng = ServingEngine(cfg, M.ModelOptions(), params,
+                                n_slots=n_slots, max_seq=max_seq, eos=-1,
+                                tick_tokens=4, page_size=PAGE, device=dev,
+                                **kw)
             for i, (prompt, m, px) in enumerate(rq):
                 eng.submit(Request(uid=i, prompt=prompt, max_tokens=m,
                                    patches=px))
@@ -470,6 +546,51 @@ def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
         print(f"  reduced serving engine, {name}: {len(rq)} streams equal "
               f"on card and CPU ({sum(map(len, streams[0].values()))} "
               f"tokens)")
+
+
+def moe_card_vs_cpu(cfg_full):
+    """Phase 3b: reduced granite-moe-3b-a800m in f32 on the card (the
+    grouped-expert and attention kernels) and on the CPU (plain versions):
+    prefill logits (f32 caches) within CPU_LOGIT_TOL, and the serving engine's greedy
+    streams equal (dense, paged f32, paged int8 and chunked paged f32; 5
+    requests with mixed budgets on 3 slots, so slots finish at staggered
+    times and sit idle)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    cfg = cfg_full.reduced()
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    p_gpu = {}
+    for path, t in leaves(p_cpu):
+        set_leaf(p_gpu, path, t.cuda())
+    rng = np.random.default_rng(SEED + 8)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+    launches = gmm.gmm_gated.launches
+    # f32 caches, as the engines keep: no bf16 rounding of cached keys
+    lg, _ = M.prefill(cfg, M.ModelOptions(), p_gpu, {"tokens": tokens}, 32,
+                      cache_dtype=torch.float32, device="cuda")
+    if gmm.gmm_gated.launches - launches != cfg.num_layers:
+        raise AssertionError("reduced granite prefill did not run the "
+                             "grouped-expert kernels")
+    lc, _ = M.prefill(cfg, M.ModelOptions(), p_cpu, {"tokens": tokens}, 32,
+                      cache_dtype=torch.float32, device="cpu")
+    check("reduced granite prefill logits (f32 caches), card vs CPU",
+          lg.cpu(), lc, CPU_LOGIT_TOL)
+    reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m, None)
+            for n, m in ((6, 9), (9, 4), (4, 14), (7, 6), (5, 11))]
+    long_reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+                  None)
+                 for n, m in ((30, 9), (52, 4), (21, 14), (44, 6), (36, 11))]
+    chunked = dict(chunked_prefill=True, chunk_size=PAGE, token_budget=48,
+                   paged=True)
+    runs = [("moe-dense", {}, reqs, 64),
+            ("moe-paged-f32", dict(paged=True), reqs, 64),
+            ("moe-paged-int8-head", dict(paged=True, kv_dtype="int8"), reqs,
+             64),
+            ("moe-paged-f32-chunked", chunked, long_reqs, 128)]
+    engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=3)
 
 
 def full_params(cfg):
@@ -495,10 +616,12 @@ def reset_launches():
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.paged import (
         paged_decode_attention)
+    from repro_torch.kernels.moe_gmm.ops import gmm_down, gmm_gated
     kernels = {"decode_attention": decode_attention,
                "chunk_prefill": chunk_prefill_attention,
                "paged_decode_attention": paged_decode_attention,
-               "paged_chunk_prefill": paged_chunk_prefill_attention}
+               "paged_chunk_prefill": paged_chunk_prefill_attention,
+               "gmm_gated": gmm_gated, "gmm_down": gmm_down}
     for fn in kernels.values():
         fn.launches = 0
     return kernels
@@ -536,7 +659,8 @@ def full_width(cfg, params):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"chunk_prefill": cfg.num_layers,
             "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
-            "paged_decode_attention": 0, "paged_chunk_prefill": 0}
+            "paged_decode_attention": 0, "paged_chunk_prefill": 0,
+            "gmm_gated": 0, "gmm_down": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
@@ -591,24 +715,31 @@ def full_width(cfg, params):
           f"CoT+action decode share {dec_share:.4f}; "
           f"vla_control_step (vision precomputed, first call) "
           f"{step_s * 1e3:.2f} ms by host clock; peak memory {peak_gb:.2f} GB")
-    decode_breakdown(cfg, params, caches, prompt + cfg.n_cot_tokens,
-                     phase_ms["action_decode"] / n_act)
+    tok = torch.zeros(FULL_B, 1, dtype=torch.long, device="cuda")
+    decode_breakdown(lambda n: vla.decode_tokens(
+        cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens, n,
+        device="cuda"), phase_ms["action_decode"] / n_act)
     return launches
 
 
-def decode_breakdown(cfg, params, caches, start: int, wall_ms: float):
+# substrings of kernel names -> the part of a decode step they belong to
+KERNEL_GROUPS = (("grouped experts", ("gmm_kernel",)),
+                 ("attention", ("decode_kernel", "chunk_kernel",
+                                "paged_kernel")),
+                 ("library GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def decode_breakdown(run_steps, wall_ms: float, steps: int = 4):
     """Device-busy time of a full-width decode step, by torch.profiler
-    over a few steps, against its wall time from the phase timing: the
-    device's idle share, and the kernels that take the most time."""
+    over ``steps`` steps (``run_steps(n)`` runs n decode steps), against
+    its wall time: the device's idle share, device time by part of the
+    step (the grouped-expert kernels, attention, the library's GEMMs, the
+    rest: norms, RoPE, routing and dispatch, sampling), and the kernels
+    that take the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import vla
-    from repro_torch.models import model as M
-    steps = 4
-    tok = torch.zeros(FULL_B, 1, dtype=torch.long, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        vla.decode_tokens(cfg, M.ModelOptions(), params, tok, caches, start,
-                          steps, device="cuda")
+        run_steps(steps)
         torch.cuda.synchronize()
     rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
@@ -621,7 +752,15 @@ def decode_breakdown(cfg, params, caches, start: int, wall_ms: float):
     print(f"  decode step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
           f"ms, idle share {1 - busy_ms / wall_ms:.4f}, {kernels:.0f} "
           f"kernels per step")
-    for e in rows[:5]:
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for e in rows:
+        name = next((g for g, keys in KERNEL_GROUPS
+                     if any(k in e.key for k in keys)), "other")
+        groups[name] += e.self_device_time_total / 1e3 / steps
+    print("    device ms/step by part: " + ", ".join(
+        f"{g} {t:.3f}" for g, t in groups.items()))
+    for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
 
@@ -710,99 +849,27 @@ def serving_full(cfg, params):
     twice in a row, so its twin can hit the prefix cache), 193 tokens each
     (eos=-1 never fires), on 8 slots with max_seq 864 and 8-token ticks,
     for every engine of SERVE_ENGINES (admit-stall) and CHUNKED_ENGINES.
-    Gates: every request finishes with 193 tokens; paged-f32 streams equal
-    dense streams in each mode; a paged pool drains to 0 pages; each decode
-    step launches the engine's decode kernel 28 times and the other one
-    never; admit-stall: 28 dense chunk prefills per request and >= 8 x 20
-    prefix hits; chunked: 28 launches of the layout's chunk kernel per
-    chunk run and none of the other, prefill_tokens + prefill_skipped =
-    16 x 640, no tick's prefill positions above the token budget, one
-    first-token readback per request, and the host plan's counts (ticks,
-    steps, prefix hits, pages) equal to its CPU replay's; one readback per
-    decode tick. Returns {engine: (launches, stats, masked steps)}."""
-    import torch
+    Gates (``serve_engine``), and: the chunked engines' host plan counts
+    (ticks, steps, prefix hits, pages) equal to its CPU replay's; paged-f32
+    streams equal dense streams in each mode. The engines run the first
+    SERVE_LAYERS layers. Returns {engine: (launches, stats, masked
+    steps)}."""
     obs = observations(cfg, cfg.vocab_size, SEED + 3)
-    prompt_len = cfg.vision.num_tokens + FULL_TEXT
-    prompt_pages = prompt_len // PAGE
-    L = cfg.num_layers
     plans = host_plans(cfg)
+    cfg, params = first_layers(cfg, params, SERVE_LAYERS)
     results, streams = {}, {}
     for name, kw in SERVE_ENGINES + CHUNKED_ENGINES:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels = reset_launches()
-        eng, out, wall = run_engine(cfg, params, obs, kw, "cuda")
-        launches = read_launches(kernels)
-        st = eng.stats
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        streams[name] = out
-        n_tok = sum(map(len, out.values()))
-        steps = st.device_steps + eng.masked_steps
-        rep = st.phase_report()
-        chunked = eng.scheduler is not None
-        decode_kernel = ("paged_decode_attention" if eng.paged
-                         else "decode_attention")
-        chunk_kernel = ("paged_chunk_prefill" if eng.paged and chunked
-                        else "chunk_prefill")
-        idle = [k for k in launches if k not in (decode_kernel,
-                                                 chunk_kernel)]
-        # a chunk run adds chunk_size x max_seq full-view key lanes
-        runs = (st.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
-                if chunked else 2 * SERVE_OBS)
-        print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
-              f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
-              f"{st.ticks}, device steps {st.device_steps}, masked steps "
-              f"{eng.masked_steps}; TTFT p50/p99 "
-              f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
-              f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
-              f"{rep['decode_tick_p99'] * 1e3:.2f} ms; tick p50/p99 "
-              f"{np.percentile(st.tick_s, 50) * 1e3:.2f}/"
-              f"{np.percentile(st.tick_s, 99) * 1e3:.2f} ms; phases vision "
-              f"{st.vision_time:.3f} s prefill {st.prefill_time:.3f} s "
-              f"decode {st.decode_time:.3f} s; prefill_tokens "
-              f"{st.prefill_tokens}, prefill_skipped {st.prefill_skipped}, "
-              f"max tick prefill {max(st.tick_prefill_tokens)}; "
-              f"{'chunk runs ' + str(runs) + '; ' if chunked else ''}"
-              f"pages_hwm {st.pages_hwm}, cache_bytes_hwm "
-              f"{st.cache_bytes_hwm}, prefix_hits {st.prefix_hits}; peak "
-              f"memory {peak_gb:.2f} GB; launches {launches}")
-        gates = {
-            "every request finishes with 193 tokens":
-                len(out) == 2 * SERVE_OBS
-                and all(len(t) == SERVE_TOKENS for t in out.values()),
-            f"{decode_kernel} launches == {L} x tick steps":
-                launches[decode_kernel] == L * steps,
-            f"{chunk_kernel} launches == {L} x {runs} prefill runs":
-                launches[chunk_kernel] == L * runs,
-            f"{idle} never launched": not any(launches[k] for k in idle),
-            "one readback per decode tick":
-                st.decode_syncs == len(st.decode_tick_s) <= st.ticks,
-            "one first-token readback per request":
-                st.prefill_syncs == 2 * SERVE_OBS,
-        }
-        if chunked:
+        eng, out, launches, gates = serve_engine(
+            cfg, params, obs, name, kw, cfg.vision.num_tokens + FULL_TEXT)
+        if eng.scheduler is not None:
             plan = plans["paged" if eng.paged else "dense"]
-            gates.update({
-                f"prefill_tokens + prefill_skipped == 16 x {prompt_len}":
-                    st.prefill_tokens + st.prefill_skipped
-                    == 2 * SERVE_OBS * prompt_len,
-                f"no tick prefills more than {TOKEN_BUDGET} positions":
-                    max(st.tick_prefill_tokens) <= TOKEN_BUDGET,
-                "host plan counts equal the CPU replay's":
-                    plan_counts(eng) == plan,
-            })
-        else:
-            gates["decode_syncs == ticks"] = st.decode_syncs == st.ticks
-        if eng.paged:
-            gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
-            if not chunked:
-                gates[f"prefix_hits >= {SERVE_OBS} x {prompt_pages}"] = \
-                    st.prefix_hits >= SERVE_OBS * prompt_pages
+            gates["host plan counts equal the CPU replay's"] = \
+                plan_counts(eng) == plan
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width serving ({name}): {failed}")
-        results[name] = (launches, st, eng.masked_steps)
+        streams[name] = out
+        results[name] = (launches, eng.stats, eng.masked_steps)
         del eng
     for paged, dense in (("paged-f32", "dense"),
                          ("paged-f32-chunked", "dense-chunked")):
@@ -810,18 +877,184 @@ def serving_full(cfg, params):
             raise AssertionError(f"full-width serving: {paged} streams "
                                  f"differ from {dense} streams")
         print(f"  {paged} streams equal {dense} streams")
-
-    def share(out, ref):
-        same = sum(a == b for u in out for a, b in zip(out[u], ref[u]))
-        return same / sum(len(t) for t in ref.values())
     for name, out in streams.items():
         if "int8" in name or "fp8" in name:
             ref = "paged-f32-chunked" if "chunked" in name else "paged-f32"
             print(f"  {name}: share of tokens equal to {ref}'s streams "
-                  f"{share(out, streams[ref]):.4f} (reported, not a gate)")
+                  f"{stream_share(out, streams[ref]):.4f} (reported, not a "
+                  f"gate)")
     print(f"  dense-chunked vs dense (admit-stall): share of equal tokens "
-          f"{share(streams['dense-chunked'], streams['dense']):.4f} "
+          f"{stream_share(streams['dense-chunked'], streams['dense']):.4f} "
           f"(reported, not a gate)")
+    return results
+
+
+def stream_share(out, ref) -> float:
+    """Share of ``ref``'s tokens that ``out`` repeats at the same place."""
+    same = sum(a == b for u in out for a, b in zip(out[u], ref[u]))
+    return same / sum(len(t) for t in ref.values())
+
+
+def first_layers(cfg, params, n: int, dtype=None):
+    """The model cut to its first ``n`` layers: (config, parameters),
+    the stacked layer leaves sliced (views unless ``dtype`` asks for a
+    copy in another type)."""
+    from repro_torch.models.params import leaves, set_leaf
+    cut = {}
+    for path, t in leaves(params):
+        if path.startswith("decoder/blocks/"):
+            t = t[:n]
+        set_leaf(cut, path, t if dtype is None else t.to(dtype))
+    return dataclasses.replace(cfg, num_layers=n), cut
+
+
+def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
+    """The 16 requests through one full-width engine on the card; prints
+    its serving row and returns (engine, {uid: tokens}, launches, gates).
+    Gates: every request finishes with 193 tokens; each decode step (masked
+    steps too) launches the engine's decode kernel once a layer, and each
+    prefill run its chunk kernel once a layer (admit-stall: one dense chunk
+    prefill per request; chunked: one launch of the layout's chunk kernel
+    per chunk run); an MoE model launches gmm_gated and gmm_down once a
+    layer per prefill run and per decode step; no other kernel runs; one
+    readback per decode tick and one first-token readback per request;
+    admit-stall: a readback every tick, and paged engines >= 8 x the
+    prompt's pages of prefix hits; chunked: prefill_tokens +
+    prefill_skipped = 16 x the prompt, no tick prefills more than the
+    token budget; a paged pool drains to 0 pages."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    eng, out, wall = run_engine(cfg, params, obs, kw, "cuda")
+    launches = read_launches(kernels)
+    st = eng.stats
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.num_layers
+    n_tok = sum(map(len, out.values()))
+    steps = st.device_steps + eng.masked_steps
+    rep = st.phase_report()
+    chunked = eng.scheduler is not None
+    decode_kernel = ("paged_decode_attention" if eng.paged
+                     else "decode_attention")
+    chunk_kernel = ("paged_chunk_prefill" if eng.paged and chunked
+                    else "chunk_prefill")
+    busy = [decode_kernel, chunk_kernel]
+    if cfg.num_experts:
+        busy += ["gmm_gated", "gmm_down"]
+    idle = [k for k in launches if k not in busy]
+    # a chunk run adds chunk_size x max_seq full-view key lanes
+    runs = (st.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
+            if chunked else 2 * SERVE_OBS)
+    print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
+          f"{st.ticks}, device steps {st.device_steps}, masked steps "
+          f"{eng.masked_steps}; TTFT p50/p99 "
+          f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
+          f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
+          f"{rep['decode_tick_p99'] * 1e3:.2f} ms; tick p50/p99 "
+          f"{np.percentile(st.tick_s, 50) * 1e3:.2f}/"
+          f"{np.percentile(st.tick_s, 99) * 1e3:.2f} ms; phases vision "
+          f"{st.vision_time:.3f} s prefill {st.prefill_time:.3f} s "
+          f"decode {st.decode_time:.3f} s; prefill_tokens "
+          f"{st.prefill_tokens}, prefill_skipped {st.prefill_skipped}, "
+          f"max tick prefill {max(st.tick_prefill_tokens)}; "
+          f"{'chunk runs ' + str(runs) + '; ' if chunked else ''}"
+          f"pages_hwm {st.pages_hwm}, cache_bytes_hwm "
+          f"{st.cache_bytes_hwm}, prefix_hits {st.prefix_hits}; peak "
+          f"memory {peak_gb:.2f} GB; launches {launches}")
+    gates = {
+        "every request finishes with 193 tokens":
+            len(out) == 2 * SERVE_OBS
+            and all(len(t) == SERVE_TOKENS for t in out.values()),
+        f"{decode_kernel} launches == {L} x tick steps":
+            launches[decode_kernel] == L * steps,
+        f"{chunk_kernel} launches == {L} x {runs} prefill runs":
+            launches[chunk_kernel] == L * runs,
+        f"{idle} never launched": not any(launches[k] for k in idle),
+        "one readback per decode tick":
+            st.decode_syncs == len(st.decode_tick_s) <= st.ticks,
+        "one first-token readback per request":
+            st.prefill_syncs == 2 * SERVE_OBS,
+    }
+    if cfg.num_experts:
+        for k in ("gmm_gated", "gmm_down"):
+            gates[f"{k} launches == {L} x ({runs} prefill runs + {steps} "
+                  f"tick steps)"] = launches[k] == L * (runs + steps)
+    if chunked:
+        gates.update({
+            f"prefill_tokens + prefill_skipped == 16 x {prompt_len}":
+                st.prefill_tokens + st.prefill_skipped
+                == 2 * SERVE_OBS * prompt_len,
+            f"no tick prefills more than {TOKEN_BUDGET} positions":
+                max(st.tick_prefill_tokens) <= TOKEN_BUDGET,
+        })
+    else:
+        gates["decode_syncs == ticks"] = st.decode_syncs == st.ticks
+    if eng.paged:
+        gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
+        if not chunked:
+            pages = prompt_len // PAGE
+            gates[f"prefix_hits >= {SERVE_OBS} x {pages}"] = \
+                st.prefix_hits >= SERVE_OBS * pages
+    return eng, out, launches, gates
+
+
+def moe_serving_full(cfg):
+    """Phase 7: full-width granite-moe-3b-a800m (seeded bf16 weights)
+    serving the molmoact engines' shape: 16 requests from 8 prompts of 640
+    seeded random tokens (each sent twice in a row), 193 tokens each, 8
+    slots, max_seq 864, 8-token ticks, f32 caches, pages of 32; through
+    MOE_ENGINES. Gates (``serve_engine``), and the paged-f32 streams equal
+    the dense ones; the chunked engine's share of tokens equal to the dense
+    streams is reported. Then the decode breakdown of 4 decode steps of
+    the dense engine's batch. Returns {engine: (launches, stats, masked
+    steps)}."""
+    import torch
+    from repro_torch.models import model as M
+    params = full_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    obs = [(torch.randint(0, cfg.vocab_size, (MOE_PROMPT,), generator=gen,
+                          device="cuda").cpu().numpy().astype(np.int32),
+            None) for _ in range(SERVE_OBS)]
+    results, streams = {}, {}
+    for name, kw in MOE_ENGINES:
+        eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
+                                                 MOE_PROMPT)
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(f"full-width MoE serving ({name}): "
+                                 f"{failed}")
+        streams[name] = out
+        results[name] = (launches, eng.stats, eng.masked_steps)
+        if name == "moe-dense":
+            caches = eng.caches
+        del eng
+    if streams["moe-paged-f32"] != streams["moe-dense"]:
+        raise AssertionError("full-width MoE serving: moe-paged-f32 streams "
+                             "differ from moe-dense streams")
+    print("  moe-paged-f32 streams equal moe-dense streams")
+    share = stream_share(streams["moe-paged-f32-chunked"],
+                         streams["moe-dense"])
+    print(f"  moe-paged-f32-chunked vs moe-dense: share of equal tokens "
+          f"{share:.4f} (reported, not a gate)")
+    # decode steps of the dense engine's batch: 8 slots at position 700
+    opts = M.ModelOptions()
+    tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device="cuda")
+    idx = torch.full((SERVE_SLOTS,), 700, dtype=torch.int32, device="cuda")
+
+    def run_steps(n):
+        for _ in range(n):
+            M.decode_step(cfg, opts, params, tok, caches, idx, device="cuda")
+    run_steps(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(4)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 4 * 1e3
+    print(f"  granite decode step at 8 slots (index 700, dense f32 caches):")
+    decode_breakdown(run_steps, wall_ms)
     return results
 
 
@@ -836,13 +1069,8 @@ def prefill_consistency(cfg, params):
     where chunked and admit-stall streams part."""
     import torch
     from repro_torch.core.vla import control_step_lengths
-    from repro_torch.models.params import leaves, set_leaf
-    cut = dataclasses.replace(cfg, num_layers=CMP_LAYERS)
-    p32 = {}
-    for path, t in leaves(params):
-        if path.startswith("decoder/blocks/"):
-            t = t[:CMP_LAYERS]
-        set_leaf(p32, path, t.float())
+    from repro_torch.models.params import leaves
+    cut, p32 = first_layers(cfg, params, CMP_LAYERS, torch.float32)
     (tokens, patches), = observations(cfg, cfg.vocab_size, SEED + 5)[:1]
     batch = {"tokens": tokens[None], "patches": patches[None]}
     P = control_step_lengths(cfg, FULL_TEXT)[0]
@@ -1123,6 +1351,73 @@ def kernel_timings(inputs, errs, launches, serving):
     return rows
 
 
+def moe_timings(cfg, errs, serving):
+    """Phase 6b: gmm_gated and gmm_down at each served capacity in bf16
+    (ms per launch, plain version, bound, launches on the main path at
+    that capacity: decode steps at 8 slots C=2, 128-row chunk runs C=32,
+    640-row admission prefills C=160). Each timed call reads the next of
+    three weight sets (378 MB of gmm_gated weights in all, past the 50 MB
+    L2), as each layer of the model reads its own. gmm_down's library
+    yardstick is torch.bmm(h, wo); gmm_gated has none (its two bmm
+    products, without the activation, are printed beside it). Returns the
+    kernels-line rows."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm
+    L = cfg.num_layers
+    by_c = dict.fromkeys(MOE_C, 0)
+    for name, (launches, st, masked) in serving.items():
+        by_c[2] += L * (st.device_steps + masked)
+        if "chunked" in name:
+            by_c[32] += L * (st.prefill_key_lanes_full
+                             // (CHUNK_SIZE * SERVE_MAX_SEQ))
+        else:
+            by_c[160] += L * 2 * SERVE_OBS
+    for k in ("gmm_gated", "gmm_down"):
+        total = sum(res[0][k] for res in serving.values())
+        if total != sum(by_c.values()):
+            raise AssertionError(f"{k}: {total} launches on the MoE path, "
+                                 f"{by_c} by capacity")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    sets = [moe_experts(g, cfg, 1, torch.bfloat16)[1:] for _ in range(3)]
+    src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    rows = []
+
+    def cycled(fn, args, iters):
+        """ms per call of fn(*a), a taking each of ``args`` in turn."""
+        it = itertools.cycle(args)
+        return time_ms(lambda: fn(*next(it)), iters)
+    for C in MOE_C:
+        x = moe_experts(g, cfg, C, torch.bfloat16)[0]
+        b = x.element_size()
+        gated = [(x, wi, wg) for wi, wg, _ in sets]
+        down = [(gmm.gmm_gated(x, wi, wg), wo) for wi, wg, wo in sets]
+        t_b, by = bound((E * C * D + 2 * E * D * F + E * C * F) * b,
+                        4 * E * C * D * F, x.dtype)
+        rows.append({
+            "name": f"gmm_gated/C={C}", "route": "cuda", "source": src,
+            "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:84",
+            "launches": by_c[C], "max_abs_err": errs["gmm_gated", C],
+            "ms": cycled(gmm.gmm_gated, gated, 60),
+            "plain_ms": cycled(gmm.gmm_gated_ref, gated, 12),
+            "bound_ms": t_b, "bound_by": by, "library_ms": None})
+        two_bmm = cycled(lambda x, wi, wg: (torch.bmm(x, wi),
+                                            torch.bmm(x, wg)), gated, 60)
+        t_b, by = bound((E * C * F + E * F * D + E * C * D) * b,
+                        2 * E * C * F * D, x.dtype)
+        rows.append({
+            "name": f"gmm_down/C={C}", "route": "cuda", "source": src,
+            "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:108",
+            "launches": by_c[C], "max_abs_err": errs["gmm_down", C],
+            "ms": cycled(gmm.gmm_down, down, 60),
+            "plain_ms": cycled(gmm.gmm_down_ref, down, 12),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": cycled(torch.bmm, down, 60)})
+        print(f"  gmm_gated/C={C}: its two torch.bmm products alone (no "
+              f"activation, not one call) {two_bmm:.4f} ms")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1135,18 +1430,36 @@ def main() -> int:
     print(card_line())
     print(f"phase 1: kernels built and loaded in {_build.timed_build():.1f} s")
     cfg = get_config("molmoact-7b")
+    moe_cfg = get_config(MOE_ARCH)
     print("phase 2: kernels vs plain versions")
     inputs, errs = kernel_checks(cfg)
+    print(f"phase 2b: grouped-expert kernels vs plain versions, "
+          f"{MOE_ARCH} width")
+    moe_errs = moe_kernel_checks(moe_cfg)
     print("phase 3: reduced molmoact-7b, card vs CPU")
     card_vs_cpu(cfg)
+    print(f"phase 3b: reduced {MOE_ARCH}, card vs CPU")
+    moe_card_vs_cpu(moe_cfg)
     params = full_params(cfg)
     print("phase 4: full-width control step")
     launches = full_width(cfg, params)
     print("phase 5: full-width serving engine")
     serving = serving_full(cfg, params)
     prefill_consistency(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 7: full-width {MOE_ARCH} serving engine")
+    moe_serving = moe_serving_full(moe_cfg)
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
+    rows += moe_timings(moe_cfg, moe_errs, moe_serving)
+    for r in rows[-2 * len(MOE_C):]:
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), launches {r['launches']}")
+    print(card_line())      # again here, beside the numbers it qualifies
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

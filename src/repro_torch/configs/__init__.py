@@ -1,5 +1,6 @@
-"""Architecture registry of the port: the attention-only configs whose
-control step and decode path this package runs."""
+"""Architecture registry of the port: the attention-only decoders (dense
+MLP or mixture-of-experts FFN) whose decode and serving paths this package
+runs."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,8 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "smollm-135m": "smollm_135m",
     "molmoact-7b": "molmoact_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "arctic-480b": "arctic_480b",
 }
 
 

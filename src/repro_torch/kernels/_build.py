@@ -47,6 +47,10 @@ SIGNATURES = {
     # stream
     "paged_chunk_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wi, wg, h, bf16, act, E, C, D, F, stream
+    "gmm_gated_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # h, wo, y, bf16, E, C, F, D, stream
+    "gmm_down_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """Layer math of the port (the dense- and paged-cache subset of
 ``repro.models.layers``): norms, RoPE, attention (dense / banded chunk /
 decode, dense or paged caches), the cache write paths (decode rows and
-prefill chunks), the routed attention sub-layer, and the MLP.
+prefill chunks), the routed attention sub-layer, the MLP and the
+capacity-dispatched mixture-of-experts FFN.
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -22,6 +23,7 @@ from repro_torch.kernels.chunk_prefill.paged import (
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
+from repro_torch.kernels.moe_gmm.ops import grouped_mlp
 from repro_torch.models import kv_quant
 
 NEG_INF = -1e30
@@ -36,6 +38,10 @@ class ModelOptions:
     #                                    one stack-wide absolute partition,
     #                                    which keeps results independent of
     #                                    how a prompt is chunked
+    moe_capacity_factor: float = 1.25
+    moe_per_seq_dispatch: bool = False  # slots assigned within each sequence
+    moe_gather_decode: bool = False    # T*K <= E: gather the hit experts'
+    #                                    weights instead of the capacity path
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +245,14 @@ def update_cache_paged(pages, new, page_table, index, scales=None):
     ``index`` is an int or per-slot [B]. Returns ``(pages, scales)``.
 
     A slot whose table entry is the null page 0 (a retired slot) writes
-    zeros there, so page 0 stays all zero (scale 0) in every pool. Live
-    slots own distinct pages, so no two live writes collide.
+    there as the reference's scatter does: its row into an unquantized
+    pool (where several land on one row, the last slot's wins, as XLA
+    applies a scatter's duplicates in order; resolved here before the
+    write, so it does not depend on the device's write order), zeros into
+    a quantized one. Retired slots attend the null page, and under an MoE
+    layer's capacity dispatch their rows change the live slots' outputs,
+    so its contents must be the reference's. Live slots own distinct
+    pages, so no two live writes collide.
 
     Quantized pools follow the reference's two policies:
     - ``scales`` [P, ps, K] ("token"): the row's codes and its scale are
@@ -259,8 +271,10 @@ def update_cache_paged(pages, new, page_table, index, scales=None):
     row = idx % ps
     sink = (pid == 0)[:, None, None]                                 # [B,1,1]
     if scales is None:
-        pages[pid, row] = torch.where(sink, 0.0, new[:, 0].float()).to(
-            pages.dtype)
+        b = torch.arange(B, device=pages.device)
+        same = (pid[:, None] == pid[None]) & (row[:, None] == row[None])
+        last = torch.where(same, b[None], -1).amax(1)    # the last writer
+        pages[pid, row] = new[last, 0].float().to(pages.dtype)
         return pages, None
     tok = torch.where(sink, 0.0, new[:, 0].float())                  # [B,K,h]
     tok_scale = tok.abs().amax(-1) / kv_quant.qmax(pages.dtype)      # [B,K]
@@ -518,3 +532,90 @@ def mlp(p, x, cfg: ModelConfig):
     else:
         h = _act(h, None, cfg.act)
     return h @ p["wo_mlp"]
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def _route(xt, router, cfg: ModelConfig):
+    """Top-k routing of tokens xt [T,D]: (gates [T,K] f32, renormalised;
+    expert ids [T,K]). Logits in the activation dtype, then f32; padded
+    experts are masked out. Ties go to the lower expert id, as in
+    ``jax.lax.top_k`` (``torch.topk`` promises no order)."""
+    E = router.shape[-1]
+    logits = (xt @ router).float()
+    if E > cfg.num_experts:
+        pad = torch.arange(E, device=xt.device) >= cfg.num_experts
+        logits = torch.where(pad[None], NEG_INF, logits)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :cfg.top_k], idx[:, :cfg.top_k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    return gates, idx
+
+
+def moe(p, x, cfg: ModelConfig, opts: ModelOptions):
+    """Capacity-based top-k MoE (sort-free dispatch), x [B,S,D] -> [B,S,D].
+
+    Each of the T = B*S tokens picks K experts; expert e takes its first C
+    assignments in token-major order (an exclusive cumsum over the [T*K]
+    assignments), C = max(1, ceil(K*T/E_real * factor)); the others go to
+    a sink row and contribute nothing. The experts run as one grouped MLP
+    over the [E,C,D] capacity buffer (``grouped_mlp``: the CUDA kernels on
+    the card); the combine reads each kept assignment's slot times its
+    gate. ``moe_per_seq_dispatch`` assigns slots within each sequence
+    (C_seq per sequence); ``moe_gather_decode`` (T*K <= E) runs each
+    assignment against its expert's gathered weights instead. Shapes are
+    fixed by T: nothing is read back to the host."""
+    B, S, D = x.shape
+    E, K = p["router"].shape[-1], cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    gates, expert_idx = _route(xt, p["router"], cfg)
+
+    if opts.moe_gather_decode and T * K <= E:
+        idx = expert_idx.reshape(-1)                     # [T*K]
+        xk = xt.repeat_interleave(K, dim=0)              # [T*K, D]
+        h = torch.einsum("td,tdf->tf", xk, p["moe_wi"][idx])
+        g = torch.einsum("td,tdf->tf", xk, p["moe_wg"][idx])
+        he = torch.einsum("tf,tfd->td", _act(h, g, cfg.act),
+                          p["moe_wo"][idx])
+        out = (he.reshape(T, K, D) * gates[..., None].to(he.dtype)).sum(1)
+        return out.reshape(B, S, D)
+
+    E_real = cfg.num_experts   # capacity sizes from the real expert count
+    if opts.moe_per_seq_dispatch and B > 1:
+        Cs = max(1, math.ceil(K * S / E_real * opts.moe_capacity_factor))
+        C = B * Cs
+        e_seq = expert_idx.reshape(B, S * K)
+        onehot = F.one_hot(e_seq, E)
+        pos = onehot.cumsum(1) - onehot                  # local prefix sum
+        slot_s = pos.gather(2, e_seq[..., None])[..., 0]
+        keep = (slot_s < Cs).reshape(-1)
+        b_of = torch.arange(B, device=x.device).repeat_interleave(S * K)
+        slot = b_of * Cs + slot_s.reshape(-1)
+        flat_e = e_seq.reshape(-1)
+    else:
+        C = max(1, math.ceil(K * T / E_real * opts.moe_capacity_factor))
+        flat_e = expert_idx.reshape(-1)                  # [T*K]
+        onehot = F.one_hot(flat_e, E)
+        pos = onehot.cumsum(0) - onehot
+        slot = pos.gather(1, flat_e[:, None])[:, 0]
+        keep = slot < C
+    dest = torch.where(keep, flat_e * C + slot, E * C)   # E*C: the sink
+
+    token_of = torch.arange(T, device=x.device).repeat_interleave(K)
+    buf_tokens = torch.zeros(E * C + 1, dtype=torch.long, device=x.device)
+    buf_tokens[dest] = token_of
+    buf_valid = torch.zeros(E * C + 1, dtype=x.dtype, device=x.device)
+    buf_valid[dest] = 1.0
+    xe = (xt[buf_tokens[:-1]].reshape(E, C, D)
+          * buf_valid[:-1].reshape(E, C, 1))
+    he = grouped_mlp(xe, p["moe_wi"], p["moe_wg"], p["moe_wo"], cfg.act)
+    he = he.reshape(E * C, D)
+
+    src = torch.where(keep, flat_e * C + slot, 0)
+    picked = he[src] * keep[:, None].to(he.dtype)        # [T*K, D]
+    picked = picked.reshape(T, K, D) * gates[..., None].to(he.dtype)
+    return picked.sum(1).reshape(B, S, D)

@@ -1,6 +1,6 @@
 """Decoder stacks: templates and the loop over layers (the port of
-``repro.models.stacks`` for attention + dense-FFN stacks, with dense or
-paged caches).
+``repro.models.stacks`` for attention stacks with a dense, MoE or MoE +
+dense FFN, with dense or paged caches).
 
 The stack is a repeating pattern of ``period`` sub-layers; parameters of
 the ``L // period`` blocks are stacked on a leading axis, the ``L % period``
@@ -102,18 +102,31 @@ def mlp_template(cfg: ModelConfig) -> Dict[str, PSpec]:
     return t
 
 
+def moe_template(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, f = cfg.d_model, cfg.moe_d_ff
+    e = max(cfg.num_experts_padded, cfg.num_experts)
+    return {
+        "router": PSpec((d, e), fan_in=d),
+        "moe_wi": PSpec((e, d, f), fan_in=d),
+        "moe_wg": PSpec((e, d, f), fan_in=d),
+        "moe_wo": PSpec((e, f, d), fan_in=f),
+    }
+
+
 def layer_template(cfg: ModelConfig, kind: SubKind) -> Dict[str, PSpec]:
-    if kind.mixer != "attn" or kind.cross or kind.ffn not in ("dense",
-                                                              "none"):
+    if kind.mixer != "attn" or kind.cross:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} needs MoE, Mamba or cross-attention layers "
+            f"{cfg.name}: {kind} needs Mamba or cross-attention layers "
             "(ROADMAP item 12)")
     t: Dict[str, PSpec] = {}
     t.update(_norm_template(cfg, "ln1", cfg.d_model))
     t.update(attn_template(cfg))
-    if kind.ffn == "dense":
+    if kind.ffn != "none":
         t.update(_norm_template(cfg, "ln2", cfg.d_model))
+    if kind.ffn in ("dense", "moe+dense"):
         t.update(mlp_template(cfg))
+    if kind.ffn in ("moe", "moe+dense"):
+        t.update(moe_template(cfg))
     return t
 
 
@@ -167,7 +180,8 @@ def layer_slice(tree, i: int):
 def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                    kind: SubKind, positions, cache=None, cache_index=None,
                    live_len=None, page_table=None, n_valid=None):
-    """One pre-norm attention + dense-FFN sub-layer; ``cache`` (a dict with
+    """One pre-norm attention + FFN sub-layer (dense MLP and/or MoE on the
+    same ``ln2`` output, summed); ``cache`` (a dict with
     ``k``/``v``, dense or page pools, plus ``k_scale``/``v_scale`` for a
     quantized pool) is written in place, a prefill chunk's rows at or past
     ``n_valid`` dropped. Returns x."""
@@ -181,8 +195,12 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                        cache_index=cache_index, live_len=live_len,
                        page_table=page_table, n_valid=n_valid)
     x = x + a
-    if kind.ffn == "dense":
-        x = x + L.mlp(p, L.apply_norm(p, x, cfg, "ln2"), cfg)
+    if kind.ffn != "none":
+        h = L.apply_norm(p, x, cfg, "ln2")
+        y = L.mlp(p, h, cfg) if kind.ffn in ("dense", "moe+dense") else 0.0
+        if kind.ffn in ("moe", "moe+dense"):
+            y = y + L.moe(p, h, cfg, opts)
+        x = x + y
     return x
 
 

@@ -229,8 +229,11 @@ def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
     masked: every row counts as done, so no carry value changes and each
     row's cache write lands where a done row's does in the reference (its
     unchanged position: a retired slot's null page, a live slot's next
-    position, rewritten identically by its next real step). ``steps``
-    counts the steps where ``go`` held (the reference's loop count).
+    position, rewritten identically by its next real step), and the null
+    page of a paged cache is put back as the step found it (the
+    reference never ran the step, and retired slots attend that page).
+    ``steps`` counts the steps where ``go`` held (the reference's loop
+    count).
     ``keys`` [B] are the slots' sampling keys; a step's noise is keyed on
     the row's position, so masked steps consume no randomness. Returns (tokens, caches, index, budget, done, out, n_emit, steps)."""
     B = tokens.shape[0]
@@ -238,10 +241,17 @@ def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
     n_emit = torch.zeros(B, dtype=torch.int32, device=device)
     steps = torch.zeros((), dtype=torch.int32, device=device)
     entry_done = done
+    null_pages = ([(leaf, cache_batch_axis(path))
+                   for path, leaf in leaves(caches) if is_paged_leaf(path)]
+                  if page_table is not None else [])
     for step in range(min(K, max_steps)):
         go = ~done.all() & ~(done & ~entry_done).any()
+        held = [leaf.select(axis, 0).clone() for leaf, axis in null_pages]
         logits, caches = M.decode_step(cfg, opts, params, tokens, caches,
                                        index, page_table, device=device)
+        for (leaf, axis), page in zip(null_pages, held):
+            leaf.select(axis, 0).copy_(
+                torch.where(go, leaf.select(axis, 0), page))
         nxt = S.sample_token(logits, temperature, top_k, keys, index)  # [B]
         live = ~done & go
         out[:, step] = torch.where(live, nxt, -1)
@@ -597,8 +607,9 @@ class ServingEngine:
         range."""
         if not fresh or kv_quant.quant_dtype(self.kv_dtype) is None:
             return
-        _reset_page_scales_impl(self.caches,
-                                torch.as_tensor(fresh, device=self.device))
+        # the null page too, as the reference's zero-padded id list does
+        _reset_page_scales_impl(self.caches, torch.as_tensor(
+            [0] + list(fresh), device=self.device))
 
     def _clamped_budget(self, req: Request, pos: int) -> int:
         """Clamp generation to cache capacity: decode writes positions
@@ -1155,14 +1166,17 @@ def _scatter_pages_impl(caches, cache1, dest_pages, page_size: int):
     """Scatter a batch-1 dense prefill cache into pool pages, quantizing on
     the way in for an int8/fp8 pool. ``dest_pages`` [pages_per_slot] (host
     ints) holds each prompt page's destination; entries 0 (prefix-shared
-    pages, pages past the allocation) are skipped, so the null page stays
-    all zero. A quantized page's scales are its amax / qmax at the pool's
-    granularity (read from the scale leaf's shape), written beside the
-    codes they encode."""
+    pages, pages past the allocation) are write sinks into the null page:
+    as in the reference's scatter, whose duplicates land in order, the
+    null page ends up holding the last of them (usually an empty page past
+    the prompt). A quantized page's scales are its amax / qmax at the
+    pool's granularity (read from the scale leaf's shape), written beside
+    the codes they encode."""
     dest = np.asarray(dest_pages).reshape(-1)
     keep = np.flatnonzero(dest)
-    if not len(keep):
-        return caches
+    null = np.flatnonzero(dest == 0)
+    if len(null):
+        keep = np.sort(np.append(keep, null[-1]))
     big = dict(leaves(caches))
     small = dict(leaves(cache1))
     src_idx = torch.as_tensor(keep)

@@ -319,10 +319,9 @@ def test_prefill_chunk_matches_reference(layout):
                                    rtol=1e-4)
     jk = np.asarray(jc["blocks"]["sub0"]["k"])
     tk = tc["blocks"]["sub0"]["k"].numpy()
-    if paged:       # the live pages; padding rows sank into page 0
-        np.testing.assert_allclose(tk[:, 1:], jk[:, 1:], atol=1e-5)
-    else:
-        np.testing.assert_allclose(tk, jk, atol=1e-5)
+    # paged: padding rows sank into page 0 as zeros, in both
+    np.testing.assert_allclose(tk, jk, atol=1e-5)
+    if not paged:
         assert not np.abs(tk[:, :, 14:]).max()
 
 

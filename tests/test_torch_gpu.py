@@ -6,7 +6,10 @@ machine with the card: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``. Inputs are at the main path's shapes; outputs
 must agree within 1e-2 x max(1, |plain|) (bf16 output rounding and f32
 sums in another order). A paged launch and a dense launch over the same
-rows at page_size 32 must be bit-equal.
+rows at page_size 32 must be bit-equal. The grouped-expert kernels run at
+granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
+served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
+640-row prefill) and a ragged one.
 """
 import pytest
 import torch
@@ -15,6 +18,7 @@ from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.chunk_prefill import paged as pcp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
+from repro_torch.kernels.moe_gmm import ops as gmm
 from repro_torch.models import kv_quant
 
 
@@ -252,3 +256,51 @@ def test_paged_chunk_kernel_rejects_other_page_sizes_on_card():
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="page_size"):
         pcp.paged_chunk_prefill_attention(q, pages, pages, table, 3)
+
+
+def _experts(dev, dtype, E=40, C=2, D=1536, F=512, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    return (rnd(E, C, D), rnd(E, D, F, scale=D ** -0.5),
+            rnd(E, D, F, scale=D ** -0.5), rnd(E, F, D, scale=F ** -0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_plain"])
+@pytest.mark.parametrize("C", [2, 7, 32, 160])
+def test_gmm_kernels_on_card(C, act, dtype):
+    dev = _cuda()
+    x, wi, wg, wo = _experts(dev, dtype, C=C)
+    h = gmm.gmm_gated(x, wi, wg, act=act)
+    assert _close(h, gmm.gmm_gated_ref(x, wi, wg, act))
+    y = gmm.gmm_down(h, wo)
+    assert _close(y, gmm.gmm_down_ref(h, wo))
+    assert _close(gmm.grouped_mlp(x, wi, wg, wo, act),
+                  gmm.grouped_mlp_ref(x, wi, wg, wo, act))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gmm_kernels_count_launches_on_card():
+    dev = _cuda()
+    x, wi, wg, wo = _experts(dev, torch.bfloat16, E=4, C=3, D=64, F=48)
+    before = (gmm.gmm_gated.launches, gmm.gmm_down.launches)
+    gmm.grouped_mlp(x, wi, wg, wo)
+    gmm.gmm_down(gmm.gmm_gated(x, wi, wg, act="gelu"), wo)
+    torch.cuda.synchronize()
+    assert (gmm.gmm_gated.launches - before[0],
+            gmm.gmm_down.launches - before[1]) == (2, 2)
+
+
+@pytest.mark.gpu
+def test_gmm_kernels_refuse_what_they_do_not_take_on_card():
+    dev = _cuda()
+    x, wi, wg, _ = _experts(dev, torch.bfloat16, E=2, C=3, D=64, F=20)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm.gmm_gated(x, wi, wg)
+    x, wi, wg, _ = _experts(dev, torch.float16, E=2, C=3, D=64, F=48)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm.gmm_gated(x, wi, wg)

@@ -69,9 +69,11 @@ def _requests(cfg, seed, shape, patches=False, repeat=False):
 MIXED = [(4, 7), (9, 3), (6, 12), (3, 5), (8, 9)]
 
 
-def run_port(name, reqs, n_slots=2, max_seq=48, tick_tokens=4, **kw):
+def run_port(name, reqs, n_slots=2, max_seq=48, tick_tokens=4, opts=None,
+             **kw):
+    """``opts``: ModelOptions fields the two frameworks share."""
     cfg, params = port_params(name)
-    eng = ServingEngine(cfg, TOpts(), params, n_slots=n_slots,
+    eng = ServingEngine(cfg, TOpts(**(opts or {})), params, n_slots=n_slots,
                         max_seq=max_seq, eos=kw.pop("eos", -999),
                         tick_tokens=tick_tokens, device="cpu", **kw)
     for i, (prompt, m, px) in enumerate(reqs):
@@ -83,10 +85,11 @@ def run_port(name, reqs, n_slots=2, max_seq=48, tick_tokens=4, **kw):
 
 
 def run_ref(name, reqs, n_slots=2, max_seq=48, tick_tokens=4, pallas=False,
-            **kw):
+            opts=None, **kw):
     cfg, params = reduced_params(name)
-    opts = JOpts(remat=False, use_pallas=pallas, pallas_interpret=pallas)
-    eng = JEngine(cfg, opts, params, n_slots=n_slots, max_seq=max_seq,
+    jopts = JOpts(remat=False, use_pallas=pallas, pallas_interpret=pallas,
+                  **(opts or {}))
+    eng = JEngine(cfg, jopts, params, n_slots=n_slots, max_seq=max_seq,
                   eos=kw.pop("eos", -999), tick_tokens=tick_tokens, **kw)
     for i, (prompt, m, px) in enumerate(reqs):
         eng.submit(JReq(uid=i, prompt=prompt.copy(), max_tokens=m,
