@@ -17,7 +17,11 @@ The MoE family follows: the grouped-expert kernels
 against their plain versions at granite-moe-3b-a800m's width, the reduced
 granite engine on card and CPU, and the full-width granite-moe-3b-a800m
 serving the same 16-request shape through three engines (admit-stall
-dense and paged f32, chunked paged f32) with its decode breakdown. Prints
+dense and paged f32, chunked paged f32) with its decode breakdown. The
+Mamba2 family last: the SSD scan kernel against its plain version at
+mamba2-780m's width, reduced mamba2-780m and the reduced jamba hybrid on
+card and CPU, and the full-width mamba2-780m serving the same shape
+admit-stall (dense and paged f32) with its decode breakdown. Prints
 the card, the phase numbers, one JSON line describing each kernel and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails.
@@ -101,6 +105,17 @@ MOE_ENGINES = [
     ("moe-paged-f32", dict(paged=True)),
     ("moe-paged-f32-chunked", dict(CHUNKED, paged=True)),
 ]
+# the Mamba2 family: mamba2-780m served in the same shape (8 prompts of
+# 640 random tokens, each sent twice, 193 tokens each; admit-stall only,
+# as in the reference); the jamba hybrid (attention, Mamba2 and MoE
+# layers) at its reduced width only (398 B parameters do not fit one card)
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "jamba-1.5-large-398b"
+# SSD scans at mamba2-780m's width (H=48, P=64, N=128, chunks of 128):
+# (B, S, type): the admission prefill, one chunk, a chunk shorter than
+# 128, and f32
+SSD_CASES = [(1, 640, "bfloat16"), (1, 128, "bfloat16"),
+             (1, 64, "bfloat16"), (2, 256, "float32")]
+SSM_ENGINES = [("ssm-dense", {}), ("ssm-paged-f32", dict(paged=True))]
 
 
 def card_line() -> str:
@@ -617,11 +632,12 @@ def reset_launches():
     from repro_torch.kernels.decode_attention.paged import (
         paged_decode_attention)
     from repro_torch.kernels.moe_gmm.ops import gmm_down, gmm_gated
+    from repro_torch.kernels.ssd.ops import ssd
     kernels = {"decode_attention": decode_attention,
                "chunk_prefill": chunk_prefill_attention,
                "paged_decode_attention": paged_decode_attention,
                "paged_chunk_prefill": paged_chunk_prefill_attention,
-               "gmm_gated": gmm_gated, "gmm_down": gmm_down}
+               "gmm_gated": gmm_gated, "gmm_down": gmm_down, "ssd": ssd}
     for fn in kernels.values():
         fn.launches = 0
     return kernels
@@ -660,7 +676,7 @@ def full_width(cfg, params):
     want = {"chunk_prefill": cfg.num_layers,
             "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
             "paged_decode_attention": 0, "paged_chunk_prefill": 0,
-            "gmm_gated": 0, "gmm_down": 0}
+            "gmm_gated": 0, "gmm_down": 0, "ssd": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
@@ -912,11 +928,13 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
     """The 16 requests through one full-width engine on the card; prints
     its serving row and returns (engine, {uid: tokens}, launches, gates).
     Gates: every request finishes with 193 tokens; each decode step (masked
-    steps too) launches the engine's decode kernel once a layer, and each
-    prefill run its chunk kernel once a layer (admit-stall: one dense chunk
-    prefill per request; chunked: one launch of the layout's chunk kernel
-    per chunk run); an MoE model launches gmm_gated and gmm_down once a
-    layer per prefill run and per decode step; no other kernel runs; one
+    steps too) launches the engine's decode kernel once an attention layer,
+    and each prefill run its chunk kernel once an attention layer
+    (admit-stall: one dense chunk prefill per request; chunked: one launch
+    of the layout's chunk kernel per chunk run); MoE layers launch
+    gmm_gated and gmm_down once a layer per prefill run and per decode
+    step; Mamba2 layers launch the SSD scan once a layer per prefill run
+    (decode runs the recurrence, no kernel); no other kernel runs; one
     readback per decode tick and one first-token readback per request;
     admit-stall: a readback every tick, and paged engines >= 8 x the
     prompt's pages of prefix hits; chunked: prefill_tokens +
@@ -940,13 +958,16 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
                      else "decode_attention")
     chunk_kernel = ("paged_chunk_prefill" if eng.paged and chunked
                     else "chunk_prefill")
-    busy = [decode_kernel, chunk_kernel]
-    if cfg.num_experts:
-        busy += ["gmm_gated", "gmm_down"]
-    idle = [k for k in launches if k not in busy]
     # a chunk run adds chunk_size x max_seq full-view key lanes
     runs = (st.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
             if chunked else 2 * SERVE_OBS)
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(L))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    expected = {decode_kernel: n_attn * steps, chunk_kernel: n_attn * runs,
+                "gmm_gated": n_moe * (runs + steps),
+                "gmm_down": n_moe * (runs + steps),
+                "ssd": (L - n_attn) * runs}
+    idle = [k for k in launches if not expected.get(k)]
     print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
           f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
           f"{st.ticks}, device steps {st.device_steps}, masked steps "
@@ -968,20 +989,23 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
         "every request finishes with 193 tokens":
             len(out) == 2 * SERVE_OBS
             and all(len(t) == SERVE_TOKENS for t in out.values()),
-        f"{decode_kernel} launches == {L} x tick steps":
-            launches[decode_kernel] == L * steps,
-        f"{chunk_kernel} launches == {L} x {runs} prefill runs":
-            launches[chunk_kernel] == L * runs,
+        f"{decode_kernel} launches == {n_attn} x tick steps":
+            launches[decode_kernel] == expected[decode_kernel],
+        f"{chunk_kernel} launches == {n_attn} x {runs} prefill runs":
+            launches[chunk_kernel] == expected[chunk_kernel],
         f"{idle} never launched": not any(launches[k] for k in idle),
         "one readback per decode tick":
             st.decode_syncs == len(st.decode_tick_s) <= st.ticks,
         "one first-token readback per request":
             st.prefill_syncs == 2 * SERVE_OBS,
     }
-    if cfg.num_experts:
+    if n_moe:
         for k in ("gmm_gated", "gmm_down"):
-            gates[f"{k} launches == {L} x ({runs} prefill runs + {steps} "
-                  f"tick steps)"] = launches[k] == L * (runs + steps)
+            gates[f"{k} launches == {n_moe} x ({runs} prefill runs + "
+                  f"{steps} tick steps)"] = launches[k] == expected[k]
+    if L > n_attn:
+        gates[f"ssd launches == {L - n_attn} x {runs} prefill runs"] = \
+            launches["ssd"] == expected["ssd"]
     if chunked:
         gates.update({
             f"prefill_tokens + prefill_skipped == 16 x {prompt_len}":
@@ -1418,6 +1442,213 @@ def moe_timings(cfg, errs, serving):
     return rows
 
 
+def ssd_inputs(g, cfg, B: int, S: int, dtype):
+    """Seeded SSD operands at ``cfg``'s Mamba2 width: x, B, C in
+    ``dtype``; dt = softplus(normal) and A_log in [0, 1.5) in f32 (the
+    reference kernel tests' distributions)."""
+    import torch
+    from repro_torch.models.layers import mamba_dims
+    _, H, P, N, _, _ = mamba_dims(cfg)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    return (rnd(B, S, H, P).to(dtype),
+            torch.nn.functional.softplus(rnd(B, S, H)),
+            1.5 * torch.rand(H, generator=g, device="cuda"),
+            rnd(B, S, 1, N, scale=0.3).to(dtype),
+            rnd(B, S, 1, N, scale=0.3).to(dtype))
+
+
+def ssd_kernel_checks(cfg):
+    """Phase 2c: the SSD kernel against its plain version at mamba2-780m's
+    width, for SSD_CASES: y and the final state within KERNEL_TOL x max(1,
+    |plain|). Returns the first case's inputs (the admission prefill's
+    shape, for the timing) and the largest error by case."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errs, first = {}, None
+    for B, S, dtype in SSD_CASES:
+        args = ssd_inputs(g, cfg, B, S, getattr(torch, dtype))
+        y, st = ssd.ssd(*args)
+        yp, sp = ssd.ssd_chunked(*args)
+        errs[B, S, dtype] = max(
+            check(f"ssd y, {dtype} B={B} S={S}", y, yp, KERNEL_TOL),
+            check(f"ssd final state, {dtype} B={B} S={S}", st, sp,
+                  KERNEL_TOL))
+        first = first or args
+    return first, errs
+
+
+def ssm_card_vs_cpu(names):
+    """Phase 3c: reduced mamba2-780m and reduced jamba in f32 on the card
+    (the SSD kernel; jamba's attention and grouped-expert kernels) and on
+    the CPU (plain versions): prefill logits (f32 caches) within
+    CPU_LOGIT_TOL with one SSD launch per Mamba layer, ``decode_loop``
+    streams equal (B=2, 8 steps), and the admit-stall dense and paged f32
+    engines' greedy streams equal (5 requests with mixed budgets on 3
+    slots, one of them a one-token prompt)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    opts = M.ModelOptions()
+    for name in names:
+        cfg = get_config(name).reduced()
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              torch.float32, device="cpu")
+        p_gpu = {}
+        for path, t in leaves(p_cpu):
+            set_leaf(p_gpu, path, t.cuda())
+        rng = np.random.default_rng(SEED + 13)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+        n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        launches = ssd.ssd.launches
+        lg, cg = M.prefill(cfg, opts, p_gpu, {"tokens": tokens}, 32,
+                           cache_dtype=torch.float32, device="cuda")
+        if ssd.ssd.launches - launches != n_ssm:
+            raise AssertionError(f"reduced {name} prefill did not run the "
+                                 f"SSD kernel once a Mamba layer")
+        lc, cc = M.prefill(cfg, opts, p_cpu, {"tokens": tokens}, 32,
+                           cache_dtype=torch.float32, device="cpu")
+        check(f"reduced {name} prefill logits (f32 caches), card vs CPU",
+              lg.cpu(), lc, CPU_LOGIT_TOL)
+        tok = lc[:, -1].argmax(-1, keepdim=True)
+        sg = M.decode_loop(cfg, opts, p_gpu, tok.cuda(), cg, 12, 8,
+                           device="cuda")[0].cpu()
+        sc = M.decode_loop(cfg, opts, p_cpu, tok, cc, 12, 8,
+                           device="cpu")[0]
+        if not torch.equal(sg, sc):
+            raise AssertionError(f"reduced {name} decode_loop: card "
+                                 f"{sg.tolist()} vs CPU {sc.tolist()}")
+        print(f"  reduced {name} decode_loop: 2 x 8 tokens equal on card "
+              f"and CPU")
+        reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+                 None)
+                for n, m in ((6, 9), (9, 4), (1, 14), (7, 6), (5, 11))]
+        tag = name.split("-")[0]
+        engines_card_vs_cpu(cfg, p_cpu, p_gpu,
+                            [(f"{tag}-dense", {}, reqs, 64),
+                             (f"{tag}-paged-f32", dict(paged=True), reqs,
+                              64)], n_slots=3)
+
+
+def replayed_plan(cfg, obs, engines):
+    """The admit-stall engines' host plan, replayed on the CPU: the
+    reduced model gets prompts of the same lengths (each sent twice, as
+    ``obs``), slots, pool and ticks, so it runs the same ticks, steps,
+    prefix hits and pages; returns {engine name: counts}."""
+    import torch
+    from repro_torch.models import model as M
+    small = cfg.reduced()
+    params = M.init_params(small, torch.Generator().manual_seed(SEED),
+                           torch.float32, device="cpu")
+    rng = np.random.default_rng(SEED + 14)
+    sobs = [(rng.integers(0, small.vocab_size, len(p), dtype=np.int32), px)
+            for p, px in obs]
+    plans = {}
+    for name, kw in engines:
+        t0 = time.perf_counter()
+        eng, out, _ = run_engine(small, params, sobs, kw, "cpu")
+        if len(out) != 2 * SERVE_OBS:
+            raise AssertionError(f"host plan ({name}): {len(out)} requests "
+                                 f"finished")
+        c = plans[name] = plan_counts(eng)
+        print(f"  host plan ({name}, replayed on the CPU in "
+              f"{time.perf_counter() - t0:.1f} s): ticks {c['ticks']}, "
+              f"device steps {c['device_steps']}, masked steps "
+              f"{c['masked_steps']}, prefix_hits {c['prefix_hits']}, "
+              f"pages_hwm {c['pages_hwm']}")
+    return plans
+
+
+def ssm_serving_full(cfg):
+    """Phase 8: full-width mamba2-780m (seeded bf16 weights, f32 caches)
+    serving the granite engines' shape: 16 requests from 8 prompts of 640
+    seeded random tokens (each sent twice in a row), 193 tokens each, 8
+    slots, max_seq 864, 8-token ticks; through SSM_ENGINES (admit-stall
+    dense and paged f32). Gates (``serve_engine``: 48 SSD launches per
+    admission and no other kernel), the host plan counts equal to their
+    CPU replay's, and the paged streams equal the dense ones. Then the
+    decode breakdown of 4 decode steps of the dense engine's batch.
+    Returns {engine: (launches, stats, masked steps)}."""
+    import torch
+    from repro_torch.models import model as M
+    params = full_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    obs = [(torch.randint(0, cfg.vocab_size, (MOE_PROMPT,), generator=gen,
+                          device="cuda").cpu().numpy().astype(np.int32),
+            None) for _ in range(SERVE_OBS)]
+    plans = replayed_plan(cfg, obs, SSM_ENGINES)
+    results, streams = {}, {}
+    for name, kw in SSM_ENGINES:
+        eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
+                                                 MOE_PROMPT)
+        gates["host plan counts equal the CPU replay's"] = \
+            plan_counts(eng) == plans[name]
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(f"full-width SSM serving ({name}): "
+                                 f"{failed}")
+        streams[name] = out
+        results[name] = (launches, eng.stats, eng.masked_steps)
+        if name == "ssm-dense":
+            caches = eng.caches
+        del eng
+    if streams["ssm-paged-f32"] != streams["ssm-dense"]:
+        raise AssertionError("full-width SSM serving: ssm-paged-f32 streams "
+                             "differ from ssm-dense streams")
+    print("  ssm-paged-f32 streams equal ssm-dense streams")
+    opts = M.ModelOptions()
+    tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device="cuda")
+    idx = torch.full((SERVE_SLOTS,), 700, dtype=torch.int32, device="cuda")
+
+    def run_steps(n):
+        for _ in range(n):
+            M.decode_step(cfg, opts, params, tok, caches, idx, device="cuda")
+    run_steps(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(4)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 4 * 1e3
+    print(f"  mamba2 decode step at 8 slots (f32 states):")
+    decode_breakdown(run_steps, wall_ms)
+    return results
+
+
+def ssd_timings(inputs, errs, serving):
+    """Phase 6c: the SSD kernel at the admission prefill's shape (B=1,
+    S=640, bf16, mamba2-780m's width): ms per launch, its plain version's,
+    the bound, and its launches on the main path (phase 8, every one at
+    this shape). Bytes: x and y, dt, A_log, B and C, the f32 state, each
+    once; operations: per (head, chunk) C B^T, the intra-chunk product,
+    the inter-chunk term and the state update over whole Q x Q tiles, as
+    the TPU kernel computes them, at the input type's peak. No single
+    PyTorch call computes the chunked scan (library_ms null)."""
+    from repro_torch.kernels.ssd import ops as ssd
+    x, dt, A_log, B_, C_ = inputs
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = ssd.chunk_len(S, 128)
+    b = x.element_size()
+    nbytes = (2 * x.numel() * b + 4 * (dt.numel() + A_log.numel())
+              + 2 * B_.numel() * b + 4 * Bsz * H * P * N)
+    ops = Bsz * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P
+                                + 4 * Q * P * N)
+    t_b, by = bound(nbytes, ops, x.dtype)
+    return [{
+        "name": f"ssd/S={S}", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:84",
+        "launches": sum(res[0]["ssd"] for res in serving.values()),
+        "max_abs_err": errs[SSD_CASES[0]],
+        "ms": time_ms(lambda: ssd.ssd(*inputs), 50),
+        "plain_ms": time_ms(lambda: ssd.ssd_chunked(*inputs), 10),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1436,10 +1667,15 @@ def main() -> int:
     print(f"phase 2b: grouped-expert kernels vs plain versions, "
           f"{MOE_ARCH} width")
     moe_errs = moe_kernel_checks(moe_cfg)
+    ssm_cfg = get_config(SSM_ARCH)
+    print(f"phase 2c: SSD kernel vs plain version, {SSM_ARCH} width")
+    ssd_inputs_640, ssd_errs = ssd_kernel_checks(ssm_cfg)
     print("phase 3: reduced molmoact-7b, card vs CPU")
     card_vs_cpu(cfg)
     print(f"phase 3b: reduced {MOE_ARCH}, card vs CPU")
     moe_card_vs_cpu(moe_cfg)
+    print(f"phase 3c: reduced {SSM_ARCH} and {HYBRID_ARCH}, card vs CPU")
+    ssm_card_vs_cpu([SSM_ARCH, HYBRID_ARCH])
     params = full_params(cfg)
     print("phase 4: full-width control step")
     launches = full_width(cfg, params)
@@ -1450,10 +1686,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 7: full-width {MOE_ARCH} serving engine")
     moe_serving = moe_serving_full(moe_cfg)
+    torch.cuda.empty_cache()
+    print(f"phase 8: full-width {SSM_ARCH} serving engine")
+    ssm_serving = ssm_serving_full(ssm_cfg)
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
     rows += moe_timings(moe_cfg, moe_errs, moe_serving)
-    for r in rows[-2 * len(MOE_C):]:
+    rows += ssd_timings(ssd_inputs_640, ssd_errs, ssm_serving)
+    for r in rows[-2 * len(MOE_C) - 1:]:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "

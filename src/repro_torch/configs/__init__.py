@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the attention-only decoders (dense
-MLP or mixture-of-experts FFN) whose decode and serving paths this package
-runs."""
+"""Architecture registry of the port: the attention decoders (dense MLP or
+mixture-of-experts FFN), the attention-free Mamba2 stack and the
+attention / Mamba2 / MoE hybrid, whose decode and serving paths this
+package runs."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,8 @@ _MODULES = {
     "molmoact-7b": "molmoact_7b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "arctic-480b": "arctic_480b",
+    "mamba2-780m": "mamba2_780m",
+    "jamba-1.5-large-398b": "jamba_15_large",
 }
 
 

@@ -1,0 +1,19 @@
+"""mamba2-780m [ssm] — 48L d_model=1536, attention-free, ssm_state=128,
+vocab=50280, SSD (state-space duality). [arXiv:2405.21060]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-780m",
+    family="ssm",
+    num_layers=48,
+    d_model=1536,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50_280,
+    head_dim=64,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    tie_embeddings=True,
+)

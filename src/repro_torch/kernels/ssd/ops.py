@@ -1,0 +1,127 @@
+"""Mamba2 chunked SSD scan: the wrapper of the CUDA kernel and its plain
+version.
+
+``ssd`` launches ``csrc/ssd.cu`` (which replaces the TPU kernel
+``repro/kernels/ssd/ssd.py: ssd_kernel``) for CUDA tensors and runs
+``ssd_chunked`` for CPU tensors; nothing else chooses between them.
+``ssd.launches`` counts the kernel's launches. Both take the model-facing
+layout of ``repro/kernels/ssd/ops.py: ssd`` (B and C with a group axis of
+size 1, dropped here) and follow ``ssd_chunked``'s contract: the sequence
+is one chunk when S <= Q, else S must be a multiple of Q (the reference's
+Pallas kernel leaves the rows past the last whole chunk unwritten there).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+Q_MAX = 128        # the kernel's largest chunk
+N_MAX = 128        # the kernel's largest state size
+
+
+def chunk_len(S: int, Q: int) -> int:
+    """The chunk length for S rows: min(Q, S); S must be a multiple of it."""
+    Q = min(Q, S)
+    if Q <= 0 or S % Q:
+        raise ValueError(f"SSD scan over {S} rows in chunks of {Q}: the "
+                         f"sequence must fit one chunk or be a multiple of "
+                         f"the chunk length")
+    return Q
+
+
+def _check(xs, dt, A_log, B_, C_):
+    if xs.dim() != 4:
+        raise ValueError(f"xs must be [B,S,H,P], got {tuple(xs.shape)}")
+    Bsz, S, H, P = xs.shape
+    if tuple(dt.shape) != (Bsz, S, H) or tuple(A_log.shape) != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A_log "
+                         f"{tuple(A_log.shape)} do not match xs "
+                         f"{tuple(xs.shape)}")
+    for name, m in (("B_", B_), ("C_", C_)):
+        if m.dim() != 4 or tuple(m.shape[:3]) != (Bsz, S, 1):
+            raise ValueError(f"{name} must be [B,S,1,N] (one group), got "
+                             f"{tuple(m.shape)}")
+    if B_.shape != C_.shape:
+        raise ValueError("B_ and C_ must have one shape")
+    if any(t.device != xs.device for t in (dt, A_log, B_, C_)):
+        raise ValueError("ssd operands must be on one device")
+
+
+def ssd_chunked(xs, dt, A_log, B_, C_, Q: int = 128):
+    """Plain version (the chunked SSD of the Mamba2 paper, as the
+    reference's ``layers.ssd_chunked`` without its head split): the
+    quadratic intra-chunk term plus the linear inter-chunk recurrence, in
+    f32 throughout, as the kernel computes (the reference's einsum path
+    rounds C B^T to the input type; equal in f32). xs [B,S,H,P]; dt
+    [B,S,H]; A_log [H]; B_/C_ [B,S,1,N]. Returns (y [B,S,H,P] in xs's
+    dtype, final state [B,H,P,N] f32)."""
+    _check(xs, dt, A_log, B_, C_)
+    Bsz, S, H, P = xs.shape
+    N = B_.shape[-1]
+    Q = chunk_len(S, Q)
+    nc = S // Q
+    A = -torch.exp(A_log.float())                              # [H]
+    x = xs.float().reshape(Bsz, nc, Q, H, P)
+    d = dt.float().reshape(Bsz, nc, Q, H)
+    b = B_.float().reshape(Bsz, nc, Q, N)
+    c = C_.float().reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(d * A, dim=2)                           # [B,nc,Q,H]
+    seg = cum[:, :, -1]                                        # [B,nc,H]
+    # L[s,t] = exp(cum_s - cum_t) for s >= t (masked before the exp)
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
+                                   device=xs.device))[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,Q,Q,H]
+    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    cb = torch.einsum("bcsn,bctn->bcst", c, b)
+    xdt = x * d[..., None]                                     # [B,nc,Q,H,P]
+    y = torch.einsum("bcsth,bcthp->bcshp", cb[..., None] * L, xdt)
+    decay_to_end = torch.exp(seg[:, :, None] - cum)            # [B,nc,Q,H]
+    states = torch.einsum("bctn,bcth,bcthp->bchpn", b, decay_to_end * d, x)
+    h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=xs.device)
+    h_prev = []
+    for k in range(nc):                     # the state before each chunk
+        h_prev.append(h)
+        h = h * torch.exp(seg[:, k])[..., None, None] + states[:, k]
+    y = y + torch.einsum("bcsn,bcsh,bchpn->bcshp", c, torch.exp(cum),
+                         torch.stack(h_prev, 1))
+    return y.reshape(Bsz, S, H, P).to(xs.dtype), h
+
+
+def ssd(xs, dt, A_log, B_, C_, Q: int = 128):
+    """Model-facing SSD: xs [B,S,H,P] (f32 or bf16); dt [B,S,H]; A_log [H];
+    B_/C_ [B,S,1,N] in xs's type. Returns (y [B,S,H,P] in xs's dtype,
+    final state [B,H,P,N] f32): the kernel for CUDA tensors, the plain
+    ``ssd_chunked`` for CPU tensors."""
+    _check(xs, dt, A_log, B_, C_)
+    if xs.device.type == "cpu":
+        return ssd_chunked(xs, dt, A_log, B_, C_, Q)
+    if xs.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs.device}")
+    Bsz, S, H, P = xs.shape
+    N = B_.shape[-1]
+    Q = chunk_len(S, Q)
+    if Q > Q_MAX or N > N_MAX:
+        raise ValueError(f"the kernel takes chunks of at most {Q_MAX} rows "
+                         f"and states of at most {N_MAX}; got Q={Q}, N={N}")
+    if xs.dtype not in DTYPES or B_.dtype != xs.dtype \
+            or C_.dtype != xs.dtype:
+        raise TypeError(f"xs, B_ and C_ must share one type, float32 or "
+                        f"bfloat16; got {xs.dtype}, {B_.dtype}, {C_.dtype}")
+    x = xs.contiguous()
+    d = dt.float().contiguous()
+    a = A_log.float().contiguous()
+    b = B_[:, :, 0].contiguous()
+    c = C_[:, :, 0].contiguous()
+    y = torch.empty_like(x)
+    state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    _build.launch("ssd_launch", x.data_ptr(), d.data_ptr(), a.data_ptr(),
+                  b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                  int(x.dtype == torch.bfloat16), Bsz, S, H, P, N, Q,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    ssd.launches += 1
+    return y, state
+
+
+ssd.launches = 0

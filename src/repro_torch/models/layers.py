@@ -1,8 +1,9 @@
 """Layer math of the port (the dense- and paged-cache subset of
 ``repro.models.layers``): norms, RoPE, attention (dense / banded chunk /
 decode, dense or paged caches), the cache write paths (decode rows and
-prefill chunks), the routed attention sub-layer, the MLP and the
-capacity-dispatched mixture-of-experts FFN.
+prefill chunks), the routed attention sub-layer, the MLP, the
+capacity-dispatched mixture-of-experts FFN and the Mamba2 mixer (its
+chunked SSD scan and per-token recurrence).
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -24,6 +25,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
 from repro_torch.kernels.moe_gmm.ops import grouped_mlp
+from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models import kv_quant
 
 NEG_INF = -1e30
@@ -619,3 +621,96 @@ def moe(p, x, cfg: ModelConfig, opts: ModelOptions):
     picked = he[src] * keep[:, None].to(he.dtype)        # [T*K, D]
     picked = picked.reshape(T, K, D) * gates[..., None].to(he.dtype)
     return picked.sum(1).reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba_dims(cfg: ModelConfig):
+    """(d_inner, heads H, head dim P, state N, groups G = 1, conv channels)
+    of a Mamba2 mixer."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    N = cfg.ssm_state
+    G = 1
+    conv_ch = d_in + 2 * G * N
+    return d_in, H, P, N, G, conv_ch
+
+
+def _conv1d_causal(x, w, b):
+    """Depthwise causal conv. x [B,S,C], w [K,C], b [C]."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    return sum(xp[:, i:i + S, :] * w[i] for i in range(K)) + b
+
+
+def ssd_scan_ref(xs, dt, A_log, B_, C_):
+    """Sequential SSD recurrence (the oracle; O(S) steps), in f32:
+    h_t = exp(A dt_t) h_{t-1} + dt_t B_t (x) x_t; y_t = C_t . h_t.
+    xs [B,S,H,P], dt [B,S,H], A_log [H], B_/C_ [B,S,1,N]. Returns (y in
+    xs's dtype, final state [B,H,P,N] f32)."""
+    Bsz, S, H, P = xs.shape
+    N = B_.shape[-1]
+    A = -torch.exp(A_log.float())
+    x, d = xs.float(), dt.float()
+    b, c = B_[:, :, 0].float(), C_[:, :, 0].float()
+    h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=xs.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(A[None] * d[:, t])                     # [B,H]
+        db = d[:, t, :, None] * b[:, t][:, None, :]               # [B,H,N]
+        h = h * decay[..., None, None] + x[:, t, ..., None] * db[:, :, None]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, c[:, t]))
+    return torch.stack(ys, 1).to(xs.dtype), h
+
+
+def mamba_block(p, x, cfg: ModelConfig, opts: ModelOptions, state=None,
+                conv_state=None, decode: bool = False):
+    """Mamba2 mixer. Returns (out, new_state, new_conv_state).
+
+    Prefill runs the chunked SSD scan from a zero state (``ssd``: the CUDA
+    kernel on the card, its plain version on the CPU) and returns the last
+    ``ssm_conv - 1`` inputs of the conv as its state; ``decode`` (one row)
+    runs the per-token recurrence from ``state`` [B,H,P,N] (f32) and
+    ``conv_state`` [B, ssm_conv - 1, conv_ch]. Types follow the reference:
+    the conv window takes the wider of the conv state's and the input's
+    type, the recurrence runs in f32, and y is rounded to x's type before
+    the skip term."""
+    d_in, H, P, N, G, conv_ch = mamba_dims(cfg)
+    B, S, _ = x.shape
+    z = x @ p["w_z"]
+    xBC = x @ p["w_xbc"]
+    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
+    Kc = p["conv_w"].shape[0]
+    if decode:
+        wdt = torch.promote_types(conv_state.dtype, xBC.dtype)
+        window = torch.cat([conv_state.to(wdt), xBC.to(wdt)], 1)  # [B,Kc,ch]
+        xBC_c = ((window * p["conv_w"][None].to(wdt)).sum(1, keepdim=True)
+                 + p["conv_b"].to(wdt))
+        new_conv_state = window[:, 1:]
+    else:
+        xBC_c = _conv1d_causal(xBC, p["conv_w"], p["conv_b"])
+        new_conv_state = (xBC[:, S - (Kc - 1):] if S >= Kc - 1
+                          else F.pad(xBC, (0, 0, Kc - 1 - S, 0)))
+    xBC_c = F.silu(xBC_c)
+    xs, B_, C_ = torch.split(xBC_c, [d_in, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, -1, H, P)
+    B_ = B_.reshape(B, -1, G, N)
+    C_ = C_.reshape(B, -1, G, N)
+    if decode:
+        A = -torch.exp(p["A_log"].float())
+        dt1 = dt[:, 0]                                            # [B,H]
+        decay = torch.exp(A[None] * dt1)
+        db = dt1[..., None] * B_[:, 0, 0].float()[:, None, :]     # [B,H,N]
+        h = (state * decay[..., None, None]
+             + xs[:, 0].float()[..., None] * db[:, :, None, :])
+        y = torch.einsum("bhpn,bn->bhp", h, C_[:, 0, 0].float())[:, None]
+        new_state = h
+    else:
+        y, new_state = ssd(xs, dt, p["A_log"], B_, C_)
+    y = (y.to(x.dtype)
+         + xs.to(x.dtype) * p["d_skip"].to(x.dtype)[None, None, :, None])
+    y = rms_norm(y.reshape(B, -1, d_in), p["mamba_norm_w"], cfg.norm_eps)
+    return (y * F.silu(z)) @ p["w_out"], new_state, new_conv_state

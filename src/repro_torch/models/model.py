@@ -14,7 +14,10 @@
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
 tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
 Every entry point runs on ``device`` (default ``"cuda"``); the parameters
-and caches must already live there. Caches are updated in place.
+and caches must already live there. Caches are updated in place. A stack
+with Mamba2 layers (``family`` "ssm" or "hybrid") prefills from position 0
+only: its scan starts from a zero state, so positioned prefill and
+``prefill_chunk`` refuse it, as the reference's chunked engine does.
 """
 from __future__ import annotations
 
@@ -120,6 +123,13 @@ def _sequence(params, batch, cfg, dev):
     return x, positions
 
 
+def _refuse_ssm_resume(cfg: ModelConfig):
+    if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 layers prefill from position 0 only (the "
+            "SSM prefill state is not chunk-resumable; ROADMAP item 12)")
+
+
 def _positions(index, B: int, S: int, dev):
     """Positions [B, S] of S rows from ``index`` (int, or a 0-d or [B]
     tensor, kept on the device)."""
@@ -167,6 +177,8 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
         if caches is None:
             raise ValueError("prefill from cache_index > 0 (or through a "
                              "page table) needs existing caches")
+        if not (isinstance(cache_index, int) and cache_index == 0):
+            _refuse_ssm_resume(cfg)
         if "prefix" in batch or "patches" in batch:
             raise ValueError("positioned prefill is tokens-only; fold the "
                              "vision prefix in at cache_index == 0 (or use "
@@ -215,6 +227,7 @@ def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
     through the lm head."""
     dev = resolve_device(device)
     _check_params(params, dev)
+    _refuse_ssm_resume(cfg)
     B, C, _ = embeds.shape
     positions = _positions(cache_index, B, C, dev)
     if page_table is not None:

@@ -22,7 +22,7 @@ from repro_torch import resolve_device
 @dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"       # normal | zeros | ones | pos
+    init: str = "normal"       # normal | zeros | ones | ssm_a | ssm_dt | pos
     fan_in: Optional[int] = None
     stacked: bool = False      # leading axis is a stack of layers
 
@@ -68,22 +68,36 @@ def _init_leaf(spec: PSpec, gen, dtype, device):
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init not in ("normal", "pos"):
+    if spec.init not in ("normal", "pos", "ssm_a", "ssm_dt"):
         raise ValueError(f"init {spec.init!r} is not used by this port")
-    scale = _scale(spec)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
     # a stacked leaf is drawn one layer at a time, so no f32 copy of a
     # whole stack exists (stacked wi of molmoact-7b is 7.6 GB in f32)
     for part in (out.unbind(0) if spec.stacked else (out,)):
-        part.copy_(torch.randn(part.shape, generator=gen, device=device,
-                               dtype=torch.float32) * scale)
+        part.copy_(_draw(spec, part.shape, gen, device))
     return out
+
+
+def _draw(spec: PSpec, shape, gen, device):
+    """One f32 draw of ``spec``'s init: normal * scale, or the Mamba2
+    inits: ``ssm_a`` is A_log = log(U[1, 16]); ``ssm_dt`` is the dt bias
+    whose softplus is exp(U[log 1e-3, log 1e-1])."""
+    if spec.init in ("normal", "pos"):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32) * _scale(spec)
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    if spec.init == "ssm_a":
+        return torch.log(1.0 + 15.0 * u)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * u)
+    return dt + torch.log(-torch.expm1(-dt))
 
 
 def init_params(template, generator: torch.Generator,
                 dtype=torch.float32, device="cuda"):
     """Random parameters for a template: normal * 1/sqrt(fan_in), ``ones``,
-    ``zeros``, or normal * 0.02 for ``pos``, drawn leaf by leaf on
+    ``zeros``, normal * 0.02 for ``pos``, or the Mamba2 ``ssm_a`` /
+    ``ssm_dt`` draws (see ``_draw``), leaf by leaf on
     ``device`` from ``generator`` (which must live on that device). The
     draws differ from the reference's ``jax.random``; use ``from_jax`` for
     the reference's own weights."""

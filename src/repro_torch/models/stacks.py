@@ -1,6 +1,6 @@
 """Decoder stacks: templates and the loop over layers (the port of
-``repro.models.stacks`` for attention stacks with a dense, MoE or MoE +
-dense FFN, with dense or paged caches).
+``repro.models.stacks`` for stacks of attention and Mamba2 mixers with a
+dense, MoE or MoE + dense FFN, with dense or paged caches).
 
 The stack is a repeating pattern of ``period`` sub-layers; parameters of
 the ``L // period`` blocks are stacked on a leading axis, the ``L % period``
@@ -113,14 +113,32 @@ def moe_template(cfg: ModelConfig) -> Dict[str, PSpec]:
     }
 
 
+def mamba_template(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    d_in, H, P, N, G, conv_ch = L.mamba_dims(cfg)
+    return {
+        "w_z": PSpec((d, d_in), fan_in=d),
+        "w_xbc": PSpec((d, conv_ch), fan_in=d),
+        "w_dt": PSpec((d, H), fan_in=d),
+        "conv_w": PSpec((cfg.ssm_conv, conv_ch), fan_in=cfg.ssm_conv),
+        "conv_b": PSpec((conv_ch,), "zeros"),
+        "A_log": PSpec((H,), "ssm_a"),
+        "dt_bias": PSpec((H,), "ssm_dt"),
+        "d_skip": PSpec((H,), "ones"),
+        "mamba_norm_w": PSpec((d_in,), "ones"),
+        "w_out": PSpec((d_in, d), fan_in=d_in),
+    }
+
+
 def layer_template(cfg: ModelConfig, kind: SubKind) -> Dict[str, PSpec]:
-    if kind.mixer != "attn" or kind.cross:
+    if kind.cross:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} needs Mamba or cross-attention layers "
+            f"{cfg.name}: {kind} needs cross-attention layers "
             "(ROADMAP item 12)")
     t: Dict[str, PSpec] = {}
     t.update(_norm_template(cfg, "ln1", cfg.d_model))
-    t.update(attn_template(cfg))
+    t.update(attn_template(cfg) if kind.mixer == "attn"
+             else mamba_template(cfg))
     if kind.ffn != "none":
         t.update(_norm_template(cfg, "ln2", cfg.d_model))
     if kind.ffn in ("dense", "moe+dense"):
@@ -180,20 +198,33 @@ def layer_slice(tree, i: int):
 def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                    kind: SubKind, positions, cache=None, cache_index=None,
                    live_len=None, page_table=None, n_valid=None):
-    """One pre-norm attention + FFN sub-layer (dense MLP and/or MoE on the
-    same ``ln2`` output, summed); ``cache`` (a dict with
-    ``k``/``v``, dense or page pools, plus ``k_scale``/``v_scale`` for a
-    quantized pool) is written in place, a prefill chunk's rows at or past
-    ``n_valid`` dropped. Returns x."""
+    """One pre-norm mixer (attention or Mamba2) + FFN sub-layer (dense MLP
+    and/or MoE on the same ``ln2`` output, summed). An attention layer's
+    ``cache`` (``k``/``v``, dense or page pools, plus ``k_scale``/
+    ``v_scale`` for a quantized pool) is written in place, a prefill
+    chunk's rows at or past ``n_valid`` dropped; a Mamba2 layer's (``ssm``
+    [B,H,P,N], ``conv`` [B, ssm_conv - 1, conv_ch]) is overwritten with the
+    new states: one row with a cache runs the recurrence from them, more
+    rows run the scan from zero (a prefill from position 0). Returns x."""
     h = L.apply_norm(p, x, cfg, "ln1")
-    kv = None
-    if cache is not None:
-        kv = (cache["k"], cache["v"])
-        if "k_scale" in cache:
-            kv += (cache["k_scale"], cache["v_scale"])
-    a, _ = L.attention(p, h, cfg, opts, kind.window, positions, cache=kv,
-                       cache_index=cache_index, live_len=live_len,
-                       page_table=page_table, n_valid=n_valid)
+    if kind.mixer == "attn":
+        kv = None
+        if cache is not None:
+            kv = (cache["k"], cache["v"])
+            if "k_scale" in cache:
+                kv += (cache["k_scale"], cache["v_scale"])
+        a, _ = L.attention(p, h, cfg, opts, kind.window, positions,
+                           cache=kv, cache_index=cache_index,
+                           live_len=live_len, page_table=page_table,
+                           n_valid=n_valid)
+    else:
+        decode = cache is not None and x.shape[1] == 1
+        a, state, conv = L.mamba_block(
+            p, h, cfg, opts, state=cache["ssm"] if cache else None,
+            conv_state=cache["conv"] if cache else None, decode=decode)
+        if cache is not None:
+            cache["ssm"].copy_(state)
+            cache["conv"].copy_(conv)
     x = x + a
     if kind.ffn != "none":
         h = L.apply_norm(p, x, cfg, "ln2")
@@ -259,8 +290,12 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int, *,
     [num_pages, page_size, K, h] addressed through a per-slot page table
     (``serving.kv_pool``). ``kv_dtype`` "int8"/"fp8" (paged only) adds an
     f32 scale sibling per pool (``k_scale``/``v_scale``): [num_pages, K]
-    at "head" granularity, [num_pages, page_size, K] at "token"."""
+    at "head" granularity, [num_pages, page_size, K] at "token". A Mamba2
+    sub-layer holds its recurrent state ``ssm`` [batch, H, P, N] and the
+    conv's last inputs ``conv`` [batch, ssm_conv - 1, conv_ch], batched by
+    slot in either layout."""
     period, nblocks, ntail = stack_plan(cfg)
+    kinds = sub_kinds(cfg)
     quantized = kv_quant.quant_dtype(kv_dtype) is not None
     if scale_granularity not in kv_quant.SCALE_GRANULARITIES:
         raise ValueError(f"scale_granularity must be one of "
@@ -276,15 +311,22 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int, *,
                          "(the page pool is the quantization boundary)")
     else:
         kv = (batch, max_seq, K, h)
-    sub = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
+    attn = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
     if quantized:
         sshape = ((num_pages, page_size, K) if scale_granularity == "token"
                   else (num_pages, K))
-        sub["k_scale"] = PSpec(sshape, "zeros")
-        sub["v_scale"] = PSpec(sshape, "zeros")
-    t = {"blocks": stack({f"sub{j}": sub for j in range(period)}, nblocks)}
+        attn["k_scale"] = PSpec(sshape, "zeros")
+        attn["v_scale"] = PSpec(sshape, "zeros")
+    _, H, P, N, _, conv_ch = L.mamba_dims(cfg)
+    ssm = {"ssm": PSpec((batch, H, P, N), "zeros"),
+           "conv": PSpec((batch, cfg.ssm_conv - 1, conv_ch), "zeros")}
+
+    def sub(kind: SubKind):
+        return dict(attn if kind.mixer == "attn" else ssm)
+    t = {"blocks": stack({f"sub{j}": sub(kinds[j]) for j in range(period)},
+                         nblocks)}
     if ntail:
-        t["tail"] = {f"tail{j}": dict(sub) for j in range(ntail)}
+        t["tail"] = {f"tail{j}": sub(kinds[j]) for j in range(ntail)}
     return t
 
 
@@ -296,9 +338,10 @@ def cache_batch_axis(path: str) -> int:
 
 
 def cache_dtype(path_key: str, dtype, kv_dtype: str = "bf16"):
-    """Storage dtype of a cache leaf named ``path_key``: scales are f32,
-    quantized pool values are 1-byte codes, anything else ``dtype``."""
-    if path_key in ("k_scale", "v_scale"):
+    """Storage dtype of a cache leaf named ``path_key``: the SSM state (it
+    integrates over the whole stream) and scales are f32, quantized pool
+    values are 1-byte codes, anything else ``dtype``."""
+    if path_key in ("ssm", "k_scale", "v_scale"):
         return torch.float32
     q = kv_quant.quant_dtype(kv_dtype)
     if q is not None and path_key in ("k", "v"):
@@ -327,11 +370,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 def is_paged_leaf(path: str) -> bool:
     """Whether a leaf of a paged cache lives in the pool layout (leading
-    axis = pages): attention ``k``/``v`` and their scale siblings. Only
-    meaningful for caches built with ``paged=True``."""
+    axis = pages): attention ``k``/``v`` and their scale siblings, not the
+    slot-batched ``ssm``/``conv`` states. Only meaningful for caches built
+    with ``paged=True``."""
     return path.split("/")[-1] in ("k", "v", "k_scale", "v_scale")
 
 
 def is_scale_leaf(path: str) -> bool:
     """Whether a cache leaf is a quantization scale sibling of a pool."""
     return path.split("/")[-1] in ("k_scale", "v_scale")
+
+
+def is_recurrent_leaf(path: str) -> bool:
+    """Whether a cache leaf is a Mamba2 state (``ssm`` or ``conv``): a
+    decode step overwrites it, so running a step twice is not running it
+    once."""
+    return path.split("/")[-1] in ("ssm", "conv")

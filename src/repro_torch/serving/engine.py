@@ -26,6 +26,11 @@ position), the request key drawn at ``submit`` from a ``torch.Generator``
 seeded with ``seed``: a request's sampled stream does not depend on masked
 steps, tick sizes, fused or per-token mode, or its slot.
 
+Decoders with Mamba2 layers (``mamba2-780m``, the jamba hybrid) are
+served admit-stall only, as in the reference: their per-slot ``ssm`` and
+``conv`` states are slot-batched leaves in either layout, scattered into
+the slot's row at admission and advanced by every decode step.
+
 Paged pools (``paged=True``) keep attention K/V in shared
 ``[num_pages, page_size, K, h]`` pools addressed through the host-side
 ``KVPool``'s page table; full prompt pages are shared through the prefix
@@ -63,7 +68,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions, band_len
 from repro_torch.models.params import leaves
 from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
-                                       is_scale_leaf)
+                                       is_recurrent_leaf, is_scale_leaf)
 from repro_torch.serving import sampler as S
 from repro_torch.serving.kv_pool import KVPool, PoolExhausted
 from repro_torch.serving.scheduler import (BEST_EFFORT, ChunkedScheduler,
@@ -231,7 +236,9 @@ def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
     unchanged position: a retired slot's null page, a live slot's next
     position, rewritten identically by its next real step), and the null
     page of a paged cache is put back as the step found it (the
-    reference never ran the step, and retired slots attend that page).
+    reference never ran the step, and retired slots attend that page), and
+    so is every Mamba2 state (a step advances it, so a masked step would
+    advance each slot's state once more than the reference does).
     ``steps`` counts the steps where ``go`` held (the reference's loop
     count).
     ``keys`` [B] are the slots' sampling keys; a step's noise is keyed on
@@ -244,14 +251,19 @@ def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
     null_pages = ([(leaf, cache_batch_axis(path))
                    for path, leaf in leaves(caches) if is_paged_leaf(path)]
                   if page_table is not None else [])
+    recurrent = [leaf for path, leaf in leaves(caches)
+                 if is_recurrent_leaf(path)]
     for step in range(min(K, max_steps)):
         go = ~done.all() & ~(done & ~entry_done).any()
         held = [leaf.select(axis, 0).clone() for leaf, axis in null_pages]
+        held_states = [leaf.clone() for leaf in recurrent]
         logits, caches = M.decode_step(cfg, opts, params, tokens, caches,
                                        index, page_table, device=device)
         for (leaf, axis), page in zip(null_pages, held):
             leaf.select(axis, 0).copy_(
                 torch.where(go, leaf.select(axis, 0), page))
+        for leaf, old in zip(recurrent, held_states):
+            leaf.copy_(torch.where(go, leaf, old))
         nxt = S.sample_token(logits, temperature, top_k, keys, index)  # [B]
         live = ~done & go
         out[:, step] = torch.where(live, nxt, -1)
@@ -719,6 +731,7 @@ class ServingEngine:
                     dest[n_shared:len(pages)] = pages[n_shared:]
                     _scatter_pages_impl(self.caches, cache1, dest,
                                         self.page_size)
+                    _scatter_slot(self.caches, cache1, s, skip_paged=True)
                     self._update_cache_stats()
                 else:
                     _scatter_slot(self.caches, cache1, s)
@@ -1150,13 +1163,17 @@ class ServingEngine:
 # cache maintenance, in place on the engine's cache tensors
 # ---------------------------------------------------------------------------
 
-def _scatter_slot(caches, cache1, slot: int):
-    """Copy a batch-1 prefill cache into slot ``slot`` of dense slot
-    caches, along each leaf's batch axis (``cache_batch_axis``). A paged
-    engine of the port has no slot-batched leaves (its decoders are
-    attention-only), so its admission scatters pages only."""
+def _scatter_slot(caches, cache1, slot: int, skip_paged: bool = False):
+    """Copy a batch-1 prefill cache into slot ``slot`` of the slot caches,
+    along each leaf's batch axis (``cache_batch_axis``). With
+    ``skip_paged`` the pool-layout leaves (attention k/v and their scales)
+    are left alone: a paged engine's admission fills them with
+    ``_scatter_pages_impl`` and scatters only the slot-batched Mamba2
+    states here."""
     small = dict(leaves(cache1))
     for path, big in leaves(caches):
+        if skip_paged and is_paged_leaf(path):
+            continue
         axis = cache_batch_axis(path)
         big.select(axis, slot).copy_(small[path].select(axis, 0))
     return caches

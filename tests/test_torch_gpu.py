@@ -9,7 +9,9 @@ sums in another order). A paged launch and a dense launch over the same
 rows at page_size 32 must be bit-equal. The grouped-expert kernels run at
 granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
-640-row prefill) and a ragged one.
+640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
+(H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows and
+at one chunk or less, and at the reduced models' width.
 """
 import pytest
 import torch
@@ -19,6 +21,7 @@ from repro_torch.kernels.chunk_prefill import paged as pcp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.kernels.moe_gmm import ops as gmm
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import kv_quant
 
 
@@ -304,3 +307,54 @@ def test_gmm_kernels_refuse_what_they_do_not_take_on_card():
     x, wi, wg, _ = _experts(dev, torch.float16, E=2, C=3, D=64, F=48)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gmm.gmm_gated(x, wi, wg)
+
+
+def _ssd_inputs(dev, dtype, B, S, H=48, P=64, N=128):
+    """Seeded SSD operands at mamba2-780m's width by default: x, B, C in
+    ``dtype``; dt = softplus(normal) and A_log in [0, 1.5) in f32."""
+    g = torch.Generator(device=dev).manual_seed(S + B)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A_log = 1.5 * torch.rand(H, generator=g, device=dev)
+    return (rnd(B, S, H, P).to(dtype), dt, A_log,
+            rnd(B, S, 1, N, scale=0.3).to(dtype),
+            rnd(B, S, 1, N, scale=0.3).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,dtype,width", [
+    (1, 640, torch.bfloat16, "full"), (1, 128, torch.bfloat16, "full"),
+    (1, 64, torch.bfloat16, "full"), (2, 256, torch.float32, "full"),
+    (2, 40, torch.float32, "reduced")])
+def test_ssd_kernel_on_card(B, S, dtype, width):
+    """The served shapes (an admission prefill of 640 rows, one chunk,
+    Q = S < 128), f32, and the reduced models' width (P = N = 16, a
+    ragged chunk): y and the final state against the plain version."""
+    dev = _cuda()
+    shape = {} if width == "full" else dict(H=8, P=16, N=16)
+    args = _ssd_inputs(dev, dtype, B, S, **shape)
+    y, st = ssd_ops.ssd(*args)
+    yp, sp = ssd_ops.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert _close(y, yp) and _close(st, sp)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_counts_launches_and_refuses_on_card():
+    dev = _cuda()
+    args = _ssd_inputs(dev, torch.bfloat16, 1, 256, H=4)
+    before = ssd_ops.ssd.launches
+    ssd_ops.ssd(*args)
+    cut = [a[:, :160] if a.dim() > 1 else a for a in args]
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_ops.ssd(*cut)
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd_ops.ssd(*cut, Q=160)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_ops.ssd(*[a.half() if a.dtype == torch.bfloat16 else a
+                      for a in args])
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches - before == 1
