@@ -116,6 +116,22 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "jamba-1.5-large-398b"
 SSD_CASES = [(1, 640, "bfloat16"), (1, 128, "bfloat16"),
              (1, 64, "bfloat16"), (2, 256, "float32")]
 SSM_ENGINES = [("ssm-dense", {}), ("ssm-paged-f32", dict(paged=True))]
+# training: smollm-135m at full width in f32 (the reference's training
+# type), B=4 sequences of 2048 tokens from the port's lm_batches; one
+# warm-up step and TRAIN_STEPS timed ones on one repeated batch
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "smollm-135m", 4, 2048, 3
+TRAIN_LR = 1e-3
+GRAD_TOL = 1e-4      # FlashAttention's backward vs autograd through the
+#                      plain version (f32; sums in another order)
+# flash attention vs its plain version: (label, B, S, N, K, h, type,
+# window, causal); smollm-135m's heads unless said
+FLASH_CASES = [("smollm f32", 4, 2048, 9, 3, 64, "float32", 0, True),
+               ("smollm bf16", 4, 2048, 9, 3, 64, "bfloat16", 0, True),
+               ("one block S=128", 2, 128, 9, 3, 64, "float32", 0, True),
+               ("molmoact heads S=1024 bf16", 1, 1024, 28, 4, 128,
+                "bfloat16", 0, True),
+               ("window=512", 2, 2048, 9, 3, 64, "float32", 512, True),
+               ("causal=False", 2, 512, 9, 3, 64, "float32", 0, False)]
 
 
 def card_line() -> str:
@@ -631,13 +647,15 @@ def reset_launches():
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.paged import (
         paged_decode_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import gmm_down, gmm_gated
     from repro_torch.kernels.ssd.ops import ssd
     kernels = {"decode_attention": decode_attention,
                "chunk_prefill": chunk_prefill_attention,
                "paged_decode_attention": paged_decode_attention,
                "paged_chunk_prefill": paged_chunk_prefill_attention,
-               "gmm_gated": gmm_gated, "gmm_down": gmm_down, "ssd": ssd}
+               "gmm_gated": gmm_gated, "gmm_down": gmm_down, "ssd": ssd,
+               "flash_attention": flash_attention}
     for fn in kernels.values():
         fn.launches = 0
     return kernels
@@ -676,7 +694,7 @@ def full_width(cfg, params):
     want = {"chunk_prefill": cfg.num_layers,
             "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
             "paged_decode_attention": 0, "paged_chunk_prefill": 0,
-            "gmm_gated": 0, "gmm_down": 0, "ssd": 0}
+            "gmm_gated": 0, "gmm_down": 0, "ssd": 0, "flash_attention": 0}
     print(f"  launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
@@ -741,17 +759,19 @@ def full_width(cfg, params):
 # substrings of kernel names -> the part of a decode step they belong to
 KERNEL_GROUPS = (("grouped experts", ("gmm_kernel",)),
                  ("attention", ("decode_kernel", "chunk_kernel",
-                                "paged_kernel")),
+                                "paged_kernel", "flash_kernel")),
                  ("library GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def decode_breakdown(run_steps, wall_ms: float, steps: int = 4):
-    """Device-busy time of a full-width decode step, by torch.profiler
-    over ``steps`` steps (``run_steps(n)`` runs n decode steps), against
-    its wall time: the device's idle share, device time by part of the
-    step (the grouped-expert kernels, attention, the library's GEMMs, the
-    rest: norms, RoPE, routing and dispatch, sampling), and the kernels
-    that take the most time."""
+def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
+                     label: str = "decode step"):
+    """Device-busy time of a full-width decode step (or of the step
+    ``label`` names), by torch.profiler over ``steps`` steps
+    (``run_steps(n)`` runs n steps), against its wall time: the device's
+    idle share, device time by part of the step (the grouped-expert
+    kernels, attention, the library's GEMMs, the rest: norms, RoPE,
+    routing and dispatch, sampling), and the kernels that take the most
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -760,12 +780,12 @@ def decode_breakdown(run_steps, wall_ms: float, steps: int = 4):
     rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     if busy_ms == 0:
-        print("  decode step: device busy time not measured (the profiler "
+        print(f"  {label}: device busy time not measured (the profiler "
               "saw no kernels)")
         return
     # the CUDA activity also lists runtime calls (no device time): skip them
     kernels = sum(e.count for e in rows if e.self_device_time_total) / steps
-    print(f"  decode step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
+    print(f"  {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
           f"ms, idle share {1 - busy_ms / wall_ms:.4f}, {kernels:.0f} "
           f"kernels per step")
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
@@ -1649,6 +1669,313 @@ def ssd_timings(inputs, errs, serving):
         "bound_ms": t_b, "bound_by": by, "library_ms": None}]
 
 
+def flash_checks():
+    """Phase 2d: the flash-attention kernel against its plain version
+    (``attention_ref`` on the same inputs taken to f32: the function the
+    kernel computes, as the TPU kernel does, from inputs of either type)
+    for FLASH_CASES within KERNEL_TOL x max(1, |plain|), its f32
+    log-sum-exp likewise;
+    ``FlashAttention``'s backward against autograd through the plain
+    version at S=256 in f32 within GRAD_TOL x max(1, |plain|); and the
+    refusal of S=320. Returns the smollm-shape inputs by type (for the
+    timing) and the largest error by case."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def qkv(B, S, N, K, h, dtype):
+        return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for shape in ((B, S, N, h), (B, S, K, h), (B, S, K, h))]
+    errs, inputs = {}, {}
+    for label, B, S, N, K, h, dtype, window, causal in FLASH_CASES:
+        q, k, v = qkv(B, S, N, K, h, getattr(torch, dtype))
+        got = fa.flash_attention(q, k, v, window=window, causal=causal)
+        want = fa.attention_ref(q.float(), k.float(), v.float(), window,
+                                causal)
+        errs[label] = check(f"flash_attention {label}, q {tuple(q.shape)}",
+                            got, want, KERNEL_TOL)
+        if label.startswith("smollm"):
+            inputs[dtype] = (q, k, v)
+    q, k, v = inputs["float32"]
+    check("flash_attention log-sum-exp, smollm f32",
+          fa._launch(q, k, v, 0, True)[1],
+          fa._attention_lse(q, k, v, 0, True)[1], KERNEL_TOL)
+    q, k, v = (t.requires_grad_() for t in qkv(2, 256, 9, 3, 64,
+                                               torch.float32))
+    dout = torch.randn(q.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), dout)
+    want = torch.autograd.grad(fa.attention_ref(q, k, v), (q, k, v), dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(f"FlashAttention backward {name}, S=256 f32 vs autograd "
+              f"through the plain version", a, b, GRAD_TOL)
+    q, k, v = qkv(1, 320, 9, 3, 64, torch.float32)
+    try:
+        fa.flash_attention(q, k, v)
+    except ValueError as e:
+        print(f"  S=320 refused: {e}")
+    else:
+        raise AssertionError("flash_attention took S=320 (not whole "
+                             "128-row blocks)")
+    return inputs, errs
+
+
+def loss_and_grads(cfg, params, batch, device):
+    """lm_loss (the train step's z-loss) and its gradients by leaf."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training import TrainConfig, lm_loss
+    live = map_tree(lambda t: t.detach().requires_grad_(True), params)
+    loss = lm_loss(cfg, M.ModelOptions(), live, batch, TrainConfig().z_loss,
+                   device=device)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves(live)])
+    return float(loss.detach()), dict(zip([p for p, _ in leaves(live)],
+                                          grads))
+
+
+def train_card_vs_cpu():
+    """Phase 3d: reduced smollm-135m (256 tokens) and reduced molmoact-7b
+    (8 vision patches + 120 tokens), f32, the same seeded weights and
+    batch on the card (the flash kernel, once a layer) and on the CPU
+    (plain versions): the loss within 1e-5 relative, gradients within
+    1e-5 x max|g| of each leaf, one train step's parameters within
+    1e-4 x lr (plus two f32 ulps) where |g| > 1e-2 x max|g| of the leaf
+    and within 2 x lr elsewhere (a gradient near AdamW's eps moves its
+    parameter by up to about lr); and on the card microbatches=2 against
+    microbatches=1 (loss within 1e-4 relative, parameters within 1e-4,
+    the reference's own contract)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    opts = M.ModelOptions()
+    for name, text, vision in ((TRAIN_ARCH, 256, False),
+                               ("molmoact-7b", 120, True)):
+        cfg = get_config(name).reduced()
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              torch.float32, device="cpu")
+        p_gpu = map_tree(lambda t: t.cuda(), p_cpu)
+        rng = np.random.default_rng(SEED + 16)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, text))}
+        if vision:
+            batch["patches"] = 0.1 * rng.standard_normal(
+                (4, cfg.vision.num_tokens, cfg.vision.embed_dim),
+                dtype=np.float32)
+        before = fa.flash_attention.launches
+        lg, gg = loss_and_grads(cfg, p_gpu, batch, "cuda")
+        if fa.flash_attention.launches - before != cfg.num_layers:
+            raise AssertionError(f"reduced {name}: the train forward did "
+                                 f"not launch the flash kernel once a "
+                                 f"layer")
+        lc, gc = loss_and_grads(cfg, p_cpu, batch, "cpu")
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"reduced {name} loss: card {lg} vs CPU "
+                                 f"{lc}")
+        worst = 0.0
+        for path, want in gc.items():
+            rel = float((gg[path].cpu() - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30))
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"reduced {name} grad {path}: "
+                                     f"{rel} x max|g| apart")
+        tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+        new = {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            step = make_train_step(cfg, opts, tcfg, device=dev)
+            new[dev] = step(p, init_train_state(cfg, tcfg, p), batch)
+        if not abs(float(new["cuda"][2]["loss"]) - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"reduced {name}: train step loss apart")
+        worst_p = 0.0
+        for (path, a), (_, b) in zip(leaves(new["cuda"][0]),
+                                     leaves(new["cpu"][0])):
+            g = gc[path].abs()
+            d = ((a.cpu() - b).abs()
+                 - 2 * torch.finfo(torch.float32).eps * b.abs())
+            sure = g > 1e-2 * g.max()
+            worst_p = max(worst_p, float(d[sure].max()) if sure.any()
+                          else 0.0)
+            if (sure.any() and float(d[sure].max()) > 1e-4 * TRAIN_LR) \
+                    or float(d.max()) > 2 * TRAIN_LR:
+                raise AssertionError(f"reduced {name} updated {path}: "
+                                     f"card and CPU apart")
+        outs = []
+        for mb in (1, 2):
+            t = TrainConfig(microbatches=mb, z_loss=0.0)
+            step = make_train_step(cfg, opts, t, device="cuda")
+            outs.append(step(p_gpu, init_train_state(cfg, t, p_gpu), batch))
+        (p1, _, m1), (p2, _, m2) = outs
+        mb_d = max(float((a - b).abs().max()) for (_, a), (_, b)
+                   in zip(leaves(p1), leaves(p2)))
+        if not (abs(float(m1["loss"]) - float(m2["loss"]))
+                <= 1e-4 * abs(float(m1["loss"])) and mb_d < 1e-4):
+            raise AssertionError(f"reduced {name}: microbatches=2 differs "
+                                 f"from microbatches=1 ({mb_d})")
+        print(f"  reduced {name}: loss card {lg:.7f} CPU {lc:.7f}; grads "
+              f"within {worst:.3g} x max|g|; updated parameters within "
+              f"{worst_p / TRAIN_LR:.3g} x lr where |g| > 1e-2 max|g|; "
+              f"microbatches 2 vs 1 within {mb_d:.3g}")
+
+
+def train_full():
+    """Phase 9: the full-width smollm-135m train step (seeded f32 weights,
+    B=4 x 2048 tokens from ``lm_batches``, AdamW at lr TRAIN_LR): one
+    warm-up and TRAIN_STEPS timed steps on one repeated batch, gated on
+    exactly one flash launch a layer a step and no other kernel, a finite
+    loss that falls over the 4 steps; then the step's time split
+    (forward, backward, optimizer by CUDA events), its device breakdown,
+    and a checkpoint round trip: the state saved with the port's ``save``
+    and restored into a fresh state, one more step from each, bit-equal.
+    Returns the launches of the 4 steps."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_tree, set_leaf
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, lm_loss,
+                                      make_train_step)
+    from repro_torch.training.optimizer import adamw_update
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    opts = M.ModelOptions()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           torch.float32, device=dev)
+    n_params = sum(t.numel() for _, t in leaves(params))
+    batch = next(lm_batches(cfg, TRAIN_B, TRAIN_S, seed=SEED, steps=1))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    step = make_train_step(cfg, opts, tcfg, device=dev)
+    state = init_train_state(cfg, tcfg, params)
+    print(f"  {TRAIN_ARCH}: {n_params / 1e6:.2f} M parameters in f32, "
+          f"batch {TRAIN_B} x {TRAIN_S} tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    losses, step_s = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.num_layers * (1 + TRAIN_STEPS)
+    print(f"  launches in {1 + TRAIN_STEPS} steps: {launches} (expected "
+          f"{want})")
+    if launches != want:
+        raise AssertionError("the train step did not run through the flash "
+                             "kernel once a layer a step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}: not finite or not "
+                             f"falling")
+    ms = float(np.median(step_s[1:])) * 1e3
+    timed = [round(t * 1e3, 1) for t in step_s[1:]]
+    print(f"  losses {[round(x, 4) for x in losses]}; warm-up step "
+          f"{step_s[0] * 1e3:.1f} ms; steps {timed} ms, median {ms:.1f} ms, "
+          f"{TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB")
+
+    # the time split of one more step, by CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = map_tree(lambda t: t.detach().requires_grad_(True), params)
+    ev[0].record()
+    loss = lm_loss(cfg, opts, live, batch, tcfg.z_loss, device=dev)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, [t for _, t in leaves(live)])
+    ev[2].record()
+    tree = {}
+    for (path, _), gr in zip(leaves(live), grads):
+        set_leaf(tree, path, gr)
+    adamw_update(tcfg.opt, tree, state["inner"], params)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f"  step split (ms): forward {split[0]:.2f}, backward "
+          f"{split[1]:.2f}, optimizer {split[2]:.2f}")
+    del live, loss, grads, tree
+
+    def run_steps(n):
+        for _ in range(n):
+            step(params, state, batch)
+    decode_breakdown(run_steps, ms, steps=1, label="train step")
+
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        t0 = time.perf_counter()
+        save(d, 1 + TRAIN_STEPS, {"params": params, "opt": state})
+        fresh = {"params": map_tree(torch.zeros_like, params),
+                 "opt": init_train_state(cfg, tcfg, params)}
+        back = restore(d, 1 + TRAIN_STEPS, fresh)
+        ck_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cont = step(params, state, batch)
+        resumed = step(back["params"], back["opt"], batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = list(zip(leaves({"p": cont[0], "s": cont[1]}),
+                     leaves({"p": resumed[0], "s": resumed[1]})))
+    bad = [pa for (pa, a), (_, b) in pairs if not torch.equal(a, b)]
+    if bad or float(cont[2]["loss"]) != float(resumed[2]["loss"]):
+        raise AssertionError(f"the step from the restored checkpoint "
+                             f"differs from the continued one: {bad[:5]}")
+    print(f"  checkpoint: saved and restored in {ck_s:.1f} s; the step from "
+          f"the restored state is bit-equal to the continued one "
+          f"({len(pairs)} leaves and the loss)")
+    return launches
+
+
+def flash_timings(inputs, errs, launches):
+    """Phase 6d: the flash kernel at smollm-135m's training shape (B=4,
+    S=2048, N=9, K=3, h=64): ms per launch, its plain version's, the
+    library yardstick's (scaled_dot_product_attention, causal, GQA, on
+    [B,N,S,h] copies made outside the timing; never called by the port),
+    and the bound: q, k, v and out once and the f32 log-sum-exp; the
+    causal work 4 x B x N x h x S^2 / 2 at the type's peak. The f32 row is
+    the one on the main path (phase 9's launches); the bf16 row is printed
+    and kept out of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    rows = []
+    for dtype, (q, k, v) in inputs.items():
+        B, S, N, h = q.shape
+        b = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * b + 4 * B * N * S
+        t_b, by = bound(nbytes, 4 * B * N * h * S * S / 2, q.dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rows.append({
+            "name": f"flash_attention/{dtype}", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:79",
+            "launches": launches["flash_attention"] if dtype == "float32"
+            else 0,
+            "max_abs_err": errs["smollm " + ("f32" if dtype == "float32"
+                                             else "bf16")],
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
+            "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v), 5),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)})
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
+              f"{r['launches']}" + ("" if r['launches'] else
+                                    " (on no main path)"))
+    return [r for r in rows if r["launches"]]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1670,12 +1997,17 @@ def main() -> int:
     ssm_cfg = get_config(SSM_ARCH)
     print(f"phase 2c: SSD kernel vs plain version, {SSM_ARCH} width")
     ssd_inputs_640, ssd_errs = ssd_kernel_checks(ssm_cfg)
+    print("phase 2d: flash-attention kernel vs plain version")
+    flash_inputs, flash_errs = flash_checks()
     print("phase 3: reduced molmoact-7b, card vs CPU")
     card_vs_cpu(cfg)
     print(f"phase 3b: reduced {MOE_ARCH}, card vs CPU")
     moe_card_vs_cpu(moe_cfg)
     print(f"phase 3c: reduced {SSM_ARCH} and {HYBRID_ARCH}, card vs CPU")
     ssm_card_vs_cpu([SSM_ARCH, HYBRID_ARCH])
+    print(f"phase 3d: reduced {TRAIN_ARCH} and molmoact-7b training, card "
+          f"vs CPU")
+    train_card_vs_cpu()
     params = full_params(cfg)
     print("phase 4: full-width control step")
     launches = full_width(cfg, params)
@@ -1689,6 +2021,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 8: full-width {SSM_ARCH} serving engine")
     ssm_serving = ssm_serving_full(ssm_cfg)
+    torch.cuda.empty_cache()
+    print(f"phase 9: full-width {TRAIN_ARCH} train step")
+    train_launches = train_full()
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
     rows += moe_timings(moe_cfg, moe_errs, moe_serving)
@@ -1699,6 +2034,7 @@ def main() -> int:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), launches {r['launches']}")
+    rows += flash_timings(flash_inputs, flash_errs, train_launches)
     print(card_line())      # again here, beside the numbers it qualifies
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

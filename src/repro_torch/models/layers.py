@@ -1,9 +1,9 @@
 """Layer math of the port (the dense- and paged-cache subset of
-``repro.models.layers``): norms, RoPE, attention (dense / banded chunk /
-decode, dense or paged caches), the cache write paths (decode rows and
-prefill chunks), the routed attention sub-layer, the MLP, the
-capacity-dispatched mixture-of-experts FFN and the Mamba2 mixer (its
-chunked SSD scan and per-token recurrence).
+``repro.models.layers``): norms, RoPE, attention (dense / flash / banded
+fresh rows, banded chunk, decode; dense or paged caches), the cache write
+paths (decode rows and prefill chunks), the routed attention sub-layer,
+the MLP, the capacity-dispatched mixture-of-experts FFN and the Mamba2
+mixer (its chunked SSD scan and per-token recurrence).
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -24,6 +24,7 @@ from repro_torch.kernels.chunk_prefill.paged import (
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.moe_gmm.ops import grouped_mlp
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models import kv_quant
@@ -36,6 +37,11 @@ class ModelOptions:
     """Runtime knobs the port reads. Whether an attention core runs as a
     CUDA kernel or as its plain version follows from the tensors' device."""
     dense_attn_threshold: int = 2048   # fresh attention runs dense up to this
+    attn_chunk: int = 512              # q/kv chunk of the banded and the
+    #                                    plain flash fresh cores
+    causal_pairs: bool = False         # the plain flash core visits only the
+    #                                    lower-triangular / in-window chunk
+    #                                    pairs
     prefill_band: int = 32             # key block of the banded chunk core:
     #                                    one stack-wide absolute partition,
     #                                    which keeps results independent of
@@ -130,6 +136,89 @@ def attention_dense(q, k, v, q_pos, k_pos, window: int, causal: bool = True):
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return _grouped_out(w, v)
+
+
+def attention_flash_ref(q, k, v, q_pos, k_pos, window: int, chunk: int,
+                        causal_pairs: bool = False):
+    """Memory-bounded fresh attention in plain PyTorch: an online softmax
+    over KV chunks, q chunk by q chunk (the reference's scanned
+    ``attention_flash_ref``). The baseline schedule visits every (q chunk,
+    kv chunk) pair and keeps a pair's update only where the pair holds a
+    live position (``keep``, on the device); ``causal_pairs`` visits only
+    the lower-triangular / in-window pairs. q [B,S,N,h]; k, v [B,Sk,K,h];
+    positions 1-D; S and Sk multiples of ``chunk``."""
+    B, Sq, N, h = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = N // K
+    nq, nk = Sq // chunk, Sk // chunk
+    qc = (q * (1.0 / math.sqrt(h))).reshape(B, nq, chunk, K, G, h)
+    kc = k.reshape(B, nk, chunk, K, h)
+    vc = v.reshape(B, nk, chunk, K, h)
+    qpc, kpc = q_pos.reshape(nq, chunk), k_pos.reshape(nk, chunk)
+
+    def pair(iq, jk, m, l, acc):
+        """One (q chunk, kv chunk) online-softmax update."""
+        qp, kp = qpc[iq], kpc[jk]
+        s = torch.einsum("bskgh,btkh->bkgst", qc[:, iq], kc[:, jk]).float()
+        mask = qp[:, None] >= kp[None, :]
+        if window != GLOBAL_WINDOW:
+            mask &= (qp[:, None] - kp[None, :]) < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(-1)
+        pv = torch.einsum("bkgst,btkh->bkgsh", p.to(q.dtype), vc[:, jk])
+        return m_new, l_new, acc * corr[..., None].to(acc.dtype) + pv
+
+    outs = []
+    for iq in range(nq):
+        m = torch.full((B, K, G, chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, chunk), device=q.device)
+        acc = torch.zeros((B, K, G, chunk, h), dtype=q.dtype,
+                          device=q.device)
+        if causal_pairs:
+            lo = 0
+            if window != GLOBAL_WINDOW:
+                lo = max(0, (iq * chunk - (window - 1)) // chunk)
+            for jk in range(lo, min(iq + 1, nk)):
+                m, l, acc = pair(iq, jk, m, l, acc)
+        else:
+            qp = qpc[iq]
+            for jk in range(nk):
+                kp = kpc[jk]
+                keep = kp.min() <= qp.max()
+                if window != GLOBAL_WINDOW:
+                    keep &= (qp.min() - kp.max()) < window
+                new = pair(iq, jk, m, l, acc)
+                m, l, acc = (torch.where(keep, a, b)
+                             for a, b in zip(new, (m, l, acc)))
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype))
+    out = torch.stack(outs, 3)                        # [B,K,G,nq,chunk,h]
+    return out.reshape(B, K, G, Sq, h).permute(0, 3, 1, 2, 4) \
+        .reshape(B, Sq, N, h)
+
+
+def attention_banded(q, k, v, q_pos, k_pos, window: int, chunk: int):
+    """Sliding-window fresh attention with linear work (the reference's
+    ``attention_banded``): each q chunk attends to a fixed band of
+    ceil(window / chunk) + 1 KV chunks ending at its own, KV left-padded
+    so every band is in range (padded keys sit at position -1e9)."""
+    B, Sq, N, h = q.shape
+    nq = Sq // chunk
+    band = (math.ceil(window / chunk) + 1) * chunk
+    pad = band - chunk
+    kp = F.pad(k, (0, 0, 0, 0, pad, 0))
+    vp = F.pad(v, (0, 0, 0, 0, pad, 0))
+    kpos_p = F.pad(k_pos, (pad, 0), value=-10 ** 9)
+    outs = []
+    for iq in range(nq):
+        st = iq * chunk
+        outs.append(attention_dense(q[:, st:st + chunk], kp[:, st:st + band],
+                                    vp[:, st:st + band],
+                                    q_pos[st:st + chunk],
+                                    kpos_p[st:st + band], window))
+    return torch.cat(outs, 1)
 
 
 def band_len(live: int, band: int, limit: int) -> int:
@@ -382,7 +471,11 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
     ``fresh`` (attention over exactly the new rows). Layouts: ``dense``,
     ``paged`` (decode and chunk) and ``none``. Whether a ``*_flash`` core
     launches a kernel or runs its plain version follows from the tensors'
-    device."""
+    device. Fresh attention takes the reference's four routes in its
+    order: the flash kernel for causal S == Skv in whole 128-row blocks,
+    dense masked attention up to ``dense_attn_threshold`` (or off the
+    ``attn_chunk`` grid, or not causal), the banded core for a window of
+    at most half the keys, else the plain flash core."""
     if layout == "paged":
         if mode == "decode":
             return "decode_paged_flash"
@@ -398,11 +491,14 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
         return "chunk_flash"
     if mode != "fresh":
         raise NotImplementedError(f"{mode!r} attention is ROADMAP item 12")
-    if Skv <= opts.dense_attn_threshold or not causal:
+    if causal and S % 128 == 0 and Skv == S:
+        return "fresh_flash"
+    if Skv <= opts.dense_attn_threshold or Skv % opts.attn_chunk \
+            or not causal:
         return "fresh_dense"
-    raise NotImplementedError("fresh causal attention past "
-                              "dense_attn_threshold needs the flash kernel "
-                              "(ROADMAP kernel item 5)")
+    if window != GLOBAL_WINDOW and window <= Skv // 2:
+        return "fresh_banded"
+    return "fresh_flash_ref"
 
 
 def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
@@ -442,10 +538,20 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
         return paged_chunk_prefill_attention(
             q, k, v, page_table[:, :(Lb + ps - 1) // ps], index,
             k_scales=k_scales, v_scales=v_scales, window=window)
-    if route == "fresh_dense":
+    if route in ("fresh_flash", "fresh_dense", "fresh_banded",
+                 "fresh_flash_ref"):
         q_pos = q_pos[0] if q_pos.dim() == 2 else q_pos
         k_pos = k_pos[0] if k_pos.dim() == 2 else k_pos
-        return attention_dense(q, k, v, q_pos, k_pos, window, causal)
+        if route == "fresh_flash":
+            return flash_attention(q, k, v, window=window, causal=causal)
+        if route == "fresh_dense":
+            return attention_dense(q, k, v, q_pos, k_pos, window, causal)
+        if route == "fresh_banded":
+            return attention_banded(q, k, v, q_pos, k_pos, window,
+                                    opts.attn_chunk)
+        return attention_flash_ref(q, k, v, q_pos, k_pos, window,
+                                   opts.attn_chunk,
+                                   causal_pairs=opts.causal_pairs)
     raise NotImplementedError(f"attention route {route!r} is not ported "
                               "(see ROADMAP)")
 

@@ -46,6 +46,15 @@ def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, v
 
 
+def map_tree(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts of one layout (the
+    first tree's keys)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def set_leaf(tree: Dict, path: str, value) -> None:
     """Store ``value`` at a "/"-joined ``path`` of a nested dict."""
     *parents, last = path.split("/")

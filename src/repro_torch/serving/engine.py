@@ -63,6 +63,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.paged import PAGE_SIZE
+from repro_torch.kernels.ssd.ops import Q_MAX, chunk_len
 from repro_torch.models import kv_quant
 from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions, band_len
@@ -434,6 +435,16 @@ class ServingEngine:
                              device=self.device)
 
     def submit(self, req: Request):
+        """Queue ``req``. A stack with Mamba2 layers refuses, here and
+        before anything is drawn or queued, a prefill length (vision
+        prefix + prompt) its SSD scan cannot take (``chunk_len``'s
+        ``ValueError``), so an accepted request never fails at admission."""
+        if not all(self.cfg.is_attn_layer(i)
+                   for i in range(self.cfg.num_layers)):
+            n_prefix = (self.cfg.vision.num_tokens
+                        if req.patches is not None and self.cfg.vision
+                        else 0)
+            chunk_len(n_prefix + len(req.prompt), Q_MAX)   # ssd's chunk
         req.t_submit = time.perf_counter()
         req.sample_key = int(torch.randint(0, 2 ** 31, (),
                                            generator=self.generator))

@@ -11,7 +11,12 @@ granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
 640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
 (H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows and
-at one chunk or less, and at the reduced models' width.
+at one chunk or less, and at the reduced models' width. The flash
+kernel runs at smollm-135m's and molmoact-7b's heads in f32 and bf16
+against the plain version on the inputs taken to f32 (the function it
+computes from either type), its backward against autograd through the
+plain version within 1e-4 x max(1, |plain|) (f32, sums in another
+order).
 """
 import pytest
 import torch
@@ -20,6 +25,7 @@ from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.chunk_prefill import paged as pcp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.moe_gmm import ops as gmm
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import kv_quant
@@ -358,3 +364,75 @@ def test_ssd_kernel_counts_launches_and_refuses_on_card():
                       for a in args])
     torch.cuda.synchronize()
     assert ssd_ops.ssd.launches - before == 1
+
+
+def _qkv(dev, B, S, N, K, h, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, S, N, h), (B, S, K, h), (B, S, K, h))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,N,K,h,window,causal",
+                         [(2, 1024, 9, 3, 64, 0, True),
+                          (1, 512, 28, 4, 128, 0, True),
+                          (2, 256, 9, 3, 64, 96, True),
+                          (1, 256, 9, 3, 64, 0, False),
+                          (2, 100, 4, 2, 16, 0, True)])
+def test_flash_kernel_on_card(B, S, N, K, h, window, causal, dtype):
+    dev = _cuda()
+    q, k, v = _qkv(dev, B, S, N, K, h, dtype)
+    got = fa.flash_attention(q, k, v, window=window, causal=causal)
+    want = fa.attention_ref(q.float(), k.float(), v.float(), window, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _close(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_backward_and_launch_count_on_card():
+    """The backward from the kernel's log-sum-exp against autograd through
+    the plain version; the forward launches the kernel once, the backward
+    never."""
+    dev = _cuda()
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 2, 256, 9, 3, 64,
+                                                torch.float32))
+    dout = torch.randn(q.shape, device=dev)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert fa.flash_attention.launches == before + 1
+    want = torch.autograd.grad(fa.attention_ref(q, k, v), (q, k, v), dout)
+    for a, b in zip(got, want):
+        assert bool(((a - b).abs() <= 1e-4 * b.abs().clamp(min=1)).all())
+
+
+@pytest.mark.gpu
+def test_flash_refusals_on_card():
+    dev = _cuda()
+    q, k, v = _qkv(dev, 1, 320, 9, 3, 64, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 128, 4, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 128, 4, 2, 64, torch.float32)
+    with pytest.raises(TypeError, match="one type"):
+        fa.flash_attention(q, k.bfloat16(), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "mamba2-780m",
+                                  "jamba-1.5-large-398b"])
+def test_train_step_refuses_moe_and_mamba_on_card(name):
+    """gmm_gated, gmm_down and ssd have no gradient yet: on the card the
+    train step refuses such stacks rather than train them through the
+    plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.training import TrainConfig, make_train_step
+    _cuda()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        make_train_step(get_config(name).reduced(), ModelOptions(),
+                        TrainConfig())

@@ -159,8 +159,8 @@ def test_routes():
                  opts=opts) == "chunk_flash"
     assert route("fresh", "none", S=576, Skv=576, window=0, opts=opts,
                  causal=False) == "fresh_dense"
-    with pytest.raises(NotImplementedError):
-        route("fresh", "none", S=4096, Skv=4096, window=0, opts=opts)
+    assert route("fresh", "none", S=4096, Skv=4096, window=0,
+                 opts=opts) == "fresh_flash"
     assert route("decode", "paged", S=1, Skv=1, window=0,
                  opts=opts) == "decode_paged_flash"
     assert route("chunk", "paged", S=8, Skv=8, window=0,

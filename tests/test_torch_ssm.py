@@ -451,3 +451,40 @@ def test_chunked_engine_refuses_ssm_stacks(name):
                 chunked_prefill=True)
     assert str(port_err.value) == str(ref_err.value)
     assert "not chunk-resumable" in str(port_err.value)
+
+
+@pytest.mark.parametrize("name", [MAMBA, JAMBA])
+def test_submit_refuses_a_prompt_the_scan_cannot_take(name):
+    """A 160-token prompt (past one 128-row chunk and not whole chunks) is
+    refused at ``submit`` with the scan's ValueError: nothing is queued and
+    no sample key is drawn, so the accepted requests keep the keys they
+    get without it, ``pending`` counts them only, and they are served with
+    the reference engine's streams."""
+    cfg, params = port_params(name)
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m, None)
+            for n, m in ((20, 6), (160, 5), (30, 4), (128, 3))]
+    accepted = [reqs[i] for i in (0, 2, 3)]
+
+    def engine():
+        return ServingEngine(cfg, TL.ModelOptions(), params, n_slots=2,
+                             max_seq=192, eos=-999, tick_tokens=4,
+                             device="cpu")
+    eng = engine()
+    for i, (prompt, m, _) in enumerate(reqs):
+        req = TE.Request(uid=i, prompt=prompt.copy(), max_tokens=m)
+        if i == 1:
+            with pytest.raises(ValueError, match="multiple of the chunk"):
+                eng.submit(req)
+        else:
+            eng.submit(req)
+    assert eng.pending == 3
+    plain = engine()
+    for i, (prompt, m, _) in zip((0, 2, 3), accepted):
+        plain.submit(TE.Request(uid=i, prompt=prompt.copy(), max_tokens=m))
+    assert [r.sample_key for r in eng.queue] == \
+        [r.sample_key for r in plain.queue]
+    done = {r.uid: r.out_tokens for r in eng.run()}
+    assert sorted(done) == [0, 2, 3] and eng.pending == 0
+    ref, _ = run_ref(name, accepted, n_slots=2, max_seq=192)
+    assert [done[u] for u in (0, 2, 3)] == [ref[u] for u in range(3)]
