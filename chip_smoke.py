@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-holds each kernel against its plain PyTorch version at the shapes of the
-main paths (the paged kernels bit-equal to the dense ones at page size 32,
-the chunk kernels chunking-invariant), ties the card to the CPU port on the
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+(with ptxas's registers and spills for the tensor-core kernels: the bf16
+chunk prefill and the bf16 gmm_down), holds each kernel against its plain
+PyTorch version at the shapes of the main paths and, for the tensor-core
+kernels, at the edges of their tiles (the paged kernels bit-equal to the
+dense ones at page size 32, the chunk kernels chunking-invariant, gmm_down
+the same on two calls), ties the card to the CPU port on the
 reduced molmoact-7b (control step, admit-stall and chunked serving
 engines), then drives the full-width molmoact-7b paths with seeded random
 weights and checks that each ran through the kernels: one VLA control step
@@ -94,12 +97,33 @@ PAGED_VARIANTS = [("f32", "bf16", "f32"), ("bf16", "bf16", "bf16"),
                   ("int8-head", "int8", "head"),
                   ("int8-token", "int8", "token"),
                   ("fp8-head", "fp8", "head"), ("fp8-token", "fp8", "token")]
+# the tensor-core chunk body (bf16 q over a bf16 view) at the edges of its
+# 64-row tiles and 64-key blocks: (label, B, S, L, N, K, h, start, window)
+BF16_CHUNK_CASES = [
+    ("h=64 G=7 ragged S=600 of L=640", 2, 600, 640, 28, 4, 64, 0, 0),
+    ("h=64 G=7 ragged S=600 window=64", 2, 600, 640, 28, 4, 64, 0, 64),
+    ("h=16 G=7 S=77 L=200 per-slot starts", 3, 77, 200, 28, 4, 16,
+     (0, 61, 123), 0),
+    ("h=16 G=1 S=77 L=200 window=64", 3, 77, 200, 8, 8, 16, (0, 61, 123),
+     64),
+    ("h=128 G=1 S=300 window=64", 1, 300, 300, 7, 7, 128, 0, 64),
+    ("h=128 G=7 S=100 from 37 and 50, L=150", 2, 100, 150, 28, 4, 128,
+     (37, 50), 0),
+]
+# chunking invariance of the control step's prefill, split on and off the
+# 64-row tiles
+CHUNK_SPLITS = (1, 17, 320, 383)
 # the MoE family: granite-moe-3b-a800m served in molmoact's serving shape
 # (8 prompts of 640 random tokens, each sent twice, 193 tokens each)
 MOE_ARCH, MOE_PROMPT = "granite-moe-3b-a800m", 640
 # expert capacities on the served path: decode at 8 slots, a 128-row
 # chunk, a 640-row admission prefill; and a ragged one for the checks
 MOE_C, MOE_RAGGED_C = (2, 32, 160), 7
+# gmm_down (bf16, tensor cores) at the edges of its tiles: capacities off
+# its 32-row slices and past one 256-row pass; (C, D, F) with widths that
+# are multiples of 8 but not of its 128-column tile or 64-deep stage
+GMM_DOWN_EDGES = [(1, None, None), (33, None, None), (161, None, None),
+                  (256, None, None), (300, None, None), (33, 1544, 520)]
 MOE_ENGINES = [
     ("moe-dense", {}),
     ("moe-paged-f32", dict(paged=True)),
@@ -134,6 +158,60 @@ FLASH_CASES = [("smollm f32", 4, 2048, 9, 3, 64, "float32", 0, True),
                ("causal=False", 2, 512, 9, 3, 64, "float32", 0, False)]
 
 
+# the redesigned kernels' instantiations on the main paths, by the
+# substring of their (mangled) names, and the dynamic shared memory each
+# launch asks for there (bytes, from their layouts)
+PTXAS_KERNELS = {
+    "16chunk_mma_kernelILi128E": ("chunk_mma_kernel<128> (control step)",
+                                  (64 + 4 * 64) * 136 * 2),
+    "22paged_chunk_mma_kernelILi128E": ("paged_chunk_mma_kernel<128>",
+                                        (64 + 4 * 64) * 136 * 2),
+    "22gmm_down_stream_kernelILi32E": ("gmm_down_stream_kernel<32> (C <= 32)",
+                                       4 * (64 * 128 + 8 * 33 * 8) * 2),
+    "19gmm_down_res_kernelILi160E": ("gmm_down_res_kernel<160> (C = 160)",
+                                     (8 * 8 * 161 * 8 + 4 * 64 * 128) * 2),
+}
+PTXAS_SOURCES = ["chunk_prefill/csrc/chunk_prefill.cu",
+                 "chunk_prefill/csrc/paged_chunk_prefill.cu",
+                 "moe_gmm/csrc/gmm_down_tc.cu"]
+
+
+def start_ptxas_report():
+    """nvcc -Xptxas -v on the redesigned kernels' sources, in parallel
+    with the build (objects under kernels/.build/ptxas)."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_ROOT / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return [subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         str(_build._KERNELS / src), "-o", str(out / f"{i}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, src in enumerate(PTXAS_SOURCES)]
+
+
+def ptxas_report(procs) -> None:
+    """One line per redesigned kernel: registers, shared memory, spills."""
+    found = {}
+    for proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"nvcc -Xptxas -v failed:\n{log[-4000:]}")
+        key = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                key = next((k for k in PTXAS_KERNELS if k in line), None)
+            elif key and "spill" in line:
+                found.setdefault(key, {})["spill"] = line.strip()
+            elif key and "Used" in line and "registers" in line:
+                found.setdefault(key, {})["regs"] = line.split(":", 1)[1]
+    for key, (label, dyn) in PTXAS_KERNELS.items():
+        got = found.get(key)
+        if not got:
+            raise AssertionError(f"ptxas printed nothing for {label}")
+        print(f"  ptxas {label}:{got['regs'].strip()}; {dyn} bytes of "
+              f"dynamic shared memory; {got.get('spill', 'no spill line')}")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -153,6 +231,30 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph and replayed, so the wrapper's host time (~20-30 us a call
+    in Python) does not hide the kernel's."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound(nbytes: float, ops: float, dtype):
@@ -249,6 +351,7 @@ def kernel_checks(cfg):
         raise AssertionError("chunk_prefill: rows 320..639 differ between "
                              "one chunk from 0 and a chunk at 320")
     print("  chunking invariance: rows 320..639 bit-equal")
+    bf16_chunk_checks(g, qc, kv, vv, record)
     # the engine's admission prefill: batch 1, f32 cache view of 640 rows
     q1 = qc[:1].contiguous()
     k1, v1 = ks32[:1, :S], vs32[:1, :S]
@@ -268,6 +371,41 @@ def kernel_checks(cfg):
     return {"decode": (q, kc, vc), "decode_f32": (qs, ks32, vs32),
             "chunk": (qc, kv, vv), "chunk_f32": (q1, k1, v1),
             "paged": paged, "paged_chunk": paged_chunk}, errs
+
+
+def bf16_chunk_checks(g, qc, kv, vv, record):
+    """The tensor-core chunk body against its plain version at the edges
+    of its tiles (BF16_CHUNK_CASES), and chunking invariance bit for bit
+    of the control step's prefill split at CHUNK_SPLITS, window 0 and
+    64."""
+    import torch
+    from repro_torch.kernels.chunk_prefill import ops as cp
+    dev = qc.device
+    print("chunk_prefill (bf16, tensor cores) at tile and block edges")
+    for label, B, S, L, N, K, h, start, window in BF16_CHUNK_CASES:
+        q = torch.randn(B, S, N, h, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+        idx = (torch.tensor(start, dtype=torch.int32, device=dev)
+               if isinstance(start, tuple) else start)
+        record("chunk_prefill", label,
+               cp.chunk_prefill_attention(q, k, v, idx, window=window),
+               cp.chunk_prefill_ref(q.float(), k, v, idx, window))
+    for window in (0, 64):
+        whole = cp.chunk_prefill_attention(qc, kv, vv, 0, window=window)
+        for split in CHUNK_SPLITS:
+            head = cp.chunk_prefill_attention(qc[:, :split].contiguous(), kv,
+                                              vv, 0, window=window)
+            tail = cp.chunk_prefill_attention(qc[:, split:].contiguous(), kv,
+                                              vv, split, window=window)
+            torch.cuda.synchronize()
+            if not (torch.equal(whole[:, :split], head)
+                    and torch.equal(whole[:, split:], tail)):
+                raise AssertionError(f"chunk_prefill: chunks split at "
+                                     f"{split} (window {window}) differ "
+                                     f"from one chunk")
+    print(f"  chunking invariance: splits at {list(CHUNK_SPLITS)}, window "
+          f"0 and 64, bit-equal to one chunk")
 
 
 def make_pool(g, kv_dtype: str, store: str, num_pages: int, B: int,
@@ -413,20 +551,23 @@ def paged_chunk_checks(cfg, g, errs):
             key = f"paged_chunk_prefill/{name}"
             errs[key] = max(errs.get(key, 0.0),
                             check(label, got, want, KERNEL_TOL))
+    off_block = torch.tensor([497, 33], dtype=torch.int32, device=dev)
     for name in ("f32", "bf16"):
         kp, vp, _, _, table = pools[name]
         kd = pg.gather_pages(kp, table).contiguous()
         vd = pg.gather_pages(vp, table).contiguous()
-        for window in (0, 64):
-            a = pcp.paged_chunk_prefill_attention(q2, kp, vp, table, mixed,
+        for starts, window in itertools.product((mixed, off_block), (0, 64)):
+            a = pcp.paged_chunk_prefill_attention(q2, kp, vp, table, starts,
                                                   window=window)
-            b = cp.chunk_prefill_attention(q2, kd, vd, mixed, window=window)
+            b = cp.chunk_prefill_attention(q2, kd, vd, starts, window=window)
             torch.cuda.synchronize()
             if not torch.equal(a, b):
                 raise AssertionError(f"paged ({name}) and dense chunk "
-                                     f"prefill differ, window {window}")
+                                     f"prefill differ, starts "
+                                     f"{starts.tolist()}, window {window}")
         print(f"  paged vs dense chunk prefill over the same {name} rows: "
-              f"bit-equal (starts {mixed.tolist()}, window 0 and 64)")
+              f"bit-equal (starts {mixed.tolist()} and "
+              f"{off_block.tolist()}, window 0 and 64)")
     qp = torch.randn(1, 640, N, h, generator=g, device=dev).bfloat16()
     for name in ("f32", "int8-head", "fp8-token"):
         kp, vp, ks, vs, table = pools[name]
@@ -488,6 +629,22 @@ def moe_kernel_checks(cfg):
                   f"gelu_plain): max_abs_err " + ", ".join(
                       f"{k} {v:.3g}" for k, v in line.items())
                   + f" (tol {KERNEL_TOL:g} x max(1, |plain|))")
+    E, D0, F0 = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    for C, D, F in GMM_DOWN_EDGES:
+        D, F = D or D0, F or F0
+        h = torch.randn(E, C, F, generator=g, device="cuda").bfloat16()
+        wo = (torch.randn(E, F, D, generator=g, device="cuda")
+              * F ** -0.5).bfloat16()
+        y = gmm.gmm_down(h, wo)
+        again = gmm.gmm_down(h, wo)
+        err = check(f"gmm_down bfloat16 C={C} D={D} F={F}", y,
+                    gmm.gmm_down_ref(h, wo), KERNEL_TOL)
+        errs["gmm_down", C] = max(errs.get(("gmm_down", C), 0.0), err)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"gmm_down C={C}: two calls differ")
+    print("  gmm_down (bf16, tensor cores): the same bits on two calls at "
+          "every edge shape")
     return errs
 
 
@@ -1206,6 +1363,19 @@ def shape_dependence(cfg, params, P: int):
           f"(reported, not a gate)")
 
 
+def redesigned(row, library: str, kernel_fn, library_fn) -> None:
+    """The line of a kernel redesigned for the tensor cores: its time and
+    the library call's (same call), launched one by one as the row's and
+    replayed from a CUDA graph (device time alone), their ratios, and the
+    kernel's share of the bound."""
+    ms, lib = row["ms"], row["library_ms"]
+    g_ms, g_lib = graph_ms(kernel_fn, 30), graph_ms(library_fn, 30)
+    print(f"  redesigned {row['name']}: {ms:.4f} ms, {library} {lib:.4f} "
+          f"ms, ratio {ms / lib:.3f}, bound/ms {row['bound_ms'] / ms:.3f}; "
+          f"graph-replayed {g_ms:.4f} ms, {library} {g_lib:.4f} ms, ratio "
+          f"{g_ms / g_lib:.3f}, bound/ms {row['bound_ms'] / g_ms:.3f}")
+
+
 def kernel_timings(inputs, errs, launches, serving):
     """Phase 6: each kernel's time, its plain version's, the library
     yardstick where one PyTorch call computes the same function, and the
@@ -1252,7 +1422,8 @@ def kernel_timings(inputs, errs, launches, serving):
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, enable_gqa=True), iters)}
 
-    def chunk_row(name, key, qc, kv, vv, n_launches):
+    def chunk_row(name, key, qc, kv, vv, n_launches, source,
+                  redesign=False):
         B, S, N, h = qc.shape
         L, K = kv.shape[1], kv.shape[2]
         pairs = S * (S + 1) // 2        # causal (row, key) pairs from 0
@@ -1262,20 +1433,27 @@ def kernel_timings(inputs, errs, launches, serving):
         qt = qc.transpose(1, 2).to(kv.dtype)
         kt, vt = kv.transpose(1, 2), vv.transpose(1, 2)
         zero = torch.zeros(B, dtype=torch.int32, device=qc.device)
-        return {
+
+        def kernel():
+            return cp.chunk_prefill_attention(qc, kv, vv, zero)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        row = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
-                      "chunk_prefill.cu",
+            "source": "src/repro_torch/kernels/chunk_prefill/csrc/" + source,
             "replaces": "src/repro/kernels/chunk_prefill/chunk_prefill.py"
                         ":152",
             "launches": n_launches, "max_abs_err": errs[key],
-            "ms": time_ms(lambda: cp.chunk_prefill_attention(
-                qc, kv, vv, zero), 20),
+            "ms": time_ms(kernel, 20),
             "plain_ms": time_ms(lambda: cp.chunk_prefill_ref(
                 qc, kv, vv, zero), 5),
             "bound_ms": t_b, "bound_by": by,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)}
+            "library_ms": time_ms(library, 20)}
+        if redesign:
+            redesigned(row, "SDPA", kernel, library)
+        return row
 
     dense_engines = [n for n, kw in SERVE_ENGINES + CHUNKED_ENGINES
                      if not kw.get("paged")]
@@ -1287,10 +1465,12 @@ def kernel_timings(inputs, errs, launches, serving):
                            serve_launches("decode_attention", dense_engines),
                            100))
     rows.append(chunk_row("chunk_prefill", "chunk_prefill",
-                          *inputs["chunk"], launches["chunk_prefill"]))
+                          *inputs["chunk"], launches["chunk_prefill"],
+                          "chunk_mma.cuh", redesign=True))
     rows.append(chunk_row("chunk_prefill/f32_kv", "chunk_prefill_f32",
                           *inputs["chunk_f32"],
-                          serve_launches("chunk_prefill", list(serve))))
+                          serve_launches("chunk_prefill", list(serve)),
+                          "chunk_tile.cuh"))
 
     q, pools = inputs["paged"]
     B, N, h = q.shape
@@ -1424,13 +1604,18 @@ def moe_timings(cfg, errs, serving):
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     sets = [moe_experts(g, cfg, 1, torch.bfloat16)[1:] for _ in range(3)]
     src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
+    src_down = "src/repro_torch/kernels/moe_gmm/csrc/gmm_down_tc.cu"
     E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
     rows = []
 
+    def cycling(fn, args):
+        """A call of fn(*a), a taking each of ``args`` in turn."""
+        it = itertools.cycle(args)
+        return lambda: fn(*next(it))
+
     def cycled(fn, args, iters):
         """ms per call of fn(*a), a taking each of ``args`` in turn."""
-        it = itertools.cycle(args)
-        return time_ms(lambda: fn(*next(it)), iters)
+        return time_ms(cycling(fn, args), iters)
     for C in MOE_C:
         x = moe_experts(g, cfg, C, torch.bfloat16)[0]
         b = x.element_size()
@@ -1450,13 +1635,15 @@ def moe_timings(cfg, errs, serving):
         t_b, by = bound((E * C * F + E * F * D + E * C * D) * b,
                         2 * E * C * F * D, x.dtype)
         rows.append({
-            "name": f"gmm_down/C={C}", "route": "cuda", "source": src,
+            "name": f"gmm_down/C={C}", "route": "cuda", "source": src_down,
             "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:108",
             "launches": by_c[C], "max_abs_err": errs["gmm_down", C],
             "ms": cycled(gmm.gmm_down, down, 60),
             "plain_ms": cycled(gmm.gmm_down_ref, down, 12),
             "bound_ms": t_b, "bound_by": by,
             "library_ms": cycled(torch.bmm, down, 60)})
+        redesigned(rows[-1], "torch.bmm", cycling(gmm.gmm_down, down),
+                   cycling(torch.bmm, down))
         print(f"  gmm_gated/C={C}: its two torch.bmm products alone (no "
               f"activation, not one call) {two_bmm:.4f} ms")
     return rows
@@ -1986,7 +2173,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
+    ptxas = start_ptxas_report()
     print(f"phase 1: kernels built and loaded in {_build.timed_build():.1f} s")
+    ptxas_report(ptxas)
     cfg = get_config("molmoact-7b")
     moe_cfg = get_config(MOE_ARCH)
     print("phase 2: kernels vs plain versions")

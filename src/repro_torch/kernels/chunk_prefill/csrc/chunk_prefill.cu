@@ -8,22 +8,25 @@
 // causal mask kpos <= qpos (and qpos - kpos < window when a window is set);
 // query head n reads KV head n / G.
 //
-// What bounds it on the H100: at the main path's shape (S = L = 640,
-// h = 128, B = 4, N = 28) the causal work is 4*h*(S*(S+1)/2)*B*N = 11.8
-// GFLOP against 42 MB moved (q and out in bf16, the view once), ~280
-// operations per byte: at the card's bf16 ridge (~295), so bytes and
-// operations bound it about equally (12 us). This first version keeps the
-// arithmetic on the f32 CUDA cores, not the tensor cores, so it runs far
-// from that bound; tensor-core tiles are the next step for this kernel.
+// What bounds it on the H100: at the control step's shape (bf16 q and
+// view, S = L = 640, h = 128, B = 4, N = 28) the causal work is
+// 4*h*(S*(S+1)/2)*B*N = 11.8 GFLOP against 42 MB moved (q and out, the
+// view once), ~280 operations per byte: at the card's bf16 ridge (~295),
+// so bytes and operations bound it about equally (12 us), and only the
+// tensor cores reach that rate. So bf16 q over a bf16 view takes the
+// tensor-core body (chunk_mma.cuh): 64-row query tiles held as mma.sync
+// fragments, 64-key blocks of K and V through a 2-stage cp.async ring,
+// the online softmax on the score fragments and P V from bf16 P in
+// registers. The serving engine's f32 views (and an f32 q) keep the
+// CUDA-core body (chunk_tile.cuh): one block per (32-row query tile, query
+// head, slot), f32 FMAs, ~53 KB of dynamic shared memory for an f32 tile
+// pair.
 //
-// Design (the tile body, chunk_tile.cuh, is shared with the paged chunk
-// kernel): the query axis is tiled, one block per (32-row query tile,
-// query head, slot); each row walks 32-key blocks on the absolute
-// partition from position 0, so a row's result does not depend on the
-// chunking: the chunking-invariance contract of the TPU kernel holds bit
-// for bit. The view is f32 (the serving engine's admission cache) or bf16
-// (the control step's); an f32 tile pair needs ~53 KB of shared memory,
-// past the 48 KB default, so the tiles are dynamic shared memory.
+// Both bodies walk key blocks on the absolute partition from position 0
+// (64 keys in the tensor-core body, 32 in the other), so a row's result
+// does not depend on the chunking: the chunking-invariance contract of
+// the TPU kernel holds bit for bit within each body.
+#include "chunk_mma.cuh"
 #include "chunk_tile.cuh"
 
 namespace {
@@ -52,6 +55,57 @@ __global__ void __launch_bounds__(NT) chunk_kernel(
   const DenseSrc<TKV> src{k + off, v + off, (size_t)K * H};
   chunk_rows<H, TKV, SCALE_NONE, T>(q, out, S, L, N, K, index[b], window,
                                     src);
+}
+
+// bf16 q over a bf16 view: the tensor-core body, tiles heaviest first
+template <int H>
+__global__ void __launch_bounds__(chunk_mma::NT, 2) chunk_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ index,
+    __nv_bfloat16* __restrict__ out, int S, int L, int N, int K,
+    long long kv_bstride, int window) {
+  const int n = blockIdx.x, b = blockIdx.y;
+  const size_t off = b * kv_bstride + (size_t)(n / (N / K)) * H;
+  const DenseSrc<__nv_bfloat16> src{k + off, v + off, (size_t)K * H};
+  chunk_mma::chunk_rows<H>(q, out, S, L, N, chunk_mma::tile_row(), n, b,
+                           index[b], window, (size_t)K * H, src);
+}
+
+template <int H>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* index, void* out, int B, int S, int L,
+                       int N, int K, long long kv_bstride, int window,
+                       cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const auto kernel = chunk_mma_kernel<H>;
+  constexpr size_t bytes = chunk_mma::Layout<H>::BYTES;
+  static const cudaError_t setup = decode_tile::allow_smem(kernel, bytes);
+  if (setup != cudaSuccess) return setup;
+  const dim3 grid(N, B, (S + chunk_mma::BQ - 1) / chunk_mma::BQ);
+  kernel<<<grid, chunk_mma::NT, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(index),
+      static_cast<T*>(out), S, L, N, K, kv_bstride, window);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_h(int h, const void* q, const void* k, const void* v,
+                         const void* index, void* out, int B, int S, int L,
+                         int N, int K, long long kv_bstride, int window,
+                         cudaStream_t stream) {
+  switch (h) {
+    case 16:
+      return launch_mma<16>(q, k, v, index, out, B, S, L, N, K, kv_bstride,
+                            window, stream);
+    case 64:
+      return launch_mma<64>(q, k, v, index, out, B, S, L, N, K, kv_bstride,
+                            window, stream);
+    case 128:
+      return launch_mma<128>(q, k, v, index, out, B, S, L, N, K, kv_bstride,
+                             window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int H, typename TKV, typename T>
@@ -125,8 +179,12 @@ extern "C" int chunk_prefill_launch(const void* q, const void* k,
       return (int)launch_q<float>(q_bf16, h, q, k, v, index, out, B, S, L, N,
                                   K, kv_bstride, window, st);
     case 1:
-      return (int)launch_q<__nv_bfloat16>(q_bf16, h, q, k, v, index, out, B,
-                                          S, L, N, K, kv_bstride, window, st);
+      if (q_bf16)
+        return (int)launch_mma_h(h, q, k, v, index, out, B, S, L, N, K,
+                                 kv_bstride, window, st);
+      return (int)launch_h<__nv_bfloat16, float>(h, q, k, v, index, out, B,
+                                                 S, L, N, K, kv_bstride,
+                                                 window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

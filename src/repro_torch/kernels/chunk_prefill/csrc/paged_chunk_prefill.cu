@@ -19,11 +19,57 @@
 // prefill band), so a paged launch is bit-equal to a dense launch over the
 // same rows and keeps the chunking-invariance contract; blocks past the
 // live band or older than the window are never read, codes are widened
-// and scaled in registers. A simple version first: f32 CUDA cores, no
-// tensor cores, TMA or wgmma.
+// and scaled in registers, on the f32 CUDA cores. bf16 q over bf16 pages
+// takes the dense kernel's tensor-core body (chunk_mma.cuh) instead, whose
+// 64-key blocks are two pages: paged = dense bit for bit holds there too.
+#include "chunk_mma.cuh"
 #include "paged_chunk_kernel.cuh"
 
 using namespace paged_chunk;
+
+namespace {
+
+template <int H>
+__global__ void __launch_bounds__(chunk_mma::NT, 2) paged_chunk_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ page_table,
+    const int* __restrict__ index, __nv_bfloat16* __restrict__ out, int S,
+    int N, int K, int npg, int window) {
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int kh = n / (N / K);
+  const PagedSrc<__nv_bfloat16, SCALE_NONE> src{
+      kp + (size_t)kh * H, vp + (size_t)kh * H, page_table + (size_t)b * npg,
+      (size_t)BK * K * H, nullptr, nullptr, K, kh};
+  chunk_mma::chunk_rows<H>(q, out, S, npg * BK, N, chunk_mma::tile_row(), n,
+                           b, index[b], window, (size_t)K * H, src);
+}
+
+template <int H>
+cudaError_t go_mma(const Args& a) {
+  using T = __nv_bfloat16;
+  const auto kernel = paged_chunk_mma_kernel<H>;
+  constexpr size_t bytes = chunk_mma::Layout<H>::BYTES;
+  static const cudaError_t setup = decode_tile::allow_smem(kernel, bytes);
+  if (setup != cudaSuccess) return setup;
+  const dim3 grid(a.N, a.B, (a.S + chunk_mma::BQ - 1) / chunk_mma::BQ);
+  kernel<<<grid, chunk_mma::NT, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), static_cast<const int*>(a.pt),
+      static_cast<const int*>(a.index), static_cast<T*>(a.out), a.S, a.N,
+      a.K, a.npg, a.window);
+  return cudaGetLastError();
+}
+
+cudaError_t by_h_mma(int h, const Args& a) {
+  switch (h) {
+    case 16: return go_mma<16>(a);
+    case 64: return go_mma<64>(a);
+    case 128: return go_mma<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // q [B,S,N,h] (f32, or bf16 when q_bf16); k/v pages [num_pages, 32, K, h],
 // contiguous, of kv_dtype 0 f32, 1 bf16 (scale_mode 0, scales null), 2
@@ -46,7 +92,9 @@ extern "C" int paged_chunk_prefill_launch(
   if (quant != (scale_mode != SCALE_NONE)) return (int)cudaErrorInvalidValue;
   switch (kv_dtype) {
     case 0: return (int)by_q<float, SCALE_NONE>(q_bf16, h, a);
-    case 1: return (int)by_q<__nv_bfloat16, SCALE_NONE>(q_bf16, h, a);
+    case 1:
+      return q_bf16 ? (int)by_h_mma(h, a)
+                    : (int)by_h<__nv_bfloat16, SCALE_NONE, float>(h, a);
     case 2: return (int)launch_int8(scale_mode, q_bf16, h, a);
     case 3: return (int)launch_fp8(scale_mode, q_bf16, h, a);
     default: return (int)cudaErrorInvalidValue;

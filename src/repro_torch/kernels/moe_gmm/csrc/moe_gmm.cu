@@ -15,9 +15,14 @@
 // for granite-moe-3b-a800m (E=40, D=1536, F=512, bf16) gmm_gated reads
 // 125.8 MB (0.038 ms at 3.35 TB/s) and gmm_down 62.9 MB (0.019 ms),
 // against 2*C (gated: 4*C) operations per weight element: at the served
-// C = 2, 32 and 160 that is at most ~320 operations per byte of weights,
-// and the weights (189 MB a layer) do not stay in the 50 MB L2 between
-// launches. Design answer: one block per (expert, 64-column tile of the
+// C = 2, 32 and 160 that is at most ~320 operations per weight element
+// (160 per byte), below the bf16 ridge (~295 per byte), and the weights
+// (189 MB a layer) do not stay in the 50 MB L2 between launches.
+//
+// bf16 gmm_down runs on the tensor cores (gmm_down_tc.cu: each weight
+// byte read once per launch for C <= 256, a 4-stage cp.async weight ring,
+// wgmma); the rest (gmm_gated in both types, f32 gmm_down) take
+// gmm_kernel below. Its design: one block per (expert, 64-column tile of the
 // output, 32-row tile of C); it walks the contraction axis in 64-deep
 // shared-memory tiles with f32 sums in registers, so a launch with C <= 32
 // (decode at 8 slots: C = 2; a 128-row chunk: C = 32) reads every weight
@@ -32,8 +37,8 @@
 // four rows (warp w holds rows w, w+8, w+16, w+24, so a warp whose rows
 // all lie past C skips the arithmetic); the sums run on the f32 CUDA
 // cores, which set a floor of ~0.30 ms per gmm_gated launch at C = 160
-// (20.1 GFLOP at 67 TFLOP/s). Tensor cores, TMA and a deeper weight
-// pipeline are later work.
+// (20.1 GFLOP at 67 TFLOP/s). For gmm_gated, tensor cores and a deeper
+// weight pipeline are later work (gmm_down_tc.cu's tile is the model).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -269,9 +274,16 @@ extern "C" int gmm_gated_launch(const void* x, const void* wi,
   return dispatch(bf16, act, x, wi, wg, h, E, C, D, F, stream);
 }
 
+// defined in gmm_down_tc.cu
+cudaError_t gmm_down_tc_launch(const void* h, const void* wo, void* y, int E,
+                               int C, int F, int D, cudaStream_t stream);
+
 // h [E,C,F]; wo [E,F,D]; y [E,C,D]; as above.
 extern "C" int gmm_down_launch(const void* h, const void* wo, void* y,
                                int bf16, int E, int C, int F, int D,
                                void* stream) {
+  if (bf16)
+    return (int)gmm_down_tc_launch(h, wo, y, E, C, F, D,
+                                   static_cast<cudaStream_t>(stream));
   return dispatch(bf16, EPI_NONE, h, wo, wo, y, E, C, F, D, stream);
 }

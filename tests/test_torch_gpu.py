@@ -11,7 +11,11 @@ granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
 640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
 (H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows and
-at one chunk or less, and at the reduced models' width. The flash
+at one chunk or less, and at the reduced models' width. The bf16 chunk
+kernel (tensor cores) and the bf16 gmm_down (tensor cores) also run at
+the edges of their tiles: ragged S and L, every head dim, G = 1, 4, 7, a
+window crossing tile edges, capacities off their row tiles and past one
+pass, widths off the 64-wide tiles. The flash
 kernel runs at smollm-135m's and molmoact-7b's heads in f32 and bf16
 against the plain version on the inputs taken to f32 (the function it
 computes from either type), its backward against autograd through the
@@ -76,18 +80,57 @@ def test_chunk_kernel_on_card(index, kv):
     assert _close(got, want)
 
 
+# (B, S, L, N, K, h, start, window) for the bf16 tensor-core body: every
+# head dim, G = 1, 4 and 7, S and L off the 64-row tile and the 64-key
+# block (600 rows over L = 640; 100 rows from 37 over L = 150), per-slot
+# starts, a window of 64 that crosses tile and block edges
+BF16_CHUNKS = [(4, 640, 640, 28, 4, 128, 0, 0),
+               (2, 600, 640, 28, 4, 128, 0, 0),
+               (2, 600, 640, 28, 4, 128, 0, 64),
+               (2, 100, 150, 16, 4, 64, (37, 50), 0),
+               (2, 100, 150, 16, 4, 64, (37, 50), 64),
+               (3, 77, 200, 8, 8, 16, (0, 61, 123), 0),
+               (3, 77, 200, 8, 8, 16, (0, 61, 123), 64),
+               (1, 300, 300, 7, 1, 128, 0, 64)]
+
+
 @pytest.mark.gpu
-def test_chunk_kernel_chunking_invariance_on_card():
-    """Rows computed in one chunk from 0 and in a chunk at 320 are
-    bit-equal: each row walks the same absolute key blocks."""
+@pytest.mark.parametrize("B,S,L,N,K,h,start,window", BF16_CHUNKS)
+def test_bf16_chunk_kernel_edges_on_card(B, S, L, N, K, h, start, window):
+    """The tensor-core body (bf16 q over a bf16 view) against the plain
+    version on the inputs taken to f32, at ragged tile and block edges."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + L)
+    q = torch.randn(B, S, N, h, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+    idx = (torch.tensor(start, dtype=torch.int32, device=dev)
+           if isinstance(start, tuple) else start)
+    got = cp.chunk_prefill_attention(q, kc, vc, idx, window=window)
+    want = cp.chunk_prefill_ref(q.float(), kc, vc, idx, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("split", [1, 17, 320, 383])
+def test_chunk_kernel_chunking_invariance_on_card(split, window):
+    """Rows computed in one chunk from 0 and in a chunk at ``split`` are
+    bit-equal: each row walks the same absolute key blocks, whatever
+    query tile it sits in (splits on and off the 64-row tiles)."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn(2, 640, 28, 128, generator=g, device=dev).bfloat16()
     kc = torch.randn(2, 640, 4, 128, generator=g, device=dev).bfloat16()
     vc = torch.randn(2, 640, 4, 128, generator=g, device=dev).bfloat16()
-    whole = cp.chunk_prefill_attention(q, kc, vc, 0)
-    part = cp.chunk_prefill_attention(q[:, 320:].contiguous(), kc, vc, 320)
-    assert torch.equal(whole[:, 320:], part)
+    whole = cp.chunk_prefill_attention(q, kc, vc, 0, window=window)
+    head = cp.chunk_prefill_attention(q[:, :split].contiguous(), kc, vc, 0,
+                                      window=window)
+    part = cp.chunk_prefill_attention(q[:, split:].contiguous(), kc, vc,
+                                      split, window=window)
+    assert torch.equal(whole[:, :split], head)
+    assert torch.equal(whole[:, split:], part)
 
 
 @pytest.mark.gpu
@@ -219,17 +262,20 @@ def test_paged_chunk_kernel_on_card(chunk, window, storage):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("starts", [(512, 320), (497, 33)])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("window", [0, 64])
-def test_paged_chunk_kernel_bit_equal_to_dense_on_card(store, window):
-    """At page_size 32 a page is one key block of the dense chunk kernel:
-    a paged launch and a dense launch over the same rows are bit-equal."""
+def test_paged_chunk_kernel_bit_equal_to_dense_on_card(store, window,
+                                                       starts):
+    """At page_size 32 a page is one key block of the f32 body and half a
+    block of the bf16 tensor-core body: a paged launch and a dense launch
+    over the same rows are bit-equal (starts on and off the blocks)."""
     dev = _cuda()
     dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", store, B=2, npg=20,
                                         num_pages=41)
     q = torch.randn(2, 128, 28, 128, generator=torch.Generator(
         device=dev).manual_seed(9), device=dev).bfloat16()
-    idx = torch.tensor([512, 320], dtype=torch.int32, device=dev)
+    idx = torch.tensor(starts, dtype=torch.int32, device=dev)
     a = pcp.paged_chunk_prefill_attention(q, kp, vp, table, idx,
                                           window=window)
     b = cp.chunk_prefill_attention(q, dk, dv, idx, window=window)
@@ -290,6 +336,29 @@ def test_gmm_kernels_on_card(C, act, dtype):
     assert _close(gmm.grouped_mlp(x, wi, wg, wo, act),
                   gmm.grouped_mlp_ref(x, wi, wg, wo, act))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,D,F", [(1, 1536, 512), (33, 1536, 512),
+                                   (161, 1536, 512), (256, 1536, 512),
+                                   (300, 1536, 512), (33, 1544, 520),
+                                   (7, 200, 24)])
+def test_gmm_down_bf16_edges_on_card(C, D, F):
+    """The tensor-core gmm_down (bf16) against its plain version at
+    capacities off its 8-row tiles, one pass of 256 rows and past it, and
+    widths that are multiples of 8 but not of its 64-wide tiles; two calls
+    give the same bits (one block sums each output, no atomics)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(C + D + F)
+    h = torch.randn(40, C, F, generator=g, device=dev).bfloat16()
+    wo = (torch.randn(40, F, D, generator=g, device=dev)
+          * F ** -0.5).bfloat16()
+    y = gmm.gmm_down(h, wo)
+    again = gmm.gmm_down(h, wo)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (40, C, D)
+    assert _close(y, gmm.gmm_down_ref(h, wo))
+    assert torch.equal(y, again)
 
 
 @pytest.mark.gpu

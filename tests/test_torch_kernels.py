@@ -83,6 +83,12 @@ CHUNK_CASES = [
     (2, 8, 40, 4, 2, 64, (0, 30), 0),      # per-slot [B] starts
     (1, 24, 70, 14, 2, 16, 40, 10),        # window, G=7
     (1, 9, 32, 3, 3, 128, 5, 0),           # G=1, h=128
+    # the edges of the card's bf16 tensor-core tiles (64 query rows, 64
+    # keys): S off 64, G=7, every head dim, a window crossing a tile edge
+    (1, 70, 100, 14, 2, 16, 0, 0),         # S=70, h=16
+    (1, 67, 130, 14, 2, 64, 50, 0),        # S=67 from 50, h=64
+    (1, 65, 65, 7, 1, 128, 0, 0),          # S=65, h=128
+    (2, 80, 150, 14, 2, 64, (10, 60), 48),  # window 48 across 64 edges
 ]
 
 

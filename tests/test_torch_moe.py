@@ -71,12 +71,15 @@ def _torch(a, dtype):
 # the grouped-expert kernels' plain versions
 # ---------------------------------------------------------------------------
 
-# the reference's test_kernels.py cases, ragged capacities, and granite's
-# decode at 8 slots (E=40, C=2, D=1536, F=512)
+# the reference's test_kernels.py cases, ragged capacities, granite's
+# decode at 8 slots (E=40, C=2, D=1536, F=512), and the edges of the
+# card's bf16 gmm_down tiles: C=33 (off its 32-row slices), F=520 and
+# D=1544 (multiples of 8, not of its 64-deep stage or 128-column tile)
 GMM_CASES = [(4, 128, 256, 512, "silu"), (8, 64, 128, 96, "gelu"),
              (2, 256, 64, 128, "gelu_plain"), (16, 32, 64, 64, "silu"),
              (4, 3, 64, 48, "silu"), (4, 5, 64, 48, "gelu_plain"),
-             (40, 2, 1536, 512, "silu")]
+             (40, 2, 1536, 512, "silu"), (4, 33, 64, 520, "silu"),
+             (2, 33, 1544, 64, "gelu")]
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 
