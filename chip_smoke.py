@@ -3,13 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-(with ptxas's registers and spills for the tensor-core kernels: the bf16
-chunk prefill and the bf16 gmm_down), holds each kernel against its plain
-PyTorch version at the shapes of the main paths and, for the tensor-core
-kernels, at the edges of their tiles (the paged kernels bit-equal to the
-dense ones at page size 32, the chunk kernels chunking-invariant, gmm_down
-the same on two calls), ties the card to the CPU port on the
-reduced molmoact-7b (control step, admit-stall and chunked serving
+(with ptxas's registers and spills for the redesigned kernels: the bf16
+chunk prefill, the bf16 gmm_down and the split-key decode kernels with
+their combine pass), holds each kernel against its plain PyTorch version
+at the shapes of the main paths and, for the redesigned kernels, at the
+edges of their tiles and splits (the paged kernels bit-equal to the dense
+ones at page size 32, the chunk kernels chunking-invariant, gmm_down and
+the decode kernels the same on two calls), ties the card to the CPU port
+on the reduced molmoact-7b (control step, admit-stall and chunked serving
 engines), then drives the full-width molmoact-7b paths with seeded random
 weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
@@ -45,6 +46,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20            # H100 SXM L2 cache
 # peak operations per second by input type (dense, no sparsity): bf16
 # tensor cores; f32 outside the tensor cores (the exact f32 function);
 # int8/fp8 tensor cores
@@ -158,9 +160,27 @@ FLASH_CASES = [("smollm f32", 4, 2048, 9, 3, 64, "float32", 0, True),
                ("causal=False", 2, 512, 9, 3, 64, "float32", 0, False)]
 
 
-# the redesigned kernels' instantiations on the main paths, by the
-# substring of their (mangled) names, and the dynamic shared memory each
-# launch asks for there (bytes, from their layouts)
+# per-slot decode positions of the engines' 8 slots in phase 2's checks
+SERVE_MIXED = (0, 31, 32, 300, 639, 700, 831, 5)
+# the decode shapes phase 2 also holds against the plain version, dense
+# and paged, at the engines' 8 slots: label -> (N, K, h). Granite's heads,
+# and query groups of 16 and 32 (the kernels' wide instantiation, which
+# the G <= 32 contract needs and no configuration runs)
+DECODE_SHAPES = {f"{MOE_ARCH} (h=64, G=3)": (24, 8, 64),
+                 "G=16 h=16": (32, 2, 16), "G=32 h=16": (32, 1, 16),
+                 "G=16 h=128": (32, 2, 128), "G=32 h=128": (32, 1, 128)}
+# (index, window) of the split-key decode kernels' phase-2 checks: the
+# edges of their 128-key splits, windows across a split edge and shorter
+# than a split, per-slot indices with 0 (a tensor when a tuple)
+SPLIT_CASES = [(127, 0), (128, 0), (255, 0), (150, 64), (280, 64),
+               (736, 16), ((0, 127, 128, 255), 0)]
+
+
+# the redesigned kernels' instantiations on the main paths (and the
+# decode kernels' wide-group one), by the substring of their (mangled)
+# names, and the dynamic shared memory each launch asks for there: bytes,
+# from their layouts, or for a split decode block (h, bytes of a cache
+# element, G), which the library sizes
 PTXAS_KERNELS = {
     "16chunk_mma_kernelILi128E": ("chunk_mma_kernel<128> (control step)",
                                   (64 + 4 * 64) * 136 * 2),
@@ -170,10 +190,33 @@ PTXAS_KERNELS = {
                                        4 * (64 * 128 + 8 * 33 * 8) * 2),
     "19gmm_down_res_kernelILi160E": ("gmm_down_res_kernel<160> (C = 160)",
                                      (8 * 8 * 161 * 8 + 4 * 64 * 128) * 2),
+    "13decode_kernelILi128E13__nv_bfloat16Li8ES1_E":
+        ("decode_kernel<128, bf16> (control step)", (128, 2, 7)),
+    "13decode_kernelILi128EfLi8E13__nv_bfloat16E":
+        ("decode_kernel<128, f32> (engines)", (128, 4, 7)),
+    "12paged_kernelILi128EfLi0ELi8E13__nv_bfloat16E":
+        ("paged_kernel<128, f32>", (128, 4, 7)),
+    "12paged_kernelILi128EaLi1ELi8E13__nv_bfloat16E":
+        ("paged_kernel<128, int8, head>", (128, 1, 7)),
+    "12paged_kernelILi128E13__nv_fp8_e4m3Li2ELi8E13__nv_bfloat16E":
+        ("paged_kernel<128, fp8, token>", (128, 1, 7)),
+    "13decode_kernelILi64EfLi8E13__nv_bfloat16E":
+        (f"decode_kernel<64, f32> ({MOE_ARCH})", (64, 4, 3)),
+    "12paged_kernelILi64EfLi0ELi8E13__nv_bfloat16E":
+        (f"paged_kernel<64, f32> ({MOE_ARCH})", (64, 4, 3)),
+    "13decode_kernelILi128EfLi32E13__nv_bfloat16E":
+        ("decode_kernel<128, f32, G <= 32> (no configuration)",
+         (128, 4, 32)),
+    "20split_combine_kernelILi128E13__nv_bfloat16E":
+        ("split_combine_kernel<128, bf16>", 0),
 }
 PTXAS_SOURCES = ["chunk_prefill/csrc/chunk_prefill.cu",
                  "chunk_prefill/csrc/paged_chunk_prefill.cu",
-                 "moe_gmm/csrc/gmm_down_tc.cu"]
+                 "moe_gmm/csrc/gmm_down_tc.cu",
+                 "decode_attention/csrc/decode_attention.cu",
+                 "decode_attention/csrc/paged_decode_attention.cu",
+                 "decode_attention/csrc/paged_decode_int8.cu",
+                 "decode_attention/csrc/paged_decode_fp8.cu"]
 
 
 def start_ptxas_report():
@@ -204,10 +247,13 @@ def ptxas_report(procs) -> None:
                 found.setdefault(key, {})["spill"] = line.strip()
             elif key and "Used" in line and "registers" in line:
                 found.setdefault(key, {})["regs"] = line.split(":", 1)[1]
+    from repro_torch.kernels import _build
     for key, (label, dyn) in PTXAS_KERNELS.items():
         got = found.get(key)
         if not got:
             raise AssertionError(f"ptxas printed nothing for {label}")
+        if isinstance(dyn, tuple):
+            dyn = _build.library().decode_split_smem(*dyn)
         print(f"  ptxas {label}:{got['regs'].strip()}; {dyn} bytes of "
               f"dynamic shared memory; {got.get('spill', 'no spill line')}")
 
@@ -236,7 +282,8 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured in a
     CUDA graph and replayed, so the wrapper's host time (~20-30 us a call
-    in Python) does not hide the kernel's."""
+    in Python) does not hide the kernel's. A ``fn`` that cycles through
+    copies of its inputs (``cycling``) is captured with each call's own."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -255,6 +302,20 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def cycling(fn, args):
+    """A call of fn(*a), a taking each of ``args`` in turn."""
+    it = itertools.cycle(args)
+    return lambda: fn(*next(it))
+
+
+def cold_copies(nbytes: float) -> int:
+    """How many copies of a call's inputs to cycle through so that what a
+    round of calls reads (``nbytes`` a call) is twice the L2: then each
+    call finds its inputs cold, as on the main path, where every layer
+    reads a cache of its own."""
+    return max(2, -(-2 * L2_BYTES // int(nbytes)))
 
 
 def bound(nbytes: float, ops: float, dtype):
@@ -287,11 +348,11 @@ def kernel_checks(cfg):
     """Phase 2: each kernel against its plain version at the main paths'
     shapes: the control step's bf16 caches (B=4) and the serving engine's
     f32 caches and page pools (B=8 slots, 864 positions, 217 pages of 32);
-    the paged kernel bit-equal to the dense one over the same rows. Returns
-    the inputs and largest errors for the kernel times."""
+    the paged kernel bit-equal to the dense one over the same rows; then
+    the decode kernels, dense and paged, at DECODE_SHAPES. Returns the
+    inputs and largest errors for the kernel times."""
     import torch
     from repro_torch.kernels.chunk_prefill import ops as cp
-    from repro_torch.kernels.decode_attention import ops as da
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     from repro_torch.core.vla import control_step_lengths
@@ -308,28 +369,17 @@ def kernel_checks(cfg):
         errs[name] = max(errs.get(name, 0.0),
                          check(label, got, want, KERNEL_TOL))
 
-    def decode_cases(name, q, kc, vc, cases):
-        print(f"decode_attention vs plain, q {tuple(q.shape)} "
-              f"{q.dtype}, cache {tuple(kc.shape)} {kc.dtype}")
-        for idx, window in cases:
-            got = da.decode_attention(q, kc, vc, idx, window=window)
-            want = da.decode_attention_ref(q.float(), kc, vc, idx, window)
-            label = (f"index={idx if isinstance(idx, int) else idx.tolist()}"
-                     f" window={window}")
-            record(name, label, got, want)
-
     cases = [(i, 0) for i in (0, 511, 512, 640, 831)]
     cases += [(torch.tensor([640, 700, 783, 831], dtype=torch.int32,
                             device=dev), 0), (736, 64)]
-    decode_cases("decode_attention", q, kc, vc, cases)
+    cases += split_cases(dev, B)
+    decode_cases("decode_attention", q, kc, vc, cases, record)
     # the serving engine's f32 dense cache: 8 slots x 864 positions
     qs = randn(SERVE_SLOTS, N, h)
     ks32 = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=torch.float32)
     vs32 = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=torch.float32)
-    mixed = torch.tensor([0, 31, 32, 300, 639, 700, 831, 5],
-                         dtype=torch.int32, device=dev)
-    decode_cases("decode_attention_f32", qs, ks32, vs32,
-                 [(0, 0), (511, 0), (831, 0), (mixed, 0), (736, 64)])
+    decode_cases("decode_attention_f32", qs, ks32, vs32, serve_cases(dev),
+                 record)
 
     qc = randn(B, S, N, h)
     kv, vv = kc[:, :S], vc[:, :S]        # the chunk route's view of the cache
@@ -366,11 +416,58 @@ def kernel_checks(cfg):
                                     window)
         record("chunk_prefill_f32", label, got, want)
 
-    paged = paged_checks(cfg, g, errs)
+    paged = paged_checks(g, errs, (SERVE_SLOTS, N, K, h), smax)
     paged_chunk = paged_chunk_checks(cfg, g, errs)
+    # the other decode shapes: granite-moe-3b-a800m's and the wide groups
+    for label, (n_q, n_kv, hd) in DECODE_SHAPES.items():
+        print(f"decode shape: {label}")
+        qw = randn(SERVE_SLOTS, n_q, hd)
+        for kv_type in (torch.float32, torch.bfloat16):
+            kw = randn(SERVE_SLOTS, SERVE_MAX_SEQ, n_kv, hd, dtype=kv_type)
+            vw = randn(SERVE_SLOTS, SERVE_MAX_SEQ, n_kv, hd, dtype=kv_type)
+            decode_cases("decode_attention" if kv_type == torch.bfloat16
+                         else "decode_attention_f32", qw, kw, vw,
+                         serve_cases(dev), record)
+        paged_checks(g, errs, (SERVE_SLOTS, n_q, n_kv, hd), smax)
     return {"decode": (q, kc, vc), "decode_f32": (qs, ks32, vs32),
             "chunk": (qc, kv, vv), "chunk_f32": (q1, k1, v1),
             "paged": paged, "paged_chunk": paged_chunk}, errs
+
+
+def decode_cases(name, q, kc, vc, cases, record):
+    """The dense decode kernel against its plain version at each (index,
+    window) of ``cases``, and the same bits on two calls."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+    print(f"decode_attention vs plain, q {tuple(q.shape)} {q.dtype}, cache "
+          f"{tuple(kc.shape)} {kc.dtype}")
+    for idx, window in cases:
+        got = da.decode_attention(q, kc, vc, idx, window=window)
+        again = da.decode_attention(q, kc, vc, idx, window=window)
+        want = da.decode_attention_ref(q.float(), kc, vc, idx, window)
+        label = (f"index={idx if isinstance(idx, int) else idx.tolist()}"
+                 f" window={window}")
+        record(name, label, got, want)
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention: two calls differ at "
+                                 f"{label}")
+    print(f"  the same bits on two calls at each of {len(cases)} cases")
+
+
+def serve_cases(dev):
+    """(index, window) of the decode checks at the engines' 8 slots."""
+    import torch
+    mixed = torch.tensor(SERVE_MIXED, dtype=torch.int32, device=dev)
+    return ([(0, 0), (511, 0), (831, 0), (mixed, 0), (736, 64)]
+            + split_cases(dev, SERVE_SLOTS))
+
+
+def split_cases(dev, B: int):
+    """SPLIT_CASES for B slots, per-slot indices as int32 tensors on
+    ``dev`` (a tuple repeated over the slots)."""
+    import torch
+    return [(torch.tensor((i * B)[:B], dtype=torch.int32, device=dev)
+             if isinstance(i, tuple) else i, w) for i, w in SPLIT_CASES]
 
 
 def bf16_chunk_checks(g, qc, kv, vv, record):
@@ -448,22 +545,24 @@ def live_table(table, index):
     return torch.where(live, table, 0).to(torch.int32)
 
 
-def paged_checks(cfg, g, errs):
+def paged_checks(g, errs, shape, smax: int):
     """The paged decode kernel against its plain version at the serving
-    engine's shapes (B=8, N=28, K=4, h=128, 217 pages of 32; shuffled
-    tables, null entries past each slot's length) for every storage type,
-    and bit-equal to the dense kernel over the same rows (f32 and bf16)."""
+    engine's pool (``shape`` = (B, N, K, h), 864 positions: 1 + B * 27
+    pages of 32; shuffled tables, null entries past each slot's length)
+    for every storage type, and bit-equal to the dense kernel over the
+    same rows (f32 and bf16), also against a dense cache of ``smax``
+    rows."""
     import torch
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention import paged as pg
     dev = torch.device("cuda")
-    B, N, K, h = SERVE_SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, N, K, h = shape
     npg = SERVE_MAX_SEQ // PAGE
     num_pages = 1 + B * npg
     q = torch.randn(B, N, h, generator=g, device=dev).bfloat16()
-    mixed = torch.tensor([0, 31, 32, 300, 639, 700, 831, 5],
-                         dtype=torch.int32, device=dev)
+    mixed = torch.tensor(SERVE_MIXED, dtype=torch.int32, device=dev)
     cases = [(i, 0) for i in (0, 31, 32, 639, 831)] + [(mixed, 0), (736, 64)]
+    cases += split_cases(dev, B)
     pools = {}
     for name, kv_dtype, store in PAGED_VARIANTS:
         kp, vp, ks, vs, table = make_pool(g, kv_dtype, store, num_pages, B,
@@ -476,6 +575,9 @@ def paged_checks(cfg, g, errs):
                             else torch.full((B,), idx, device=dev))
             got = pg.paged_decode_attention(q, kp, vp, pt, idx, k_scales=ks,
                                             v_scales=vs, window=window)
+            again = pg.paged_decode_attention(q, kp, vp, pt, idx,
+                                              k_scales=ks, v_scales=vs,
+                                              window=window)
             if ks is None:
                 want = pg.paged_decode_attention_ref(q.float(), kp, vp, pt,
                                                      idx, window)
@@ -487,20 +589,28 @@ def paged_checks(cfg, g, errs):
             key = f"paged_decode_attention/{name}"
             errs[key] = max(errs.get(key, 0.0),
                             check(label, got, want, KERNEL_TOL))
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_decode_attention ({name}): two "
+                                     f"calls differ at {label}")
+        print(f"  the same bits on two calls at each of {len(cases)} cases")
     for name in ("f32", "bf16"):
         kp, vp, _, _, table = pools[name]
         kd, vd = pg.gather_pages(kp, table), pg.gather_pages(vp, table)
-        for idx, window in ((mixed, 0), (736, 64), (831, 0)):
+        for idx, window in [(mixed, 0), (736, 64), (831, 0)] \
+                + split_cases(dev, B):
             a = pg.paged_decode_attention(q, kp, vp, table, idx,
                                           window=window)
-            b = da.decode_attention(q, kd, vd, idx, window=window)
-            torch.cuda.synchronize()
-            if not torch.equal(a, b):
-                raise AssertionError(f"paged ({name}) and dense decode "
-                                     f"differ at index {idx}, window "
-                                     f"{window}")
+            for rows in (npg * PAGE, smax):
+                b = da.decode_attention(q, kd[:, :rows], vd[:, :rows], idx,
+                                        window=window)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"paged ({name}, {npg} pages) and dense decode "
+                        f"(S={rows}) differ at index {idx}, window {window}")
         print(f"  paged vs dense decode over the same {name} rows: "
-              f"bit-equal (mixed, 736/window 64, 831)")
+              f"bit-equal (mixed, 736/window 64, 831 and the split cases; "
+              f"dense S = {npg * PAGE} and {smax} against {npg} pages)")
     return q, pools
 
 
@@ -915,7 +1025,8 @@ def full_width(cfg, params):
 
 # substrings of kernel names -> the part of a decode step they belong to
 KERNEL_GROUPS = (("grouped experts", ("gmm_kernel",)),
-                 ("attention", ("decode_kernel", "chunk_kernel",
+                 ("attention", ("decode_kernel", "split_combine",
+                                "chunk_kernel",
                                 "paged_kernel", "flash_kernel")),
                  ("library GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
 
@@ -1364,12 +1475,20 @@ def shape_dependence(cfg, params, P: int):
 
 
 def redesigned(row, library: str, kernel_fn, library_fn) -> None:
-    """The line of a kernel redesigned for the tensor cores: its time and
-    the library call's (same call), launched one by one as the row's and
-    replayed from a CUDA graph (device time alone), their ratios, and the
-    kernel's share of the bound."""
+    """The line of a redesigned kernel: its time and the library call's
+    (same call), launched one by one as the row's and replayed from a CUDA
+    graph (device time alone), their ratios, and the kernel's share of
+    the bound; without a library call (``library_fn`` None), the kernel's
+    times beside its bound."""
     ms, lib = row["ms"], row["library_ms"]
-    g_ms, g_lib = graph_ms(kernel_fn, 30), graph_ms(library_fn, 30)
+    g_ms = graph_ms(kernel_fn, 30)
+    if library_fn is None:
+        print(f"  redesigned {row['name']}: {ms:.4f} ms, bound/ms "
+              f"{row['bound_ms'] / ms:.3f}; graph-replayed {g_ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms, bound/ms "
+              f"{row['bound_ms'] / g_ms:.3f}")
+        return
+    g_lib = graph_ms(library_fn, 30)
     print(f"  redesigned {row['name']}: {ms:.4f} ms, {library} {lib:.4f} "
           f"ms, ratio {ms / lib:.3f}, bound/ms {row['bound_ms'] / ms:.3f}; "
           f"graph-replayed {g_ms:.4f} ms, {library} {g_lib:.4f} ms, ratio "
@@ -1407,20 +1526,30 @@ def kernel_timings(inputs, errs, launches, serving):
         mask = (torch.arange(kc.shape[1], device=q.device) <= pos)[
             None, None, None]
         qs = q[:, :, None].to(kc.dtype)
-        ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
-        return {
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone())
+                               for _ in range(cold_copies(nbytes) - 1)]
+        print(f"  {name}: {len(caches)} copies of the cache in turn, "
+              f"{len(caches) * nbytes / 2**20:.0f} MB read a round (L2 "
+              f"cold)")
+        kernel = cycling(lambda k, v: da.decode_attention(q, k, v, idx),
+                         caches)
+        library = cycling(lambda k, v: F.scaled_dot_product_attention(
+            qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True), caches)
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/csrc/"
                       "decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/"
                         "decode_attention.py:142",
             "launches": n_launches, "max_abs_err": errs[key],
-            "ms": time_ms(lambda: da.decode_attention(q, kc, vc, idx), iters),
+            "ms": time_ms(kernel, iters),
             "plain_ms": time_ms(lambda: da.decode_attention_ref(
                 q, kc, vc, idx), 20),
             "bound_ms": t_b, "bound_by": by,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, enable_gqa=True), iters)}
+            "library_ms": time_ms(library, iters)}
+        redesigned(row, "SDPA", kernel, library)
+        return row
 
     def chunk_row(name, key, qc, kv, vv, n_launches, source,
                   redesign=False):
@@ -1504,6 +1633,19 @@ def kernel_timings(inputs, errs, launches, serving):
                 return pg.paged_decode_attention_ref(q, kp, vp, pt, idx)
             return pg.paged_decode_attention_quant_ref(q, kp, vp, ks, vs, pt,
                                                        idx)
+
+        def clone(t):
+            return None if t is None else t.clone()
+        pool_copies = [(kp, vp, ks, vs)] + [
+            (kp.clone(), vp.clone(), clone(ks), clone(vs))
+            for _ in range(cold_copies(nbytes) - 1)]
+        print(f"  paged_decode_attention/{name}: {len(pool_copies)} copies "
+              f"of the pool in turn, {len(pool_copies) * nbytes / 2**20:.0f}"
+              f" MB read a round (L2 cold)")
+        kernel = cycling(lambda kp, vp, ks, vs, pt=pt:
+                         pg.paged_decode_attention(q, kp, vp, pt, idx,
+                                                   k_scales=ks, v_scales=vs),
+                         pool_copies)
         row = {
             "name": f"paged_decode_attention/{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -1512,11 +1654,11 @@ def kernel_timings(inputs, errs, launches, serving):
             "launches": serve_launches("paged_decode_attention",
                                        engine_of[name]),
             "max_abs_err": errs[f"paged_decode_attention/{name}"],
-            "ms": time_ms(lambda: pg.paged_decode_attention(
-                q, kp, vp, pt, idx, k_scales=ks, v_scales=vs), 100),
+            "ms": time_ms(kernel, 100),
             "plain_ms": time_ms(plain, 20),
             "bound_ms": t_b, "bound_by": by,
             "library_ms": None}
+        redesigned(row, None, kernel, None)
         # bf16 pages run on no main path (the engine's pools are f32 or
         # codes): timed and printed, but kept out of the kernels line
         (rows if engine_of[name] else off_path).append(row)
@@ -1607,11 +1749,6 @@ def moe_timings(cfg, errs, serving):
     src_down = "src/repro_torch/kernels/moe_gmm/csrc/gmm_down_tc.cu"
     E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
     rows = []
-
-    def cycling(fn, args):
-        """A call of fn(*a), a taking each of ``args`` in turn."""
-        it = itertools.cycle(args)
-        return lambda: fn(*next(it))
 
     def cycled(fn, args, iters):
         """ms per call of fn(*a), a taking each of ``args`` in turn."""

@@ -27,17 +27,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the entry points; each returns the cudaError_t of its launch
+# (decode_split_smem, which launches nothing, returns a size)
 SIGNATURES = {
-    # q, k, v, index, out, q_bf16, kv_dtype, B, S, N, K, h, kv_batch_stride,
-    # window, stream
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _L, _I, _P],
-    # q, k_pages, v_pages, k_scales, v_scales, page_table, index, out,
-    # q_bf16, kv_dtype, scale_mode, B, N, K, h, page_size, npg, window,
+    # q, k, v, index, scratch, out, q_bf16, kv_dtype, B, S, N, K, h,
+    # kv_batch_stride, window, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _L, _I, _P],
+    # h, kv_bytes, G: a split decode block's dynamic shared memory (bytes)
+    "decode_split_smem": [_I, _I, _I],
+    # q, k_pages, v_pages, k_scales, v_scales, page_table, index, scratch,
+    # out, q_bf16, kv_dtype, scale_mode, B, N, K, h, page_size, npg, window,
     # stream
-    "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                      _P],
+                                      _I, _P],
     # q, k, v, index, out, q_bf16, kv_dtype, B, S, L, N, K, h, bk,
     # kv_batch_stride, window, stream
     "chunk_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

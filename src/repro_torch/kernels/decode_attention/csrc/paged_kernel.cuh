@@ -1,6 +1,6 @@
-// The paged decode kernel as a template, and its dispatch over head dim
-// and q type, shared by the sources that instantiate it: one source per
-// page storage type, so that nvcc builds them in parallel
+// The paged decode kernel as a template, and its dispatch over head dim,
+// group bound and q type, shared by the sources that instantiate it: one
+// source per page storage type, so that nvcc builds them in parallel
 // (paged_decode_attention.cu: f32 and bf16 pages and the C entry;
 // paged_decode_int8.cu; paged_decode_fp8.cu).
 #pragma once
@@ -31,65 +31,66 @@ struct PagedSrc {
     return SC == SCALE_HEAD ? (size_t)page(t0) * K + kh
                             : ((size_t)page(t0) * TK + r) * K + kh;
   }
-  __device__ float k_scale(int t0, int r) const { return ks[scale_at(t0, r)]; }
-  __device__ float v_scale(int t0, int r) const { return vs[scale_at(t0, r)]; }
+  __device__ const float* k_scale(int t0, int r) const {
+    return ks + scale_at(t0, r);
+  }
+  __device__ const float* v_scale(int t0, int r) const {
+    return vs + scale_at(t0, r);
+  }
 };
 
-template <int H, typename TKV, int SC, typename T>
-__global__ void __launch_bounds__(NT) paged_kernel(
+template <int H, typename TKV, int SC, int GB, typename T>
+__global__ void __launch_bounds__(DNT, 2) paged_kernel(
     const T* __restrict__ q, const TKV* __restrict__ kp,
     const TKV* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ page_table,
-    const int* __restrict__ index, T* __restrict__ out, int N, int K,
-    int npg, int window) {
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int idx = index[b];
-  const int last = min(idx, npg * TK - 1);
-  const int first = window > 0 ? max(0, idx - window + 1) : 0;
+    const int* __restrict__ index, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int N, int K, int len, int window) {
+  const int j = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int2 fl = live_keys(index[b], len, window);
+  const int npg = len / TK;
   const PagedSrc<TKV, SC> src{kp + (size_t)kh * H, vp + (size_t)kh * H,
                               page_table + (size_t)b * npg,
                               (size_t)TK * K * H, ks, vs, K, kh};
-  decode_group<H, TKV, SC, T>(q, out, b, kh, N, K, idx, first, last, src);
-}
-
-template <int H, typename TKV, int SC, typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* ks, const void* vs, const void* pt,
-                   const void* index, void* out, int B, int N, int K,
-                   int npg, int window, cudaStream_t stream) {
-  const auto kernel = paged_kernel<H, TKV, SC, T>;
-  static const cudaError_t setup =
-      allow_smem(kernel, Layout<H, TKV>::bytes(GMAX));
-  if (setup != cudaSuccess) return setup;
-  kernel<<<dim3(K, B), NT, Layout<H, TKV>::bytes(N / K), stream>>>(
-      static_cast<const T*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(index), static_cast<T*>(out), N, K, npg,
-      window);
-  return cudaGetLastError();
+  decode_split<H, TKV, SC, GB, T>(q, part_acc, part_ml, b, kh, j, gridDim.x,
+                                  N, K, fl.x, fl.y, src);
 }
 
 struct Args {
   const void *q, *kp, *vp, *ks, *vs, *pt, *index;
+  float* part;
   void* out;
-  int B, N, K, npg, window;
+  int B, N, K, npg, NS, window;
   cudaStream_t stream;
 };
 
+template <int H, typename TKV, int SC, int GB, typename T>
+cudaError_t launch(const Args& a) {
+  const auto kernel = paged_kernel<H, TKV, SC, GB, T>;
+  static const cudaError_t setup =
+      allow_smem(kernel, SplitLayout<H, TKV>::bytes(GB));
+  if (setup != cudaSuccess) return setup;
+  const int* index = static_cast<const int*>(a.index);
+  return split_then_combine<H, T>(
+      kernel, SplitLayout<H, TKV>::bytes(a.N / a.K), a.part, index, a.out,
+      a.B, a.N, a.K, a.NS, a.npg * TK, a.window, a.stream,
+      static_cast<const T*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pt), index);
+}
+
 template <int H, typename TKV, int SC, typename T>
-cudaError_t go(const Args& a) {
-  return launch<H, TKV, SC, T>(a.q, a.kp, a.vp, a.ks, a.vs, a.pt, a.index,
-                               a.out, a.B, a.N, a.K, a.npg, a.window,
-                               a.stream);
+cudaError_t by_group(const Args& a) {
+  return a.N / a.K <= GSMALL ? launch<H, TKV, SC, GSMALL, T>(a)
+                             : launch<H, TKV, SC, GMAX, T>(a);
 }
 
 template <typename TKV, int SC, typename T>
 cudaError_t by_h(int h, const Args& a) {
   switch (h) {
-    case 16: return go<16, TKV, SC, T>(a);
-    case 64: return go<64, TKV, SC, T>(a);
-    case 128: return go<128, TKV, SC, T>(a);
+    case 16: return by_group<16, TKV, SC, T>(a);
+    case 64: return by_group<64, TKV, SC, T>(a);
+    case 128: return by_group<128, TKV, SC, T>(a);
     default: return cudaErrorInvalidValue;
   }
 }

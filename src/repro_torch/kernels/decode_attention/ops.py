@@ -4,7 +4,10 @@
 the TPU kernel ``repro/kernels/decode_attention/decode_attention.py:
 decode_attention_kernel``) for CUDA tensors and runs
 ``decode_attention_ref`` for CPU tensors; nothing else chooses between
-them. ``decode_attention.launches`` counts the kernel's launches.
+them. ``decode_attention.launches`` counts calls of the kernel's C entry,
+which launches the split-key kernel and its combine pass.
+``decode_attention_split_ref`` models that split and combine in plain
+PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -18,13 +21,36 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 32          # query heads per KV head the kernel holds
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' kv_dtype
+# keys a block of the kernels reads: split j covers the absolute positions
+# [j * SPLIT, (j + 1) * SPLIT). Must equal csrc/decode_tile.cuh's SPLIT:
+# the C entries derive the split count from theirs and write that many
+# partials into the scratch sized from this one
+SPLIT = 128
+
+
+def split_scratch(q, length: int):
+    """The kernels' f32 partials for a cache of ``length`` rows: (m, l,
+    acc[h]) per (slot, query head, split), ceil(length / SPLIT) splits."""
+    B, N, h = q.shape
+    return torch.empty(B * N * -(-length // SPLIT) * (h + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def slot_index(index, B: int, device) -> torch.Tensor:
     """A decode position (int, 0-d or [B] tensor) as a [B] int32 tensor on
-    ``device``."""
+    ``device`` (the tensor itself when it already is one)."""
+    if (isinstance(index, torch.Tensor) and index.dtype == torch.int32
+            and index.shape == (B,) and index.device == device
+            and index.is_contiguous()):
+        return index
     idx = torch.as_tensor(index, dtype=torch.int32, device=device)
     return idx.reshape(-1).expand(B).contiguous()
+
+
+def cuda_stream(device) -> int:
+    """The handle of PyTorch's current stream on a CUDA ``device``, for a
+    C entry's stream argument."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def decode_attention_ref(q, k_cache, v_cache, index,
@@ -47,6 +73,45 @@ def decode_attention_ref(q, k_cache, v_cache, index,
     w = torch.softmax(s, dim=-1) * valid[:, None, None]
     v = torch.where(valid[:, :, None, None], v_cache.float(), 0.0)
     out = torch.einsum("bkgt,btkh->bkgh", w, v)
+    return out.reshape(B, N, h).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, index,
+                               window: int = GLOBAL_WINDOW,
+                               split: int = SPLIT):
+    """Plain model of the kernels' split and combine, for the tests: f32
+    partials (m, l, acc) of each split [j * split, (j + 1) * split) of
+    absolute positions, then out = sum_j e^(m_j - M) acc_j / max(sum_j
+    e^(m_j - M) l_j, 1e-30) over the splits holding a live key. Same
+    arguments and result as ``decode_attention_ref``."""
+    B, N, h = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = N // K
+    ns = -(-S // split)
+    idx = slot_index(index, B, q.device).long()
+    kpos = torch.arange(ns * split, device=q.device)
+    valid = (kpos[None] <= idx[:, None]) & (kpos[None] < S)   # [B, ns*split]
+    if window != GLOBAL_WINDOW:
+        valid &= (idx[:, None] - kpos[None]) < window
+    pad = (0, 0, 0, 0, 0, ns * split - S)
+    kf = torch.nn.functional.pad(k_cache.float(), pad)
+    vf = torch.nn.functional.pad(v_cache.float(), pad)
+    qg = q.float().reshape(B, K, G, h)
+    s = torch.einsum("bkgh,btkh->bkgt", qg, kf) * (1.0 / math.sqrt(h))
+    s = torch.where(valid[:, None, None], s, -1e30)
+    s = s.reshape(B, K, G, ns, split)
+    vmask = valid.reshape(B, 1, 1, ns, split)
+    m = s.amax(-1)                                          # [B,K,G,ns]
+    p = torch.exp(s - m[..., None]) * vmask
+    l = p.sum(-1)
+    v = torch.where(valid[:, :, None, None], vf, 0.0)
+    acc = torch.einsum("bkgjt,bjtkh->bkgjh", p,
+                       v.reshape(B, ns, split, K, h))
+    live = vmask.any(-1)                                    # [B,1,1,ns]
+    big = torch.where(live, m, -1e30).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - big), 0.0)
+    out = (w[..., None] * acc).sum(-2) \
+        / (w * l).sum(-1, keepdim=True).clamp(min=1e-30)
     return out.reshape(B, N, h).to(q.dtype)
 
 
@@ -78,14 +143,14 @@ def kv_batch_stride(k_cache, v_cache) -> int:
     """The slot stride of a cache view whose rows [L,K,h] are contiguous
     (a slice along the sequence axis keeps this layout without a copy)."""
     B, L, K, h = k_cache.shape
-    for t in (k_cache, v_cache):
-        if (t.stride(3), t.stride(2), t.stride(1)) != (1, h, K * h) \
-                or t.stride(0) != k_cache.stride(0):
-            raise ValueError("cache view rows must be contiguous "
-                             "[L,K,h] with one slot stride for K and V")
-        if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
-            raise ValueError("cache view must be 16-byte aligned")
-    return k_cache.stride(0)
+    ks, vs = k_cache.stride(), v_cache.stride()
+    if ks[1:] != (K * h, h, 1) or vs != ks:
+        raise ValueError("cache view rows must be contiguous "
+                         "[L,K,h] with one slot stride for K and V")
+    if (k_cache.data_ptr() | v_cache.data_ptr()
+            | ks[0] * k_cache.element_size()) % 16:
+        raise ValueError("cache view must be 16-byte aligned")
+    return ks[0]
 
 
 def decode_attention(q, k_cache, v_cache, index, *,
@@ -95,21 +160,23 @@ def decode_attention(q, k_cache, v_cache, index, *,
     (each < S). Returns [B,N,h] in q's dtype; head n reads KV head n // G.
     """
     _check(q, k_cache, v_cache)
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, index, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     B, N, h = q.shape
-    S, K = k_cache.shape[1], k_cache.shape[2]
+    _, S, K, _ = k_cache.shape
     q = q.contiguous()
-    idx = slot_index(index, B, q.device)
+    idx = slot_index(index, B, dev)
+    scratch = split_scratch(q, S)
     out = torch.empty_like(q)
     _build.launch("decode_attention_launch", q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), int(q.dtype == torch.bfloat16),
-                  KV_CODES[k_cache.dtype], B, S, N, K, h,
-                  kv_batch_stride(k_cache, v_cache), int(window),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  scratch.data_ptr(), out.data_ptr(),
+                  int(q.dtype == torch.bfloat16), KV_CODES[k_cache.dtype], B,
+                  S, N, K, h, kv_batch_stride(k_cache, v_cache), int(window),
+                  cuda_stream(dev))
     decode_attention.launches += 1
     return out
 

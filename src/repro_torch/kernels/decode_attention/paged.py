@@ -8,7 +8,8 @@ paged_decode_attention_kernel``) for CUDA tensors and runs the plain
 CPU tensors; nothing else chooses between them. The scales' ``ndim``
 selects the variant, as in the reference: none (f32/bf16 pages), ``[P, K]``
 per (page, KV head), or ``[P, page_size, K]`` per row.
-``paged_decode_attention.launches`` counts the kernel's launches.
+``paged_decode_attention.launches`` counts calls of the kernel's C entry,
+which launches the split-key kernel and its combine pass.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from repro_torch.configs.base import GLOBAL_WINDOW
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, MAX_GROUP,
                                                       decode_attention_ref,
-                                                      slot_index)
+                                                      cuda_stream,
+                                                      slot_index,
+                                                      split_scratch)
 
 PAGE_SIZE = 32          # the kernel's tile: one page per tile
 # the kernel's kv_dtype codes; int8/fp8 pages hold codes with f32 scales
@@ -140,33 +143,35 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, index, *,
     Returns [B,N,h] in q's dtype; head n reads KV head n // G. The kernel
     takes page_size 32 only and raises on any other."""
     _check(q, k_pages, v_pages, page_table, k_scales, v_scales)
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         if k_scales is None:
             return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                               index, window)
         return paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scales,
                                                 v_scales, page_table, index,
                                                 window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     B, N, h = q.shape
-    ps, K = k_pages.shape[1], k_pages.shape[2]
+    _, ps, K, _ = k_pages.shape
     if ps != PAGE_SIZE:
         raise ValueError(f"the paged decode kernel takes page_size "
                          f"{PAGE_SIZE} (one page per tile), got {ps}")
     q = q.contiguous()
     pt = page_table.to(torch.int32).contiguous()
-    idx = slot_index(index, B, q.device)
+    idx = slot_index(index, B, dev)
+    scratch = split_scratch(q, pt.shape[1] * ps)
     out = torch.empty_like(q)
     scale_mode = 0 if k_scales is None else k_scales.dim() - 1
     ks = 0 if k_scales is None else _launchable(k_scales, 4)
     vs = 0 if v_scales is None else _launchable(v_scales, 4)
     _build.launch("paged_decode_attention_launch", q.data_ptr(),
                   _launchable(k_pages), _launchable(v_pages), ks, vs,
-                  pt.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                  int(q.dtype == torch.bfloat16), PAGE_CODES[k_pages.dtype],
-                  scale_mode, B, N, K, h, ps, pt.shape[1], int(window),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  pt.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                  out.data_ptr(), int(q.dtype == torch.bfloat16),
+                  PAGE_CODES[k_pages.dtype], scale_mode, B, N, K, h, ps,
+                  pt.shape[1], int(window), cuda_stream(dev))
     paged_decode_attention.launches += 1
     return out
 

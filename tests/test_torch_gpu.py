@@ -6,7 +6,10 @@ machine with the card: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``. Inputs are at the main path's shapes; outputs
 must agree within 1e-2 x max(1, |plain|) (bf16 output rounding and f32
 sums in another order). A paged launch and a dense launch over the same
-rows at page_size 32 must be bit-equal. The grouped-expert kernels run at
+rows at page_size 32 must be bit-equal. The decode kernels, dense and
+paged, also run at granite-moe-3b-a800m's heads (h=64), at h=16, and at
+query groups of 16 and 32; the dense one is also held against the plain
+model of its split. The grouped-expert kernels run at
 granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
 640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
@@ -47,21 +50,51 @@ def _close(got, want):
                  <= 1e-2 * want.float().abs().clamp(min=1)).all())
 
 
+# (index, window) of the decode kernels: the edges of their 128-key splits
+# (127, 128, 255), windows across a split edge (150 and 280 with 64) and
+# shorter than a split (16), per-slot indices with 0
+SPLIT_EDGES = [(0, 0), (127, 0), (128, 0), (255, 0), (511, 0), (831, 0),
+               ((640, 700, 783, 831), 0), ((0, 127, 128, 255), 0),
+               (150, 64), (280, 64), (736, 16), ((0, 150, 280, 831), 64)]
+
+
+# (N, K, h) of the decode kernels' card tests: molmoact-7b's heads (G=7),
+# granite-moe-3b-a800m's (h=64, G=3), the reduced models' h=16, and query
+# groups of 16 and 32, the kernels' wide instantiation (G <= 32)
+HEADS = [(28, 4, 128), (24, 8, 64), (8, 2, 16), (32, 2, 16), (32, 1, 16),
+         (32, 2, 128), (32, 1, 128)]
+
+
+def _slots(index, B, dev):
+    """An index of the tests as the kernel takes it: an int, or a tuple
+    repeated over B slots as an int32 tensor."""
+    if not isinstance(index, tuple):
+        return index
+    return torch.tensor((index * B)[:B], dtype=torch.int32, device=dev)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("kv", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("index", [0, 511, 831, (640, 700, 783, 831)])
-def test_decode_kernel_on_card(index, kv):
+@pytest.mark.parametrize("index,window", SPLIT_EDGES)
+def test_decode_kernel_on_card(index, window, kv, heads):
+    """The split-key kernel and its combine against the plain version and
+    against the plain model of the split (decode_attention_split_ref); the
+    same bits on two calls."""
     dev = _cuda()
+    N, K, h = heads
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(4, 28, 128, generator=g, device=dev).bfloat16()
-    kc = torch.randn(4, 833, 4, 128, generator=g, device=dev).to(kv)
-    vc = torch.randn(4, 833, 4, 128, generator=g, device=dev).to(kv)
-    idx = torch.tensor(index, dtype=torch.int32, device=dev) \
-        if isinstance(index, tuple) else index
-    got = da.decode_attention(q, kc, vc, idx)
-    want = da.decode_attention_ref(q.float(), kc, vc, idx)
+    q = torch.randn(4, N, h, generator=g, device=dev).bfloat16()
+    kc = torch.randn(4, 833, K, h, generator=g, device=dev).to(kv)
+    vc = torch.randn(4, 833, K, h, generator=g, device=dev).to(kv)
+    idx = _slots(index, 4, dev)
+    got = da.decode_attention(q, kc, vc, idx, window=window)
+    again = da.decode_attention(q, kc, vc, idx, window=window)
+    want = da.decode_attention_ref(q.float(), kc, vc, idx, window)
+    split = da.decode_attention_split_ref(q.float(), kc, vc, idx, window)
     torch.cuda.synchronize()
-    assert _close(got, want)
+    assert _close(got, want) and _close(got, split)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -152,12 +185,14 @@ def test_kernels_count_launches_on_card():
     assert [f.launches - n for f, n in zip(counters, before)] == [1] * 4
 
 
-def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2):
+def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2, K=4,
+          h=128):
     """A shuffled, non-contiguous K and V page pool at the serving engine's
-    shapes (B=8 slots, 4 KV heads, h=128, page 32) holding the rows of
-    dense f32 caches [B, npg*32, 4, 128]. ``gran`` is the scale granularity
-    of an int8/fp8 pool, else the storage ("f32" or "bf16"). Returns
-    (dense k, dense v, k pages, v pages, k scales, v scales, table)."""
+    shapes (B=8 slots, page 32; molmoact-7b's 4 KV heads of h=128 unless
+    told) holding the rows of dense f32 caches [B, npg*32, K, h]. ``gran``
+    is the scale granularity of an int8/fp8 pool, else the storage ("f32"
+    or "bf16"). Returns (dense k, dense v, k pages, v pages, k scales, v
+    scales, table)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * npg]
     table = (perm + 1).reshape(B, npg).to(torch.int32)
@@ -165,9 +200,9 @@ def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2):
     store = qd or (torch.float32 if gran == "f32" else torch.bfloat16)
     out = []
     for _ in range(2):
-        dense = torch.randn(B, npg * 32, 4, 128, generator=g, device=dev)
-        pages = torch.zeros(num_pages, 32, 4, 128, dtype=store, device=dev)
-        rows = dense.reshape(B * npg, 32, 4, 128)
+        dense = torch.randn(B, npg * 32, K, h, generator=g, device=dev)
+        pages = torch.zeros(num_pages, 32, K, h, dtype=store, device=dev)
+        rows = dense.reshape(B * npg, 32, K, h)
         scales = None
         if qd is not None:
             rows, sc = kv_quant.quantize_page_rows(rows, qd, gran)
@@ -180,44 +215,64 @@ def _pool(dev, kv_dtype, gran, B=8, npg=27, num_pages=217, seed=2):
 
 
 MIXED = (0, 31, 32, 300, 639, 700, 831, 5)
+EDGES = (0, 127, 128, 255, 256, 150, 280, 831)    # split edges, per slot
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("storage", [("bf16", "f32"), ("bf16", "bf16"),
                                      ("int8", "head"), ("int8", "token"),
                                      ("fp8", "head"), ("fp8", "token")])
-@pytest.mark.parametrize("index", [0, 31, 32, 639, 831, "mixed"])
-def test_paged_kernel_on_card(index, storage):
+@pytest.mark.parametrize("index,window", [
+    (0, 0), (31, 0), (32, 0), (127, 0), (128, 0), (255, 0), (639, 0),
+    (831, 0), ("mixed", 0), ("edges", 0), (150, 64), (280, 64), (736, 16),
+    ("edges", 64)])
+def test_paged_kernel_on_card(index, window, storage, heads):
+    """Every storage type and scale mode against the plain version at the
+    split edges and windows across them; the same bits on two calls."""
     dev = _cuda()
-    _, _, kp, vp, ks, vs, table = _pool(dev, *storage)
-    q = torch.randn(8, 28, 128, generator=torch.Generator(
+    N, K, h = heads
+    _, _, kp, vp, ks, vs, table = _pool(dev, *storage, K=K, h=h)
+    q = torch.randn(8, N, h, generator=torch.Generator(
         device=dev).manual_seed(4), device=dev).bfloat16()
-    idx = (torch.tensor(MIXED, dtype=torch.int32, device=dev)
-           if index == "mixed" else index)
+    idx = (torch.tensor({"mixed": MIXED, "edges": EDGES}[index],
+                        dtype=torch.int32, device=dev)
+           if isinstance(index, str) else index)
     got = pg.paged_decode_attention(q, kp, vp, table, idx, k_scales=ks,
-                                    v_scales=vs)
+                                    v_scales=vs, window=window)
+    again = pg.paged_decode_attention(q, kp, vp, table, idx, k_scales=ks,
+                                      v_scales=vs, window=window)
     if ks is None:
-        want = pg.paged_decode_attention_ref(q.float(), kp, vp, table, idx)
+        want = pg.paged_decode_attention_ref(q.float(), kp, vp, table, idx,
+                                             window)
     else:
         want = pg.paged_decode_attention_quant_ref(q.float(), kp, vp, ks, vs,
-                                                   table, idx)
+                                                   table, idx, window)
     torch.cuda.synchronize()
-    assert _close(got, want)
+    assert _close(got, want) and torch.equal(got, again)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("store", ["f32", "bf16"])
-@pytest.mark.parametrize("window", [0, 64])
-def test_paged_kernel_bit_equal_to_dense_on_card(store, window):
-    """At page_size 32 a paged launch runs the dense kernel's tile body on
-    the same rows in the same order: the outputs are bit-equal."""
+@pytest.mark.parametrize("window", [0, 64, 16])
+@pytest.mark.parametrize("length", [864, 833])
+@pytest.mark.parametrize("index", [MIXED, EDGES])
+def test_paged_kernel_bit_equal_to_dense_on_card(store, window, length,
+                                                 index, heads):
+    """At page_size 32 a paged launch runs the dense kernel's split body on
+    the same rows in the same order: the outputs are bit-equal, also
+    against a dense cache of another length (833 rows against the pool's
+    27 pages of 32)."""
     dev = _cuda()
-    dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", store)
-    q = torch.randn(8, 28, 128, generator=torch.Generator(
+    N, K, h = heads
+    dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", store, K=K, h=h)
+    q = torch.randn(8, N, h, generator=torch.Generator(
         device=dev).manual_seed(6), device=dev).bfloat16()
-    idx = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
     a = pg.paged_decode_attention(q, kp, vp, table, idx, window=window)
-    b = da.decode_attention(q, dk, dv, idx, window=window)
+    b = da.decode_attention(q, dk[:, :length], dv[:, :length], idx,
+                            window=window)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 

@@ -8,6 +8,9 @@ bf16 the same way (round to nearest even), and q stays f32, so the
 comparisons are f32 at 1e-5. The CUDA kernels themselves are held to the
 plain versions on the card by ``test_torch_gpu.py``.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +20,12 @@ from repro.kernels.chunk_prefill import chunk_prefill_attention as jcp
 from repro.kernels.chunk_prefill import ref as jcref
 from repro.kernels.decode_attention import decode_attention as jda
 from repro.kernels.decode_attention import ref as jdref
+from repro.kernels.decode_attention.paged import \
+    paged_decode_attention_kernel as jpda
 from repro.models import layers as JL
 from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.models import layers as TL
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -74,6 +80,91 @@ def test_decode_plain_matches_reference(B, S, N, K, h, index, window, bk,
     jcore = JL.attention_decode(jq[:, None], jk, jv, ji, window)[:, 0]
     np.testing.assert_allclose(core.numpy(), np.asarray(jcore), **TOL)
     np.testing.assert_allclose(core.numpy(), got, **TOL)
+
+
+# the CUDA decode kernels' split of the key axis (SPLIT = 128 absolute
+# positions a block), modelled by decode_attention_split_ref
+L = da.SPLIT
+SPLIT_CASES = [
+    # B, S, N, K, h, index, window, split
+    (1, 300, 7, 1, 16, L - 1, 0, L),           # the last key of split 0
+    (1, 300, 7, 1, 16, L, 0, L),               # the first key of split 1
+    (1, 300, 7, 1, 128, 2 * L - 1, 0, L),      # the last key of split 1
+    (2, 300, 2, 2, 128, (150, 280), 64, L),    # windows across L and 2L, G=1
+    (2, 300, 14, 2, 16, (130, 299), 16, L),    # a window shorter than a split
+    (4, 260, 7, 1, 16, (0, L - 1, L, 259), 0, L),  # per-slot, with 0
+    (3, 260, 4, 4, 128, (0, 200, 2 * L - 1), 100, L),  # G=1, window and 0
+    (2, 100, 14, 2, 16, (31, 64), 40, 32),     # a split of one tile
+]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+@pytest.mark.parametrize("B,S,N,K,h,index,window,split", SPLIT_CASES)
+def test_decode_split_plain_matches_reference(B, S, N, K, h, index, window,
+                                              split, kv):
+    """Per-split partials on absolute positions, then the combine, agree
+    with the reference's oracle and its Pallas kernel (interpret mode)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B * S + h + split, (B, N, h),
+                                         (B, S, K, h), kv)
+    ji, ti = _index(index)
+    got = da.decode_attention_split_ref(tq, tk, tv, ti, window,
+                                        split).numpy()
+    oracle = jdref.decode_attention_ref(jq, jk, jv, ji, window=window)
+    pallas = jda(jq, jk, jv, ji, window=window, bk=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+@pytest.mark.parametrize("S,npg,index,window", [
+    (120, 5, (0, 119), 0),         # one split dense, two in the pool
+    (250, 9, (L - 1, 249), 64),    # a window across L
+    (200, 7, (L, 199), 16),        # a window shorter than a split
+])
+def test_decode_split_plain_paged_gather(S, npg, index, window, kv):
+    """The split model over a page pool of npg pages of 32 (npg * 32 != S
+    rows, shuffled, zero past each slot's S rows) agrees with the
+    reference's dense oracle and its paged Pallas kernel (interpret mode),
+    and with the split model over the dense cache."""
+    B, N, K, h, ps = 2, 14, 2, 16, 32
+    (jq, jk, jv), (tq, tk, tv) = _inputs(S + npg, (B, N, h), (B, S, K, h),
+                                         kv)
+    rng = np.random.default_rng(S)
+    table = (rng.permutation(B * npg) + 1).reshape(B, npg).astype(np.int32)
+    pools = []
+    for t in (tk, tv):
+        rows = np.zeros((B, npg * ps, K, h), np.float32)
+        rows[:, :S] = t.float().numpy()
+        pages = np.zeros((1 + B * npg, ps, K, h), np.float32)
+        pages[table.reshape(-1)] = rows.reshape(B * npg, ps, K, h)
+        pools.append(pages)
+    jt, tt = KV_TYPES[kv]
+    (jkp, jvp), (tkp, tvp) = [[jnp.asarray(p, jt) for p in pools],
+                              [torch.from_numpy(p).to(tt) for p in pools]]
+    ji, ti = _index(index)
+    tab = torch.from_numpy(table)
+    got = da.decode_attention_split_ref(
+        tq, pg.gather_pages(tkp, tab), pg.gather_pages(tvp, tab), ti,
+        window).numpy()
+    oracle = jdref.decode_attention_ref(jq, jk, jv, ji, window=window)
+    pallas = jpda(jq, jkp, jvp, jnp.asarray(table), ji, window=window,
+                  interpret=True)
+    dense = da.decode_attention_split_ref(tq, tk, tv, ti, window).numpy()
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got, dense, **TOL)
+
+
+def test_decode_split_matches_kernel_source():
+    """The wrappers size the kernels' scratch from ``SPLIT``; the C entries
+    write ceil(length / SPLIT) partials a (slot, head) from the kernels'
+    own SPLIT = SPLIT_TILES * TK: the two must agree."""
+    src = (Path(da.__file__).parent / "csrc" / "decode_tile.cuh").read_text()
+    tiles, tk = (int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("SPLIT_TILES", "TK"))
+    assert re.search(r"constexpr int SPLIT = SPLIT_TILES \* TK;", src)
+    assert tiles * tk == da.SPLIT
 
 
 CHUNK_CASES = [
