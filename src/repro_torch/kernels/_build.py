@@ -50,8 +50,8 @@ SIGNATURES = {
     # stream
     "paged_chunk_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, wi, wg, h, bf16, act, E, C, D, F, stream
-    "gmm_gated_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, wi, wg, h, bf16, act, E, C, D, F, rows, stream
+    "gmm_gated_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # h, wo, y, bf16, E, C, F, D, stream
     "gmm_down_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, dt, a_log, b, c, y, state, bf16, B, S, H, P, N, Q, stream

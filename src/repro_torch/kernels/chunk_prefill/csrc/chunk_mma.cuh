@@ -3,9 +3,9 @@
 // (chunk_prefill.cu; paged_chunk_kernel.cuh for bf16 pages), as the TPU
 // kernels share _chunk_prefill_body
 // (src/repro/kernels/chunk_prefill/chunk_prefill.py). Every other pairing
-// of q and storage types keeps the CUDA-core body, chunk_tile.cuh.
+// of q and storage types takes the 3xTF32 body, chunk_tf32.cuh.
 //
-// The function is chunk_tile.cuh's: S queries at absolute positions
+// The function is chunk_tf32.cuh's: S queries at absolute positions
 // idx .. idx+S-1 attend to the key positions kpos <= qpos (and
 // qpos - kpos < window when a window is set); query head n reads KV head
 // n / G. Design, for the H100's tensor cores:
@@ -21,8 +21,8 @@
 //   cp.async into a 2-stage ring in shared memory, the next block in
 //   flight while this one is computed; rows are padded by 16 bytes so
 //   that the 8 rows an ldmatrix reads fall on distinct banks. A block is
-//   two 32-row halves, each fetched through Src as chunk_tile.cuh's 32-row
-//   blocks are, so a page of 32 rows is half a block and a paged launch
+//   two 32-row halves, each fetched through Src as chunk_tf32.cuh's
+//   halves are, so a page of 32 rows is half a block and a paged launch
 //   runs the same instructions on the same values as a dense one.
 // - S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 sums); the online
 //   softmax on the score fragments, in base 2 (the scale carries log2 e),
@@ -81,7 +81,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Src: where a 32-row half of the key block starting at t0 begins, rows
-// row_stride elements apart (chunk_tile.cuh's Src, unscaled):
+// row_stride elements apart (chunk_tf32.cuh's Src, unscaled):
 //   const bf16* k(int t0), v(int t0)
 // q, out: [B,S,N,H]; this block's rows s0 .. s0+63 of head n of slot b;
 // idx: the slot's chunk start; L: the key positions the view holds.

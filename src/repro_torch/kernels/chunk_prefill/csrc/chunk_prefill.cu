@@ -13,25 +13,29 @@
 // 4*h*(S*(S+1)/2)*B*N = 11.8 GFLOP against 42 MB moved (q and out, the
 // view once), ~280 operations per byte: at the card's bf16 ridge (~295),
 // so bytes and operations bound it about equally (12 us), and only the
-// tensor cores reach that rate. So bf16 q over a bf16 view takes the
-// tensor-core body (chunk_mma.cuh): 64-row query tiles held as mma.sync
-// fragments, 64-key blocks of K and V through a 2-stage cp.async ring,
-// the online softmax on the score fragments and P V from bf16 P in
-// registers. The serving engine's f32 views (and an f32 q) keep the
-// CUDA-core body (chunk_tile.cuh): one block per (32-row query tile, query
-// head, slot), f32 FMAs, ~53 KB of dynamic shared memory for an f32 tile
-// pair.
+// tensor cores reach that rate. Both bodies are tensor-core bodies on
+// 64-row query tiles held as mma.sync fragments and 64-key blocks of K
+// and V through a 2-stage cp.async ring, the online softmax on the score
+// fragments:
+// - bf16 q over a bf16 view (chunk_mma.cuh): bf16 products, P V from P
+//   rounded to bf16 in registers.
+// - every other pairing (chunk_tf32.cuh): an f32 view (the serving
+//   engine's caches, with an f32 or bf16 q), or a bf16 view with an f32
+//   q. 3xTF32 products, as exact as f32: at the engines' admission prefill
+//   (B = 1, S = 640) the causal work is 2.94 GFLOP, 0.044 ms on the f32
+//   CUDA cores, 0.018 ms as three TF32 products a product at the tensor
+//   cores' dense TF32 peak.
 //
-// Both bodies walk key blocks on the absolute partition from position 0
-// (64 keys in the tensor-core body, 32 in the other), so a row's result
-// does not depend on the chunking: the chunking-invariance contract of
-// the TPU kernel holds bit for bit within each body.
+// Both bodies walk key blocks of 64 on the absolute partition from
+// position 0, so a row's result does not depend on the chunking: the
+// chunking-invariance contract of the TPU kernel holds bit for bit within
+// each body.
 #include "chunk_mma.cuh"
-#include "chunk_tile.cuh"
+#include "chunk_tf32.cuh"
 
 namespace {
 
-using namespace chunk_tile;
+constexpr int PREFILL_BAND = 32;   // the wrapper's bk: two halves a block
 
 template <typename TKV>
 struct DenseSrc {
@@ -44,17 +48,19 @@ struct DenseSrc {
   __device__ float v_scale(int, int) const { return 1.f; }
 };
 
+// every pairing but bf16 over bf16: the 3xTF32 body, tiles heaviest first
 template <int H, typename TKV, typename T>
-__global__ void __launch_bounds__(NT) chunk_kernel(
+__global__ void __launch_bounds__(chunk_tf32::NT, 1) chunk_tf32_kernel(
     const T* __restrict__ q, const TKV* __restrict__ k,
     const TKV* __restrict__ v, const int* __restrict__ index,
     T* __restrict__ out, int S, int L, int N, int K, long long kv_bstride,
     int window) {
-  const int n = blockIdx.y, b = blockIdx.z;
+  const int n = blockIdx.x, b = blockIdx.y;
   const size_t off = b * kv_bstride + (size_t)(n / (N / K)) * H;
   const DenseSrc<TKV> src{k + off, v + off, (size_t)K * H};
-  chunk_rows<H, TKV, SCALE_NONE, T>(q, out, S, L, N, K, index[b], window,
-                                    src);
+  chunk_tf32::chunk_rows<H, TKV, chunk_tf32::SCALE_NONE>(
+      q, out, S, L, N, chunk_tf32::tile_row(), n, b, index[b], window,
+      (size_t)K * H, src);
 }
 
 // bf16 q over a bf16 view: the tensor-core body, tiles heaviest first
@@ -113,12 +119,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* index, void* out, int B, int S, int L, int N,
                    int K, long long kv_bstride, int window,
                    cudaStream_t stream) {
-  const auto kernel = chunk_kernel<H, TKV, T>;
-  constexpr size_t bytes = Layout<H, TKV>::BYTES;
+  const auto kernel = chunk_tf32_kernel<H, TKV, T>;
+  constexpr size_t bytes = chunk_tf32::Layout<H, TKV>::BYTES;
   static const cudaError_t setup = decode_tile::allow_smem(kernel, bytes);
   if (setup != cudaSuccess) return setup;
-  const dim3 grid((S + BQ - 1) / BQ, N, B);
-  kernel<<<grid, NT, bytes, stream>>>(
+  const dim3 grid(N, B, (S + chunk_tf32::BQ - 1) / chunk_tf32::BQ);
+  kernel<<<grid, chunk_tf32::NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(index),
       static_cast<T*>(out), S, L, N, K, kv_bstride, window);
@@ -170,8 +176,8 @@ extern "C" int chunk_prefill_launch(const void* q, const void* k,
                                     int B, int S, int L, int N, int K, int h,
                                     int bk, long long kv_bstride, int window,
                                     void* stream) {
-  if (B <= 0 || S <= 0 || L <= 0 || K <= 0 || N % K != 0 || bk != BK ||
-      N > 65535 || B > 65535)
+  if (B <= 0 || S <= 0 || L <= 0 || K <= 0 || N % K != 0 ||
+      bk != PREFILL_BAND || N > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {

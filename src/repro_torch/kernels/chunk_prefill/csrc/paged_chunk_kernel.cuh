@@ -1,26 +1,33 @@
 // The paged chunk-prefill kernel as a template, and its dispatch over head
-// dim and q type, shared by the sources that instantiate it: one source
-// per page storage type, so that nvcc builds them in parallel
+// dim, scale mode and q type, shared by the sources that instantiate it:
+// one source per page storage type, so that nvcc builds them in parallel
 // (paged_chunk_prefill.cu: f32 and bf16 pages and the C entry;
-// paged_chunk_int8.cu; paged_chunk_fp8.cu).
+// paged_chunk_int8.cu; paged_chunk_fp8.cu). The body is chunk_tf32.cuh's
+// (3xTF32 on the tensor cores), with a page as half of its 64-key block;
+// bf16 q over bf16 pages takes chunk_mma.cuh's instead
+// (paged_chunk_prefill.cu).
 #pragma once
 
-#include "chunk_tile.cuh"
+#include "chunk_tf32.cuh"
 
 namespace paged_chunk {
 
-using namespace chunk_tile;
+using chunk_tf32::SCALE_HEAD;
+using chunk_tf32::SCALE_NONE;
+using chunk_tf32::SCALE_TOKEN;
+
+constexpr int PAGE = chunk_tf32::HALF;   // rows a page: half a key block
 
 template <typename TKV, int SC>
 struct PagedSrc {
   const TKV* kp;               // KV head kh of page 0, row 0
   const TKV* vp;
   const int* pt;               // this slot's page-table row
-  size_t page_stride;          // elements per page: BK * K * H
+  size_t page_stride;          // elements per page: PAGE * K * H
   const float* ks;             // scales (SC != SCALE_NONE)
   const float* vs;
   int K, kh;
-  __device__ int page(int t0) const { return pt[t0 / BK]; }
+  __device__ int page(int t0) const { return pt[t0 / PAGE]; }
   __device__ const TKV* k(int t0) const {
     return kp + (size_t)page(t0) * page_stride;
   }
@@ -29,26 +36,27 @@ struct PagedSrc {
   }
   __device__ size_t scale_at(int t0, int r) const {
     return SC == SCALE_HEAD ? (size_t)page(t0) * K + kh
-                            : ((size_t)page(t0) * BK + r) * K + kh;
+                            : ((size_t)page(t0) * PAGE + r) * K + kh;
   }
   __device__ float k_scale(int t0, int r) const { return ks[scale_at(t0, r)]; }
   __device__ float v_scale(int t0, int r) const { return vs[scale_at(t0, r)]; }
 };
 
 template <int H, typename TKV, int SC, typename T>
-__global__ void __launch_bounds__(NT) paged_chunk_kernel(
+__global__ void __launch_bounds__(chunk_tf32::NT, 1) paged_chunk_kernel(
     const T* __restrict__ q, const TKV* __restrict__ kp,
     const TKV* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ page_table,
     const int* __restrict__ index, T* __restrict__ out, int S, int N, int K,
     int npg, int window) {
-  const int n = blockIdx.y, b = blockIdx.z;
+  const int n = blockIdx.x, b = blockIdx.y;
   const int kh = n / (N / K);
   const PagedSrc<TKV, SC> src{kp + (size_t)kh * H, vp + (size_t)kh * H,
                               page_table + (size_t)b * npg,
-                              (size_t)BK * K * H, ks, vs, K, kh};
-  chunk_rows<H, TKV, SC, T>(q, out, S, npg * BK, N, K, index[b], window,
-                            src);
+                              (size_t)PAGE * K * H, ks, vs, K, kh};
+  chunk_tf32::chunk_rows<H, TKV, SC>(q, out, S, npg * PAGE, N,
+                                     chunk_tf32::tile_row(), n, b, index[b],
+                                     window, (size_t)K * H, src);
 }
 
 struct Args {
@@ -61,11 +69,11 @@ struct Args {
 template <int H, typename TKV, int SC, typename T>
 cudaError_t go(const Args& a) {
   const auto kernel = paged_chunk_kernel<H, TKV, SC, T>;
-  constexpr size_t bytes = Layout<H, TKV>::BYTES;
+  constexpr size_t bytes = chunk_tf32::Layout<H, TKV>::BYTES;
   static const cudaError_t setup = decode_tile::allow_smem(kernel, bytes);
   if (setup != cudaSuccess) return setup;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.N, a.B);
-  kernel<<<grid, NT, bytes, a.stream>>>(
+  const dim3 grid(a.N, a.B, (a.S + chunk_tf32::BQ - 1) / chunk_tf32::BQ);
+  kernel<<<grid, chunk_tf32::NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),

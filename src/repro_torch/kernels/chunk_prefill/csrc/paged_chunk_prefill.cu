@@ -13,15 +13,16 @@
 // What bounds it on the H100: at the serving engine's last chunk of a
 // 640-position prompt (S = 128 from 512, 20 live pages, N = 28, K = 4,
 // h = 128, f32 pages) the causal work is 4*h*N*sum(pos+1) = 1.06 GFLOP
-// against ~6.3 MB moved: the operations bound it, ~16 us on the f32 CUDA
-// cores. Design answer: the dense chunk kernel's tile body
-// (chunk_tile.cuh) with a page as its key block (page_size must be 32, the
-// prefill band), so a paged launch is bit-equal to a dense launch over the
-// same rows and keeps the chunking-invariance contract; blocks past the
-// live band or older than the window are never read, codes are widened
-// and scaled in registers, on the f32 CUDA cores. bf16 q over bf16 pages
-// takes the dense kernel's tensor-core body (chunk_mma.cuh) instead, whose
-// 64-key blocks are two pages: paged = dense bit for bit holds there too.
+// against ~6.3 MB moved: the operations bound it, 16 us on the f32 CUDA
+// cores, 6.4 us as 3xTF32 at the tensor cores' dense TF32 peak. Design
+// answer: the dense chunk kernel's bodies with a page as half of their
+// 64-key block (page_size must be 32, the prefill band), so a paged launch
+// is bit-equal to a dense launch over the same rows and keeps the
+// chunking-invariance contract; blocks past the live band or older than
+// the window are never read. f32, int8 and fp8 pages (and bf16 pages with
+// an f32 q) take the 3xTF32 body (chunk_tf32.cuh): codes are widened to
+// f32 and multiplied by their scale as they are staged. bf16 q over bf16
+// pages takes the bf16 body (chunk_mma.cuh).
 #include "chunk_mma.cuh"
 #include "paged_chunk_kernel.cuh"
 
@@ -39,8 +40,8 @@ __global__ void __launch_bounds__(chunk_mma::NT, 2) paged_chunk_mma_kernel(
   const int kh = n / (N / K);
   const PagedSrc<__nv_bfloat16, SCALE_NONE> src{
       kp + (size_t)kh * H, vp + (size_t)kh * H, page_table + (size_t)b * npg,
-      (size_t)BK * K * H, nullptr, nullptr, K, kh};
-  chunk_mma::chunk_rows<H>(q, out, S, npg * BK, N, chunk_mma::tile_row(), n,
+      (size_t)PAGE * K * H, nullptr, nullptr, K, kh};
+  chunk_mma::chunk_rows<H>(q, out, S, npg * PAGE, N, chunk_mma::tile_row(), n,
                            b, index[b], window, (size_t)K * H, src);
 }
 
@@ -83,7 +84,7 @@ extern "C" int paged_chunk_prefill_launch(
     int B, int S, int N, int K, int h, int page_size, int npg, int window,
     void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || npg <= 0 || N % K != 0 ||
-      page_size != BK || N > 65535 || B > 65535)
+      page_size != PAGE || N > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q,  k_pages, v_pages, k_scales, v_scales, page_table, index,
                out, B,      S,       N,        K,        npg,        window,

@@ -1,7 +1,7 @@
 // The split-key ("flash-decoding") body shared by the dense and the paged
 // decode kernels (decode_attention.cu, paged_kernel.cuh), and the pass
 // that combines its splits; also the conversions and warp reductions the
-// other attention bodies (chunk_tile.cuh, flash_attention.cu) take from
+// other attention bodies (chunk_tf32.cuh, flash_attention.cu) take from
 // here.
 //
 // What bounds decode on the H100: bytes. A call reads the live part of the
@@ -65,7 +65,6 @@
 
 namespace decode_tile {
 
-constexpr int NT = 128;        // threads per block of chunk_tile.cuh's body
 constexpr int TK = 32;         // keys per tile (= page size): one per lane
 constexpr int GMAX = 32;       // most query heads per KV group
 constexpr float NEG_INF = -1e30f;

@@ -1,6 +1,7 @@
 // The bf16 grouped expert down-projection on the tensor cores, for Hopper
 // (sm_90a): gmm_down_launch (moe_gmm.cu) hands every bf16 launch here;
-// f32 gmm_down and both types of gmm_gated keep gmm_kernel.
+// f32 gmm_down keeps gmm_kernel. The tiles, the ring and the epilogue are
+// gmm_tc.cuh's, shared with the bf16 gmm_gated (gmm_gated_tc.cu).
 //
 // Replaces, for bf16, the TPU kernel gmm_down
 // (src/repro/kernels/moe_gmm/moe_gmm.py, body _down_kernel):
@@ -38,159 +39,26 @@
 //   call. The sums go out through a free ring slot, 64 rows at a time,
 //   as 16-byte stores; rows past C and columns past D are zeros in the
 //   tiles and never written (D and F need only be multiples of 8).
-#include "../../chunk_prefill/csrc/tc_util.cuh"
-#include "../../chunk_prefill/csrc/wgmma_bf16.cuh"
+#include "gmm_tc.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 256;          // threads: two warpgroups
-constexpr int BM = 128;          // columns of wo per tile: 64 a warpgroup
-constexpr int BK = 64;           // contraction depth per stage
-constexpr int NMAX = 256;        // capacity rows per pass
-constexpr int STAGES = 4;        // weight ring
-constexpr size_t SMEM_MAX = 232448;          // a block's opt-in maximum
-constexpr size_t W_TILE = (size_t)BK * BM;   // elements of a weight stage
-
-// h as planes of 8 contraction columns, [np + 1][8] each (the spare row
-// puts the 8 planes a warp's 16-byte copies hit on distinct banks)
-__host__ __device__ constexpr int plane(int np) { return (np + 1) * 8; }
-
-// the weight tile rows k0 .. k0+63, columns d0 .. d0+127, 16-byte chunk c
-// of row r at chunk c ^ (r % 8): the 8 rows an ldmatrix reads fall on
-// distinct banks; past F or D, zeros
-__device__ __forceinline__ void load_w(bf16* ws, const bf16* we, int k0,
-                                       int d0, int F, int D) {
-  for (int c = threadIdx.x; c < BK * BM / 8; c += NT) {
-    const int r = c / (BM / 8), ch = c % (BM / 8);
-    const bool ok = k0 + r < F && d0 + ch * 8 < D;
-    tc::cp_async16(ws + r * BM + (ch ^ (r & 7)) * 8,
-                   ok ? we + (size_t)(k0 + r) * D + d0 + ch * 8 : we, ok);
-  }
-}
-
-// h rows 0 .. np-1, contraction columns k0 .. k0+63, into the 8 planes
-// from hp; rows past `rows` and columns past F are zeros
-template <int NP>
-__device__ __forceinline__ void load_h(bf16* hp, const bf16* he, int k0,
-                                       int rows, int F) {
-  for (int c = threadIdx.x; c < NP * (BK / 8); c += NT) {
-    const int r = c >> 3, k8 = c & 7;
-    const bool ok = r < rows && k0 + k8 * 8 < F;
-    tc::cp_async16(hp + k8 * plane(NP) + r * 8,
-                   ok ? he + (size_t)r * F + k0 + k8 * 8 : he, ok);
-  }
-}
-
-// the weights as wgmma A fragments: warp wq of group wg takes columns
-// wg * 64 + wq * 16 .. +15, for each 16-deep step of the stage
-__device__ __forceinline__ void load_a(uint32_t (&a)[BK / 16][4],
-                                       const bf16* ws) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ch = warp * 2 + ((lane >> 3) & 1);   // (wg*64 + wq*16) / 8
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks)
-    tc::ldsm_x4_trans(a[ks], ws + (ks * 16 + (lane >> 4) * 8 + (lane & 7)) *
-                                      BM +
-                                  (ch ^ (lane & 7)) * 8);
-}
-
-// the stage's products: acc += W^T (a) x h^T (the planes from hp)
-template <int NP>
-__device__ __forceinline__ void mma_stage(float* acc,
-                                          const uint32_t (&a)[BK / 16][4],
-                                          const bf16* hp) {
-  tc::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks)
-    tc::Wgmma<NP>::run(acc, a[ks],
-                       tc::wgmma_desc(hp + 2 * ks * plane(NP),
-                                      plane(NP) * 2, 128));
-  tc::wgmma_commit();
-}
-
-// y rows c0 .. c0+rows-1, columns d0 .. d0+127 from the sums, zeroing
-// them; through ys (64 x 128 elements of shared memory, no longer read),
-// 64 rows at a time in bf16, then 16-byte rows of y. Every thread calls it.
-template <int NP>
-__device__ __forceinline__ void store_y(float* acc, bf16* ys, bf16* y,
-                                        int c0, int rows, int d0, int D) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m = warp * 16 + (lane >> 2);       // column (and m + 8)
-  const int c2 = (lane & 3) * 2;
-  __syncthreads();
-#pragma unroll
-  for (int rd = 0; rd < (NP + 63) / 64; ++rd) {
-#pragma unroll
-    for (int b = 0; b < 8 && 8 * (8 * rd + b) < NP; ++b)   // 8-row blocks
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {    // row + q % 2, column + 8 (q / 2)
-        const int r = 8 * b + c2 + (q & 1), col = m + 8 * (q >> 1);
-        float& v = acc[4 * (8 * rd + b) + q];
-        ys[r * BM + (((col >> 3) ^ (r & 7)) << 3) + (col & 7)] =
-            __float2bfloat16_rn(v);
-        v = 0.f;
-      }
-    __syncthreads();
-    for (int c = threadIdx.x; c < 64 * (BM / 8); c += NT) {
-      const int r = c / (BM / 8), ch = c % (BM / 8);
-      if (64 * rd + r < rows && d0 + ch * 8 < D)
-        *reinterpret_cast<uint4*>(y + (size_t)(c0 + 64 * rd + r) * D + d0 +
-                                  ch * 8) =
-            *reinterpret_cast<const uint4*>(ys + r * BM +
-                                            ((ch ^ (r & 7)) << 3));
-    }
-    __syncthreads();
-  }
-}
+using namespace gmm_tc;
 
 // Streaming: one block per (column tile, expert, pass of NP rows); the
 // weights and h stage by stage through a 4-stage ring.
 template <int NP>
-constexpr size_t stream_bytes() {
-  return STAGES * (W_TILE + 8 * (size_t)plane(NP)) * sizeof(bf16);
-}
-
-template <int NP>
 __global__ void __launch_bounds__(NT) gmm_down_stream_kernel(
     const bf16* __restrict__ h, const bf16* __restrict__ wo,
     bf16* __restrict__ y, int C, int F, int D) {
-  constexpr int SB = (int)W_TILE + 8 * plane(NP);   // elements per stage
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int d0 = blockIdx.x * BM, e = blockIdx.y, c0 = blockIdx.z * NP;
   const int rows = min(NP, C - c0);
-  const bf16* he = h + ((size_t)e * C + c0) * F;
   const bf16* we = wo + (size_t)e * F * D;
-  const int nk = (F + BK - 1) / BK;
-  auto load = [&](int kt) {
-    bf16* ws = ring + (kt % STAGES) * SB;
-    load_w(ws, we, kt * BK, d0, F, D);
-    load_h<NP>(ws + W_TILE, he, kt * BK, rows, F);
-  };
-
   float acc[NP / 2];
-#pragma unroll
-  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s);
-    tc::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    tc::cp_async_wait<STAGES - 2>();           // stage kt arrived
-    tc::fence_proxy_async();                   // ... for wgmma's reads
-    __syncthreads();                           // and stage kt-1 is free
-    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
-    tc::cp_async_commit();
-    const bf16* ws = ring + (kt % STAGES) * SB;
-    uint32_t a[BK / 16][4];
-    load_a(a, ws);
-    mma_stage<NP>(acc, a, ws + W_TILE);
-    tc::wgmma_wait<0>();
-  }
-  tc::cp_async_wait<0>();
+  stream_sum<NP, false>(acc, ring, we, we, h + ((size_t)e * C + c0) * F,
+                        rows, d0, F, D);
   store_y<NP>(acc, ring, y + (size_t)e * C * D, c0, rows, d0, D);
 }
 
@@ -220,8 +88,10 @@ __global__ void __launch_bounds__(NT) gmm_down_res_kernel(
   bf16* ring = hres + (size_t)nk * 8 * plane(NP);
   auto load = [&](int t) {
     const int k0 = (t % nk) * BK;
-    load_w(ring + (t % STAGES) * W_TILE, we, k0, (ct0 + t / nk) * BM, F, D);
-    if (t < nk) load_h<NP>(hres + (size_t)(k0 / 8) * plane(NP), he, k0, C, F);
+    load_w<false>(ring + (t % STAGES) * W_TILE, we, we, k0,
+                  (ct0 + t / nk) * BM, F, D);
+    if (t < nk)
+      load_act<NP>(hres + (size_t)(k0 / 8) * plane(NP), he, k0, C, F);
   };
 
   float acc[NP / 2];

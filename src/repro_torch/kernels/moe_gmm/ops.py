@@ -1,10 +1,12 @@
 """Grouped expert MLP: the wrappers of the CUDA kernels and their plain
 versions.
 
-``gmm_gated`` and ``gmm_down`` launch ``csrc/moe_gmm.cu`` (which replaces
-the TPU kernels ``repro/kernels/moe_gmm/moe_gmm.py: gmm_gated`` and
-``gmm_down``) for CUDA tensors and run ``gmm_gated_ref`` /
-``gmm_down_ref`` for CPU tensors; nothing else chooses between them.
+``gmm_gated`` and ``gmm_down`` launch the C entries of ``csrc/moe_gmm.cu``
+(which replace the TPU kernels ``repro/kernels/moe_gmm/moe_gmm.py:
+gmm_gated`` and ``gmm_down``; bf16 runs on the tensor cores,
+``csrc/gmm_gated_tc.cu`` and ``csrc/gmm_down_tc.cu``) for CUDA tensors and
+run ``gmm_gated_ref`` / ``gmm_down_ref`` for CPU tensors; nothing else
+chooses between them.
 ``gmm_gated.launches`` and ``gmm_down.launches`` count the kernels'
 launches. The Pallas calls' block sizes and ``interpret`` flag have no
 counterpart: the kernels tile themselves and the device picks the path.
@@ -17,6 +19,17 @@ from repro_torch.kernels import _build
 
 ACTS = {"silu": 0, "gelu": 1, "gelu_plain": 2}   # the kernels' act codes
 DTYPES = (torch.float32, torch.bfloat16)
+# rows of C one block of the bf16 gmm_gated covers (wgmma's N): its
+# instantiations in csrc/gmm_gated_tc.cu
+GATED_ROWS = (32, 64, 128, 160, 256)
+
+
+def gated_rows(C: int) -> int:
+    """The rows per pass the bf16 ``gmm_gated`` kernel takes for capacity
+    ``C``: the smallest instantiation that holds C, so that C <= 256 runs
+    in one pass and reads each weight byte once; a larger C takes
+    ceil(C / 256) passes of 256 rows."""
+    return next((r for r in GATED_ROWS if C <= r), GATED_ROWS[-1])
 
 
 def _act_f32(h, g, act: str):
@@ -95,6 +108,7 @@ def gmm_gated(x, wi, wg, *, act: str = "silu"):
         _build.launch("gmm_gated_launch", x.data_ptr(), wi.data_ptr(),
                       wg.data_ptr(), out.data_ptr(),
                       int(x.dtype == torch.bfloat16), ACTS[act], E, C, D, F,
+                      gated_rows(C),
                       torch.cuda.current_stream(x.device).cuda_stream)
         gmm_gated.launches += 1
     return out

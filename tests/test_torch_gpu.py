@@ -14,11 +14,15 @@ granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
 640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
 (H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows and
-at one chunk or less, and at the reduced models' width. The bf16 chunk
-kernel (tensor cores) and the bf16 gmm_down (tensor cores) also run at
-the edges of their tiles: ragged S and L, every head dim, G = 1, 4, 7, a
-window crossing tile edges, capacities off their row tiles and past one
-pass, widths off the 64-wide tiles. The flash
+at one chunk or less, and at the reduced models' width. Both chunk bodies
+(bf16 and 3xTF32, tensor cores) and the bf16 gmm_gated and gmm_down
+(tensor cores) also run at the edges of their tiles: ragged S and L,
+every head dim, G = 1, 4, 7, windows crossing tile and block edges and
+shorter than a block, capacities off their row tiles and past one pass,
+widths off the 64-wide tiles. The 3xTF32 body (every pairing of q and
+storage but bf16 over bf16) with an f32 q is held to 1e-4 x max(1,
+|plain|), dense and paged, for every page type and scale mode, and is
+chunking-invariant and paged = dense bit for bit too. The flash
 kernel runs at smollm-135m's and molmoact-7b's heads in f32 and bf16
 against the plain version on the inputs taken to f32 (the function it
 computes from either type), its backward against autograd through the
@@ -368,6 +372,132 @@ def test_paged_chunk_kernel_rejects_other_page_sizes_on_card():
         pcp.paged_chunk_prefill_attention(q, pages, pages, table, 3)
 
 
+def _close_f32(got, want):
+    """The 3xTF32 chunk body's bound: as exact as f32 sums in another
+    order, 1e-4 x max(1, |plain|)."""
+    return bool(((got.float() - want.float()).abs()
+                 <= 1e-4 * want.float().abs().clamp(min=1)).all())
+
+
+# (B, S, L, N, K, h, start, window) for the 3xTF32 body (f32 q over an
+# f32 view): every head dim, G = 1, 4 and 7, S and L off its 64-row tiles
+# and 64-key blocks, per-slot starts, windows across a 64-key block edge
+# (100, 64) and shorter than one (48, 16)
+F32_CHUNKS = [(1, 640, 640, 28, 4, 128, 0, 0),
+              (2, 600, 640, 28, 4, 128, 0, 100),
+              (2, 600, 640, 28, 4, 128, 0, 48),
+              (2, 100, 150, 16, 4, 64, (37, 50), 0),
+              (2, 100, 150, 16, 4, 64, (37, 50), 64),
+              (3, 77, 200, 8, 8, 16, (0, 61, 123), 0),
+              (3, 77, 200, 8, 8, 16, (0, 61, 123), 16),
+              (1, 300, 300, 7, 1, 128, 0, 48),
+              (1, 65, 129, 28, 4, 128, 64, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,L,N,K,h,start,window", F32_CHUNKS)
+def test_f32_chunk_kernel_edges_on_card(B, S, L, N, K, h, start, window):
+    """The 3xTF32 body (f32 q over an f32 view) against the plain version
+    within 1e-4 x max(1, |plain|) at ragged tile and block edges; the same
+    bits on two calls."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + L + window)
+    q = torch.randn(B, S, N, h, generator=g, device=dev)
+    kc = torch.randn(B, L, K, h, generator=g, device=dev)
+    vc = torch.randn(B, L, K, h, generator=g, device=dev)
+    idx = (torch.tensor(start, dtype=torch.int32, device=dev)
+           if isinstance(start, tuple) else start)
+    got = cp.chunk_prefill_attention(q, kc, vc, idx, window=window)
+    again = cp.chunk_prefill_attention(q, kc, vc, idx, window=window)
+    want = cp.chunk_prefill_ref(q, kc, vc, idx, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _close_f32(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("S,start", [(640, 0), (100, 37)])
+def test_f32_q_over_bf16_view_on_card(S, start, window):
+    """An f32 q over a bf16 view takes the 3xTF32 body too: the view is
+    widened exactly, so the output holds the f32 bound."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + window)
+    q = torch.randn(2, S, 28, 128, generator=g, device=dev)
+    kc = torch.randn(2, 640, 4, 128, generator=g, device=dev).bfloat16()
+    vc = torch.randn(2, 640, 4, 128, generator=g, device=dev).bfloat16()
+    got = cp.chunk_prefill_attention(q, kc, vc, start, window=window)
+    want = cp.chunk_prefill_ref(q, kc, vc, start, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _close_f32(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("split", [1, 17, 100, 320, 383])
+def test_f32_chunk_kernel_chunking_invariance_on_card(split, window):
+    """The 3xTF32 body: rows computed in one chunk from 0 and in a chunk at
+    ``split`` (on and off the 64-row tiles and 64-key blocks) are
+    bit-equal."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(1, 640, 28, 128, generator=g, device=dev)
+    kc = torch.randn(1, 640, 4, 128, generator=g, device=dev)
+    vc = torch.randn(1, 640, 4, 128, generator=g, device=dev)
+    whole = cp.chunk_prefill_attention(q, kc, vc, 0, window=window)
+    head = cp.chunk_prefill_attention(q[:, :split].contiguous(), kc, vc, 0,
+                                      window=window)
+    part = cp.chunk_prefill_attention(q[:, split:].contiguous(), kc, vc,
+                                      split, window=window)
+    assert torch.equal(whole[:, :split], head)
+    assert torch.equal(whole[:, split:], part)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_paged_chunk_kernel_f32_q_on_card(chunk, window, storage):
+    """f32 q over every page type and scale mode (the 3xTF32 body): codes
+    are widened and scaled in f32 as the plain version dequantizes them,
+    so every type holds the f32 bound."""
+    dev = _cuda()
+    B, S, start = chunk
+    _, _, kp, vp, ks, vs, table = _pool(dev, *storage, B=B, npg=20,
+                                        num_pages=41)
+    q = torch.randn(B, S, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    idx = (torch.tensor(start, dtype=torch.int32, device=dev)
+           if isinstance(start, tuple) else start)
+    got = pcp.paged_chunk_prefill_attention(q, kp, vp, table, idx,
+                                            k_scales=ks, v_scales=vs,
+                                            window=window)
+    want = pcp.paged_chunk_prefill_ref(q, kp, vp, table, idx, ks, vs,
+                                       window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _close_f32(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("starts", [(512, 320), (497, 33)])
+@pytest.mark.parametrize("window", [0, 64, 48])
+def test_paged_chunk_f32_bit_equal_to_dense_on_card(window, starts):
+    """f32 q over f32 pages and over the dense f32 view of the same rows:
+    a page is half of the 3xTF32 body's key block, and the two launches
+    are bit-equal."""
+    dev = _cuda()
+    dk, dv, kp, vp, _, _, table = _pool(dev, "bf16", "f32", B=2, npg=20,
+                                        num_pages=41)
+    q = torch.randn(2, 128, 28, 128, generator=torch.Generator(
+        device=dev).manual_seed(12), device=dev)
+    idx = torch.tensor(starts, dtype=torch.int32, device=dev)
+    a = pcp.paged_chunk_prefill_attention(q, kp, vp, table, idx,
+                                          window=window)
+    b = cp.chunk_prefill_attention(q, dk, dv, idx, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def _experts(dev, dtype, E=40, C=2, D=1536, F=512, seed=3):
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -414,6 +544,29 @@ def test_gmm_down_bf16_edges_on_card(C, D, F):
     assert y.dtype == torch.bfloat16 and tuple(y.shape) == (40, C, D)
     assert _close(y, gmm.gmm_down_ref(h, wo))
     assert torch.equal(y, again)
+
+
+# capacities of the bf16 tensor-core gmm_gated: on and off its passes of
+# 32, 64, 128, 160 and 256 rows, and past one pass
+GATED_CS = [1, 2, 7, 32, 33, 64, 65, 160, 161, 256, 257]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_plain"])
+@pytest.mark.parametrize("C", GATED_CS)
+def test_gmm_gated_bf16_edges_on_card(C, act):
+    """The tensor-core gmm_gated (bf16) against its plain version at every
+    capacity edge, with D and F multiples of 8 but not of 64 (its 64-deep
+    stages and 64- or 128-column tiles); two calls give the same bits."""
+    dev = _cuda()
+    x, wi, wg, _ = _experts(dev, torch.bfloat16, E=8, C=C, D=1544, F=520,
+                            seed=C)
+    h = gmm.gmm_gated(x, wi, wg, act=act)
+    again = gmm.gmm_gated(x, wi, wg, act=act)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.bfloat16 and tuple(h.shape) == (8, C, 520)
+    assert _close(h, gmm.gmm_gated_ref(x, wi, wg, act))
+    assert torch.equal(h, again)
 
 
 @pytest.mark.gpu

@@ -26,6 +26,7 @@ from repro.models import layers as JL
 from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
+from repro_torch.kernels.moe_gmm import ops as gmm
 from repro_torch.models import layers as TL
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -165,6 +166,32 @@ def test_decode_split_matches_kernel_source():
                  for name in ("SPLIT_TILES", "TK"))
     assert re.search(r"constexpr int SPLIT = SPLIT_TILES \* TK;", src)
     assert tiles * tk == da.SPLIT
+
+
+@pytest.mark.parametrize("C", [1, 2, 7, 32, 33, 64, 65, 128, 129, 160,
+                               161, 256, 257, 600])
+def test_gated_rows(C):
+    """The bf16 gmm_gated's rows per pass: one of its instantiations, the
+    smallest that holds C up to 256 (one pass, so each weight byte is read
+    once a launch), passes of 256 past it."""
+    rows = gmm.gated_rows(C)
+    assert rows in gmm.GATED_ROWS
+    if C <= 256:
+        assert rows >= C
+        assert all(r < C for r in gmm.GATED_ROWS if r < rows)
+    else:
+        assert rows == gmm.GATED_ROWS[-1] == 256
+    assert -(-C // rows) == max(1, -(-C // 256))
+
+
+def test_gated_rows_match_kernel_source():
+    """The C entry instantiates exactly the rows ``gated_rows`` chooses
+    from (an unknown count is refused there)."""
+    src = (Path(gmm.__file__).parent / "csrc" /
+           "gmm_gated_tc.cu").read_text()
+    cases = re.findall(r"case (\d+): return stream<EPI, (\d+)>", src)
+    assert all(a == b for a, b in cases)
+    assert tuple(sorted(int(a) for a, _ in cases)) == gmm.GATED_ROWS
 
 
 CHUNK_CASES = [
