@@ -54,9 +54,9 @@ SIGNATURES = {
     "gmm_gated_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # h, wo, y, bf16, E, C, F, D, stream
     "gmm_down_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, dt, a_log, b, c, y, state, bf16, B, S, H, P, N, Q, stream
-    "ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P],
+    # x, dt, a_log, b, c, scratch, y, state, bf16, B, S, H, P, N, Q, stream
+    "ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _I, _P],
     # q, k, v, out, lse, bf16, B, S, Sk, N, K, h, window, causal, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],

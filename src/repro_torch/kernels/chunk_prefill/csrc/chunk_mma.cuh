@@ -2,13 +2,19 @@
 // values, shared by the dense and the paged chunk kernels
 // (chunk_prefill.cu; paged_chunk_kernel.cuh for bf16 pages), as the TPU
 // kernels share _chunk_prefill_body
-// (src/repro/kernels/chunk_prefill/chunk_prefill.py). Every other pairing
-// of q and storage types takes the 3xTF32 body, chunk_tf32.cuh.
+// (src/repro/kernels/chunk_prefill/chunk_prefill.py), and by the bf16
+// flash-attention kernel (../../flash_attention/csrc/flash_attention.cu).
+// Every other pairing of q and storage types takes the 3xTF32 body,
+// chunk_tf32.cuh.
 //
 // The function is chunk_tf32.cuh's: S queries at absolute positions
 // idx .. idx+S-1 attend to the key positions kpos <= qpos (and
 // qpos - kpos < window when a window is set); query head n reads KV head
-// n / G. Design, for the H100's tensor cores:
+// n / G. Flash attention instantiates it with CAUSAL = false for its
+// non-causal mode (every key t < L is live, a window still keeps only
+// qpos - kpos < window) and LSE = true to write each row's natural
+// log-sum-exp; chunk prefill takes the defaults (causal, no log-sum-exp),
+// where both flags fold away. Design, for the H100's tensor cores:
 // - One block of 4 warps per (64-row query tile, query head, slot); each
 //   warp owns 16 query rows. The q tile is copied once and kept in
 //   registers as mma A fragments. Tiles run heaviest first (the grid's
@@ -85,13 +91,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 //   const bf16* k(int t0), v(int t0)
 // q, out: [B,S,N,H]; this block's rows s0 .. s0+63 of head n of slot b;
 // idx: the slot's chunk start; L: the key positions the view holds.
-template <int H, typename Src>
+// lse (LSE only): [B,N,S] f32, ln of each row's sum of exp(score).
+template <int H, bool CAUSAL = true, bool LSE = false, typename Src>
 __device__ __forceinline__ void chunk_rows(const bf16* __restrict__ q,
                                            bf16* __restrict__ out, int S,
                                            int L, int N, int s0, int n, int b,
                                            int idx, int window,
                                            size_t row_stride,
-                                           const Src& src) {
+                                           const Src& src,
+                                           float* __restrict__ lse = nullptr) {
   using Lay = Layout<H>;
   constexpr int RP = Lay::RP;
   constexpr int CPR = H / 8;                 // 16-byte chunks per row
@@ -105,7 +113,7 @@ __device__ __forceinline__ void chunk_rows(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s_last = min(S, s0 + BQ) - 1;
-  const int last = min(L - 1, idx + s_last);
+  const int last = CAUSAL ? min(L - 1, idx + s_last) : L - 1;
   const int first = window > 0 ? max(0, idx + s0 - window + 1) : 0;
   const int kb0 = first / BK;
   const int nb = last >= first ? last / BK - kb0 + 1 : 0;
@@ -188,7 +196,7 @@ __device__ __forceinline__ void chunk_rows(const bf16* __restrict__ q,
 
     // live for every row of the tile: all keys at or before its oldest
     // row, inside the view, and inside the window of its youngest row
-    const bool full = k0 + BK - 1 <= idx + s0 && k0 + BK <= L &&
+    const bool full = (!CAUSAL || k0 + BK - 1 <= idx + s0) && k0 + BK <= L &&
                       (window <= 0 || idx + s_last - k0 < window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -196,12 +204,20 @@ __device__ __forceinline__ void chunk_rows(const bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float v = s[j][e] * sc;
-        if (!full) {
+        // the causal test keeps a statement of its own: folded into one
+        // expression with !CAUSAL, it changes the chunk kernels' code
+        if constexpr (CAUSAL) {
+          if (!full) {
+            const int kpos = k0 + j * 8 + c2 + (e & 1);
+            const int qpos = qpos0 + (e >> 1) * 8;
+            const bool live = kpos < L && kpos <= qpos &&
+                              (window <= 0 || qpos - kpos < window);
+            v = live ? v : NEG_INF;
+          }
+        } else if (!full) {      // every key before L, in the window
           const int kpos = k0 + j * 8 + c2 + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
-          const bool live = kpos < L && kpos <= qpos &&
-                            (window <= 0 || qpos - kpos < window);
-          v = live ? v : NEG_INF;
+          v = kpos < L && (window <= 0 || qpos - kpos < window) ? v : NEG_INF;
         }
         s[j][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -262,6 +278,12 @@ __device__ __forceinline__ void chunk_rows(const bf16* __restrict__ q,
     const int s = s0 + warp * 16 + g + 8 * r;
     if (s >= S) continue;
     const float inv = 1.f / fmaxf(lt[r], 1e-30f);
+    if constexpr (LSE) {
+      // scores are in base 2 (q carries log2 e): ln(sum) = ln 2 (m + log2 l)
+      if (c2 == 0)
+        lse[((size_t)b * N + n) * S + s] =
+            0.6931471805599453f * (m[r] + log2f(fmaxf(lt[r], 1e-30f)));
+    }
     bf16* orow = out + (((size_t)b * S + s) * N + n) * H + c2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)

@@ -4,7 +4,12 @@
 // bf16 pages with an f32 q, int8 and fp8 e4m3 pages at head or token
 // scales with either q. Shared by the dense and the paged chunk kernels
 // (chunk_prefill.cu; paged_chunk_kernel.cuh), as the TPU kernels share
-// _chunk_prefill_body (src/repro/kernels/chunk_prefill/chunk_prefill.py).
+// _chunk_prefill_body (src/repro/kernels/chunk_prefill/chunk_prefill.py),
+// and by the f32 flash-attention kernel
+// (../../flash_attention/csrc/flash_attention.cu), which instantiates it
+// with CAUSAL = false for its non-causal mode and LSE = true to write each
+// row's natural log-sum-exp; chunk prefill takes the defaults (causal, no
+// log-sum-exp), where both flags fold away.
 //
 // The function: S queries at absolute positions idx .. idx+S-1 attend to
 // the key positions kpos <= qpos (and qpos - kpos < window when a window
@@ -166,14 +171,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 //   float k_scale(int t0, int r), v_scale(int t0, int r)   (SC != NONE)
 // q, out: [B,S,N,H] of T; this block's rows s0 .. s0+63 of head n of slot
 // b; idx: the slot's chunk start; L: the key positions the view holds
-// (keys at L or past are dead).
-template <int H, typename TKV, int SC, typename T, typename Src>
+// (keys at L or past are dead); without CAUSAL every key t < L is live
+// (a window still keeps only qpos - kpos < window). lse (LSE only):
+// [B,N,S] f32, ln of each row's sum of exp(score), taken after the two key
+// halves' states meet.
+template <int H, typename TKV, int SC, bool CAUSAL = true, bool LSE = false,
+          typename T, typename Src>
 __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
                                            T* __restrict__ out, int S, int L,
                                            int N, int s0, int n, int b,
                                            int idx, int window,
                                            size_t row_stride,
-                                           const Src& src) {
+                                           const Src& src,
+                                           float* __restrict__ lse = nullptr) {
   using Lay = Layout<H, TKV>;
   constexpr int RPK = Lay::RPK, RPV = Lay::RPV;
   constexpr bool RAW = Lay::RAW;
@@ -191,7 +201,7 @@ __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
   const int rw = (tid >> 5) & 3, kh = tid >> 7;  // row group, key half
   const int g = lane >> 2, t = lane & 3;
   const int s_last = min(S, s0 + BQ) - 1;
-  const int last = min(L - 1, idx + s_last);
+  const int last = CAUSAL ? min(L - 1, idx + s_last) : L - 1;
   const int first = window > 0 ? max(0, idx + s0 - window + 1) : 0;
   const int kb0 = first / BK;
   const int nb = last >= first ? last / BK - kb0 + 1 : 0;
@@ -360,7 +370,7 @@ __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
 
     // live for every row of the tile: all keys at or before its oldest
     // row, inside the view, and inside the window of its youngest row
-    const bool full = k0 + BK - 1 <= idx + s0 && k0 + BK <= L &&
+    const bool full = (!CAUSAL || k0 + BK - 1 <= idx + s0) && k0 + BK <= L &&
                       (window <= 0 || idx + s_last - k0 < window);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
@@ -368,12 +378,20 @@ __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float v = s[j][e];
-        if (!full) {
+        // the causal test keeps a statement of its own: folded into one
+        // expression with !CAUSAL, it changes the chunk kernels' code
+        if constexpr (CAUSAL) {
+          if (!full) {
+            const int kpos = k0 + kw + j * 8 + 2 * t + (e & 1);
+            const int qpos = qpos0 + (e >> 1) * 8;
+            const bool live = kpos < L && kpos <= qpos &&
+                              (window <= 0 || qpos - kpos < window);
+            v = live ? v : NEG_INF;
+          }
+        } else if (!full) {      // every key before L, in the window
           const int kpos = k0 + kw + j * 8 + 2 * t + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
-          const bool live = kpos < L && kpos <= qpos &&
-                            (window <= 0 || qpos - kpos < window);
-          v = live ? v : NEG_INF;
+          v = kpos < L && (window <= 0 || qpos - kpos < window) ? v : NEG_INF;
         }
         s[j][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -454,6 +472,7 @@ __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
     fa[r] = exp2f(m_r[r] - m_all);
     fb[r] = exp2f(mb - m_all);
     l[r] = l[r] * fa[r] + xs[((2 + r) * 128) + rw * 32 + lane] * fb[r];
+    if constexpr (LSE) m_r[r] = m_all;
   }
 #pragma unroll
   for (int j = 0; j < NO; ++j)
@@ -468,6 +487,12 @@ __device__ __forceinline__ void chunk_rows(const T* __restrict__ q,
     const int s = s0 + rw * 16 + g + 8 * r;
     if (s >= S) continue;
     const float inv = 1.f / fmaxf(lt[r], 1e-30f);
+    if constexpr (LSE) {
+      // scores are in base 2 (q carries log2 e): ln(sum) = ln 2 (m + log2 l)
+      if (t == 0)
+        lse[((size_t)b * N + n) * S + s] =
+            0.6931471805599453f * (m_r[r] + log2f(fmaxf(lt[r], 1e-30f)));
+    }
     T* orow = out + (((size_t)b * S + s) * N + n) * H + 2 * t;
 #pragma unroll
     for (int j = 0; j < NO; ++j)

@@ -4,7 +4,9 @@ version.
 ``ssd`` launches ``csrc/ssd.cu`` (which replaces the TPU kernel
 ``repro/kernels/ssd/ssd.py: ssd_kernel``) for CUDA tensors and runs
 ``ssd_chunked`` for CPU tensors; nothing else chooses between them.
-``ssd.launches`` counts the kernel's launches. Both take the model-facing
+``ssd.launches`` counts calls of the C entry, each of which enqueues two
+kernels: the chunk states (``ssd_chunk_states``, written to a scratch)
+and the output that composes them. Both take the model-facing
 layout of ``repro/kernels/ssd/ops.py: ssd`` (B and C with a group axis of
 size 1, dropped here) and follow ``ssd_chunked``'s contract: the sequence
 is one chunk when S <= Q, else S must be a multiple of Q (the reference's
@@ -49,6 +51,28 @@ def _check(xs, dt, A_log, B_, C_):
         raise ValueError("ssd operands must be on one device")
 
 
+def ssd_chunk_states(xs, dt, A_log, B_, Q: int = 128):
+    """Each chunk's own contribution to the state and its decay, what the
+    kernel's first pass writes to its scratch: (states [B,H,nc,P,N], the
+    chunk's u^T B with u = x dt exp(seg - cum), and seg [B,H,nc], the
+    chunk's sum of dt a), both f32. Composed in order, h = h exp(seg_k) +
+    states_k from h = 0, they give the state entering each chunk and, past
+    the last, ``ssd_chunked``'s final state."""
+    Bsz, S, H, P = xs.shape
+    N = B_.shape[-1]
+    Q = chunk_len(S, Q)
+    nc = S // Q
+    A = -torch.exp(A_log.float())                              # [H]
+    x = xs.float().reshape(Bsz, nc, Q, H, P)
+    d = dt.float().reshape(Bsz, nc, Q, H)
+    b = B_.float().reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(d * A, dim=2)                           # [B,nc,Q,H]
+    seg = cum[:, :, -1]                                        # [B,nc,H]
+    decay_to_end = torch.exp(seg[:, :, None] - cum)            # [B,nc,Q,H]
+    states = torch.einsum("bctn,bcth,bcthp->bchpn", b, decay_to_end * d, x)
+    return states.permute(0, 2, 1, 3, 4), seg.permute(0, 2, 1)
+
+
 def ssd_chunked(xs, dt, A_log, B_, C_, Q: int = 128):
     """Plain version (the chunked SSD of the Mamba2 paper, as the
     reference's ``layers.ssd_chunked`` without its head split): the
@@ -77,16 +101,66 @@ def ssd_chunked(xs, dt, A_log, B_, C_, Q: int = 128):
     cb = torch.einsum("bcsn,bctn->bcst", c, b)
     xdt = x * d[..., None]                                     # [B,nc,Q,H,P]
     y = torch.einsum("bcsth,bcthp->bcshp", cb[..., None] * L, xdt)
-    decay_to_end = torch.exp(seg[:, :, None] - cum)            # [B,nc,Q,H]
-    states = torch.einsum("bctn,bcth,bcthp->bchpn", b, decay_to_end * d, x)
+    states, segs = ssd_chunk_states(xs, dt, A_log, B_, Q)
     h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=xs.device)
     h_prev = []
     for k in range(nc):                     # the state before each chunk
         h_prev.append(h)
-        h = h * torch.exp(seg[:, k])[..., None, None] + states[:, k]
+        h = h * torch.exp(segs[:, :, k])[..., None, None] + states[:, :, k]
     y = y + torch.einsum("bcsn,bcsh,bchpn->bcshp", c, torch.exp(cum),
                          torch.stack(h_prev, 1))
     return y.reshape(Bsz, S, H, P).to(xs.dtype), h
+
+
+def _aligned(t):
+    """``t`` contiguous with 16-byte aligned data (the kernel's vector
+    loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(xs, dt, A_log, B_, C_, Q: int):
+    """One call of the C entry on the current stream -> (y, final state,
+    scratch). The scratch holds what the first kernel writes: the chunk
+    states and seg (``scratch_states``), then C B^T [B,nc,Q,Q]."""
+    Bsz, S, H, P = xs.shape
+    N = B_.shape[-1]
+    Q = chunk_len(S, Q)
+    if Q > Q_MAX or N > N_MAX:
+        raise ValueError(f"the kernel takes chunks of at most {Q_MAX} rows "
+                         f"and states of at most {N_MAX}; got Q={Q}, N={N}")
+    if xs.dtype not in DTYPES or B_.dtype != xs.dtype \
+            or C_.dtype != xs.dtype:
+        raise TypeError(f"xs, B_ and C_ must share one type, float32 or "
+                        f"bfloat16; got {xs.dtype}, {B_.dtype}, {C_.dtype}")
+    x = _aligned(xs)
+    d = dt.float().contiguous()
+    a = A_log.float().contiguous()
+    b = _aligned(B_[:, :, 0])
+    c = _aligned(C_[:, :, 0])
+    nc = S // Q
+    y = torch.empty_like(x)
+    state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    lead = Bsz * H * nc * (P * N + 1)             # states, then seg
+    scratch = torch.empty(-(-lead // 4) * 4 + Bsz * nc * Q * Q,
+                          dtype=torch.float32, device=x.device)
+    _build.launch("ssd_launch", x.data_ptr(), d.data_ptr(), a.data_ptr(),
+                  b.data_ptr(), c.data_ptr(), scratch.data_ptr(),
+                  y.data_ptr(), state.data_ptr(),
+                  int(x.dtype == torch.bfloat16), Bsz, S, H, P, N, Q,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    ssd.launches += 1
+    return y, state, scratch
+
+
+def scratch_states(scratch, xs, N: int, Q: int = 128):
+    """The chunk states [B,H,nc,P,N] and seg [B,H,nc] in a scratch from
+    ``_launch`` (for xs [B,S,H,P]): what ``ssd_chunk_states`` computes."""
+    Bsz, S, H, P = xs.shape
+    nc = S // chunk_len(S, Q)
+    cut = Bsz * H * nc * P * N
+    return (scratch[:cut].view(Bsz, H, nc, P, N),
+            scratch[cut:cut + Bsz * H * nc].view(Bsz, H, nc))
 
 
 def ssd(xs, dt, A_log, B_, C_, Q: int = 128):
@@ -99,29 +173,7 @@ def ssd(xs, dt, A_log, B_, C_, Q: int = 128):
         return ssd_chunked(xs, dt, A_log, B_, C_, Q)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
-    Bsz, S, H, P = xs.shape
-    N = B_.shape[-1]
-    Q = chunk_len(S, Q)
-    if Q > Q_MAX or N > N_MAX:
-        raise ValueError(f"the kernel takes chunks of at most {Q_MAX} rows "
-                         f"and states of at most {N_MAX}; got Q={Q}, N={N}")
-    if xs.dtype not in DTYPES or B_.dtype != xs.dtype \
-            or C_.dtype != xs.dtype:
-        raise TypeError(f"xs, B_ and C_ must share one type, float32 or "
-                        f"bfloat16; got {xs.dtype}, {B_.dtype}, {C_.dtype}")
-    x = xs.contiguous()
-    d = dt.float().contiguous()
-    a = A_log.float().contiguous()
-    b = B_[:, :, 0].contiguous()
-    c = C_[:, :, 0].contiguous()
-    y = torch.empty_like(x)
-    state = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=x.device)
-    _build.launch("ssd_launch", x.data_ptr(), d.data_ptr(), a.data_ptr(),
-                  b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                  int(x.dtype == torch.bfloat16), Bsz, S, H, P, N, Q,
-                  torch.cuda.current_stream(x.device).cuda_stream)
-    ssd.launches += 1
-    return y, state
+    return _launch(xs, dt, A_log, B_, C_, Q)[:2]
 
 
 ssd.launches = 0

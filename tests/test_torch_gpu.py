@@ -13,21 +13,25 @@ model of its split. The grouped-expert kernels run at
 granite-moe-3b-a800m's width (E=40, D=1536, F=512) and the capacities the
 served path gives them (C = 2 at decode, 32 for a 128-row chunk, 160 for a
 640-row prefill) and a ragged one; the SSD scan at mamba2-780m's width
-(H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows and
-at one chunk or less, and at the reduced models' width. Both chunk bodies
-(bf16 and 3xTF32, tensor cores) and the bf16 gmm_gated and gmm_down
-(tensor cores) also run at the edges of their tiles: ragged S and L,
+(H=48, P=64, N=128, chunks of 128) at the admission prefill's 640 rows,
+at one to six chunks and at one chunk or less, and at the reduced models'
+width, its f32 outputs, its final state and the chunk states of its first
+pass (the scratch, against ``ssd_chunk_states``) within 1e-4 x max(1,
+|plain|) (3xTF32 on the tensor cores), the same bits on two calls. Both
+chunk bodies (bf16 and 3xTF32, tensor cores) and the bf16 gmm_gated and
+gmm_down (tensor cores) also run at the edges of their tiles: ragged S and L,
 every head dim, G = 1, 4, 7, windows crossing tile and block edges and
 shorter than a block, capacities off their row tiles and past one pass,
 widths off the 64-wide tiles. The 3xTF32 body (every pairing of q and
 storage but bf16 over bf16) with an f32 q is held to 1e-4 x max(1,
 |plain|), dense and paged, for every page type and scale mode, and is
 chunking-invariant and paged = dense bit for bit too. The flash
-kernel runs at smollm-135m's and molmoact-7b's heads in f32 and bf16
-against the plain version on the inputs taken to f32 (the function it
-computes from either type), its backward against autograd through the
-plain version within 1e-4 x max(1, |plain|) (f32, sums in another
-order).
+kernel (the two chunk bodies) runs at smollm-135m's and molmoact-7b's
+heads and h = 16 in f32 and bf16, causal or not, with windows and Sk !=
+S, against the plain version on the inputs taken to f32 (the function it
+computes from either type), f32 within 1e-4 x max(1, |plain|), with its
+log-sum-exp, and its backward against autograd through the plain version
+within 1e-4 x max(1, |plain|) (f32, sums in another order).
 """
 import pytest
 import torch
@@ -49,9 +53,12 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, tol=1e-2):
     return bool(((got.float() - want.float()).abs()
-                 <= 1e-2 * want.float().abs().clamp(min=1)).all())
+                 <= tol * want.float().abs().clamp(min=1)).all())
+
+
+TF32X3 = 1e-4    # a 3xTF32 kernel with an f32 output (~2**-21 a product)
 
 
 # (index, window) of the decode kernels: the edges of their 128-key splits
@@ -622,7 +629,8 @@ def test_ssd_kernel_on_card(B, S, dtype, width):
     yp, sp = ssd_ops.ssd_chunked(*args)
     torch.cuda.synchronize()
     assert y.dtype == dtype and st.dtype == torch.float32
-    assert _close(y, yp) and _close(st, sp)
+    assert _close(y, yp, 1e-2 if dtype == torch.bfloat16 else TF32X3)
+    assert _close(st, sp, TF32X3)
 
 
 @pytest.mark.gpu
@@ -641,6 +649,38 @@ def test_ssd_kernel_counts_launches_and_refuses_on_card():
                       for a in args])
     torch.cuda.synchronize()
     assert ssd_ops.ssd.launches - before == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,width", [(2, 128 * c, "full")
+                                       for c in range(1, 7)]
+                         + [(2, 40, "reduced"), (1, 9, "reduced"),
+                            (2, 384, "reduced"), (1, 256, "P=96"),
+                            (1, 256, "P=30 N=20")])
+def test_ssd_two_pass_kernel_on_card(B, S, width, dtype):
+    """The two-pass scan at 1-6 chunks, ragged and reduced widths, P past
+    one 64-row block and off the vector loads: y within 1e-2 (bf16) or
+    1e-4 (f32, 3xTF32) x max(1, |plain|), the final state and the chunk
+    states and seg the first pass leaves in the scratch (against
+    ``ssd_chunk_states``) within 1e-4, the same bits on two calls."""
+    dev = _cuda()
+    shape = {"full": {}, "reduced": dict(H=8, P=16, N=16),
+             "P=96": dict(H=4, P=96), "P=30 N=20": dict(H=4, P=30, N=20)}
+    args = _ssd_inputs(dev, dtype, B, S, **shape[width])
+    y, st, scratch = ssd_ops._launch(*args, 128)
+    y2, st2, scratch2 = ssd_ops._launch(*args, 128)
+    N = args[3].shape[-1]
+    states, segs = ssd_ops.scratch_states(scratch, args[0], N)
+    states2, segs2 = ssd_ops.scratch_states(scratch2, args[0], N)
+    yp, sp = ssd_ops.ssd_chunked(*args)
+    ps, pseg = ssd_ops.ssd_chunk_states(*args[:4])
+    torch.cuda.synchronize()
+    assert _close(y, yp, 1e-2 if dtype == torch.bfloat16 else TF32X3)
+    assert _close(st, sp, TF32X3)
+    assert _close(states, ps, TF32X3) and _close(segs, pseg, TF32X3)
+    for a, b in ((y, y2), (st, st2), (states, states2), (segs, segs2)):
+        assert torch.equal(a, b)
 
 
 def _qkv(dev, B, S, N, K, h, dtype, seed=0):
@@ -663,7 +703,46 @@ def test_flash_kernel_on_card(B, S, N, K, h, window, causal, dtype):
     got = fa.flash_attention(q, k, v, window=window, causal=causal)
     want = fa.attention_ref(q.float(), k.float(), v.float(), window, causal)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and _close(got, want)
+    assert got.dtype == dtype
+    assert _close(got, want, TF32X3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,N,K,h,window,causal", [
+    (2, 512, 512, 9, 3, 64, 0, True), (1, 256, 256, 9, 3, 64, 96, False),
+    (2, 256, 128, 9, 3, 64, 0, True), (2, 128, 256, 9, 3, 64, 0, False),
+    (2, 100, 100, 4, 2, 16, 0, True), (1, 384, 384, 4, 2, 16, 64, True),
+    (1, 256, 256, 28, 4, 128, 0, False)])
+def test_flash_kernel_and_log_sum_exp_on_card(B, S, Sk, N, K, h, window,
+                                              causal, dtype):
+    """The tensor-core flash bodies, causal or not, with a window, Sk != S,
+    h = 16 and 128: the output and the natural log-sum-exp [B,N,S]
+    against the plain version on the inputs taken to f32 (the log-sum-exp
+    also against torch.logsumexp of the masked scores), f32 within 1e-4
+    (3xTF32), bf16 within 1e-2 (P rounded to bf16)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + Sk + h)
+    q = torch.randn(B, S, N, h, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Sk, K, h, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    out, lse = fa._launch(q, k, v, window, causal)
+    want, want_lse = fa._attention_lse(q.float(), k.float(), v.float(),
+                                       window, causal)
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None]
+    live = (kpos <= qpos) if causal else torch.ones_like(qpos - kpos,
+                                                         dtype=torch.bool)
+    if window:
+        live = live & (qpos - kpos < window)
+    kf = k.float().repeat_interleave(N // K, dim=2)
+    s = torch.einsum("bsnh,btnh->bnst", q.float(), kf) / h ** 0.5
+    ref = torch.logsumexp(s.masked_fill(~live, float("-inf")), dim=-1)
+    torch.cuda.synchronize()
+    tol = TF32X3 if dtype == torch.float32 else 1e-2
+    assert out.dtype == dtype and lse.shape == (B, N, S)
+    assert _close(out, want, tol)
+    assert _close(lse, want_lse, tol) and _close(lse, ref, tol)
 
 
 @pytest.mark.gpu

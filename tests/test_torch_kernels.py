@@ -8,6 +8,7 @@ bf16 the same way (round to nearest even), and q stays f32, so the
 comparisons are f32 at 1e-5. The CUDA kernels themselves are held to the
 plain versions on the card by ``test_torch_gpu.py``.
 """
+import ctypes
 import re
 from pathlib import Path
 
@@ -23,9 +24,11 @@ from repro.kernels.decode_attention import ref as jdref
 from repro.kernels.decode_attention.paged import \
     paged_decode_attention_kernel as jpda
 from repro.models import layers as JL
+from repro_torch.kernels import _build
 from repro_torch.kernels.chunk_prefill import ops as cp
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.decode_attention import paged as pg
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.moe_gmm import ops as gmm
 from repro_torch.models import layers as TL
 
@@ -250,3 +253,44 @@ def test_wrappers_reject_unsupported_inputs(bad):
             cp.chunk_prefill_attention(q[:, None], kv, kv, 0, bk=16)
         else:
             da.decode_attention(q, kv, kv, 0)
+
+
+def test_flash_runs_the_chunk_bodies_at_every_head_dim():
+    """The flash entry instantiates the two tensor-core chunk bodies (f32:
+    3xTF32, bf16: mma.sync) with its flags (causal or not, log-sum-exp
+    written) at every head dim the wrapper takes, causal and not, and has
+    no body of its own."""
+    src = (Path(fa.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    for hdr in ("chunk_mma.cuh", "chunk_tf32.cuh"):
+        assert f'#include "../../chunk_prefill/csrc/{hdr}"' in src
+    assert "chunk_tf32::chunk_rows<H, float, chunk_tf32::SCALE_NONE, " \
+           "CAUSAL, true>" in src
+    assert "chunk_mma::chunk_rows<H, CAUSAL, true>" in src
+    assert src.count("__global__") == 2
+    cases = re.findall(r"case (\d+):\s+return launch_c<(\d+), T>", src)
+    assert all(a == b for a, b in cases)
+    assert tuple(sorted(int(a) for a, _ in cases)) == fa.HEAD_DIMS
+    assert re.search(r"return launch<H, true, T>", src)
+    assert re.search(r"return launch<H, false, T>", src)
+    for t in ("__nv_bfloat16", "float"):
+        assert f"launch_h<{t}>(h, causal" in src
+
+
+def _ctype(param: str):
+    if "*" in param:
+        return ctypes.c_void_p
+    return ctypes.c_longlong if param.startswith("long long") \
+        else ctypes.c_int
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signatures_match_the_c_entries(name):
+    """``_build.SIGNATURES`` declares each C entry's arguments as its
+    source does: a pointer (and the stream) as c_void_p, an int as c_int,
+    a long long as c_longlong, in order."""
+    text = "\n".join(p.read_text() for p in _build.sources())
+    m = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', text, re.S)
+    assert m, f"no C entry {name}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert [_ctype(p) for p in params] == _build.SIGNATURES[name]

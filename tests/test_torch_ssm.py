@@ -73,18 +73,25 @@ SSD_CASES = [(2, 256, 4, 64, 128, 128), (1, 128, 2, 32, 64, 64),
              (2, 40, 3, 16, 32, 128), (1, 9, 2, 16, 16, 128)]
 
 
+@functools.cache
+def _ssd_refs(B, S, H, P, N, Q):
+    """The reference's scans of ``_ssd_inputs(S + H, ...)``: the Pallas
+    kernel in interpret mode, ``ssd_chunked`` and ``ssd_scan_ref``."""
+    j = [jnp.asarray(a) for a in _ssd_inputs(S + H, B, S, H, P, N)]
+    return {"pallas": jssd.ssd(*j, Q=Q, interpret=True),
+            "ssd_chunked": JL.ssd_chunked(*j, chunk=Q),
+            "ssd_scan_ref": JL.ssd_scan_ref(*j)}
+
+
 @pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES)
 def test_ssd_plain_matches_reference(B, S, H, P, N, Q):
     inputs = _ssd_inputs(S + H, B, S, H, P, N)
-    j = [jnp.asarray(a) for a in inputs]
     t = [torch.from_numpy(a) for a in inputs]
     y, st = tssd.ssd(*t, Q=Q)
     assert y.dtype == torch.float32 and st.shape == (B, H, P, N)
     yp, sp = tssd.ssd_chunked(*t, Q=Q)
     assert torch.equal(y, yp) and torch.equal(st, sp)   # the CPU path
-    refs = {"pallas": jssd.ssd(*j, Q=Q, interpret=True),
-            "ssd_chunked": JL.ssd_chunked(*j, chunk=Q),
-            "ssd_scan_ref": JL.ssd_scan_ref(*j)}
+    refs = _ssd_refs(B, S, H, P, N, Q)
     for name, (yr, sr) in refs.items():
         np.testing.assert_allclose(y.numpy(), _np(yr), **SSD_TOL,
                                    err_msg=name)
@@ -95,6 +102,51 @@ def test_ssd_plain_matches_reference(B, S, H, P, N, Q):
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(ss.numpy(), _np(refs["ssd_scan_ref"][1]),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES)
+def test_ssd_chunk_states_compose_to_the_scan(B, S, H, P, N, Q):
+    """``ssd_chunk_states`` gives what the kernel's first pass writes to
+    its scratch: each chunk's own state term and its seg. Composed in
+    order (h = h exp(seg_k) + s_k from zero), with the intra-chunk term
+    written out here in float64, they give ``ssd_chunked``'s final state
+    and y, and the reference's Pallas kernel's and ``ssd_chunked``'s."""
+    inputs = _ssd_inputs(S + H, B, S, H, P, N)
+    t = [torch.from_numpy(a) for a in inputs]
+    states, segs = tssd.ssd_chunk_states(*t[:4], Q=Q)
+    Qc = min(Q, S)
+    nc = S // Qc
+    assert states.shape == (B, H, nc, P, N) and segs.shape == (B, H, nc)
+    assert states.dtype == segs.dtype == torch.float32
+    xs, dt, A_log, Bm, Cm = (a.astype(np.float64) for a in inputs)
+    x = xs.reshape(B, nc, Qc, H, P)
+    d = dt.reshape(B, nc, Qc, H)
+    b = Bm.reshape(B, nc, Qc, N)
+    c = Cm.reshape(B, nc, Qc, N)
+    cum = np.cumsum(d * -np.exp(A_log), axis=2)              # [B,nc,Q,H]
+    np.testing.assert_allclose(segs.numpy(),
+                               cum[:, :, -1].transpose(0, 2, 1),
+                               atol=1e-5, rtol=1e-5)
+    below = np.tril(np.ones((Qc, Qc), bool))[None, :, :, None]
+    h = np.zeros((B, H, P, N))
+    y = np.zeros((B, nc, Qc, H, P))
+    st, sg = states.double().numpy(), segs.double().numpy()
+    for k in range(nc):
+        ck = cum[:, k]
+        L = np.exp(np.where(below, ck[:, :, None] - ck[:, None], -np.inf))
+        cb = np.einsum("bsn,btn->bst", c[:, k], b[:, k])
+        y[:, k] = (np.einsum("bst,bsth,bth,bthp->bshp", cb, L, d[:, k],
+                             x[:, k])
+                   + np.einsum("bsn,bsh,bhpn->bshp", c[:, k], np.exp(ck), h))
+        h = h * np.exp(sg[:, :, k])[..., None, None] + st[:, :, k]
+    y = y.reshape(B, S, H, P)
+    yp, sp = tssd.ssd_chunked(*t, Q=Q)
+    np.testing.assert_allclose(h, sp.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(y, yp.numpy(), atol=1e-4, rtol=1e-4)
+    for name, (yr, sr) in _ssd_refs(B, S, H, P, N, Q).items():
+        if name != "ssd_scan_ref":
+            np.testing.assert_allclose(y, _np(yr), **SSD_TOL, err_msg=name)
+            np.testing.assert_allclose(h, _np(sr), **SSD_TOL, err_msg=name)
 
 
 def test_ssd_keeps_bf16_outputs_in_bf16():

@@ -136,6 +136,31 @@ def test_flash_attention_cpu_matches_pallas_kernel(B, S, N, K, h, window,
     assert torch.equal(got, fa.attention_ref(tq, tk, tv, window, causal))
 
 
+@pytest.mark.parametrize("B,S,N,K,h,window,causal", PALLAS_CASES)
+def test_saved_log_sum_exp_matches_jax(B, S, N, K, h, window, causal):
+    """The forward saves each row's natural log-sum-exp, [B,N,S] f32, for
+    the backward: on the CPU it must equal ``jax.nn.logsumexp`` of the
+    masked scores formed in JAX from the same numpy inputs (causal or not,
+    with a window)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(S * 5 + h, B, S, N, K, h),
+                                       "float32")
+    out = fa.flash_attention(tq.requires_grad_(), tk, tv, window=window,
+                             causal=causal)
+    lse = out.grad_fn.saved_tensors[4]
+    assert lse.dtype == torch.float32 and lse.shape == (B, N, S)
+    kv = jnp.repeat(jk, N // K, axis=2)          # query head n reads n // G
+    s = jnp.einsum("bsnh,btnh->bnst", jq, kv) / np.sqrt(h)
+    qpos, kpos = jnp.arange(S)[:, None], jnp.arange(S)[None]
+    live = jnp.ones((S, S), bool)
+    if causal:
+        live &= qpos >= kpos
+    if window:
+        live &= qpos - kpos < window
+    want = jax.nn.logsumexp(jnp.where(live, s, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.detach().numpy(), _np(want),
+                               **_tol("float32"))
+
+
 def test_flash_attention_refuses_partial_blocks():
     """Past 128 rows the kernel takes whole 128-row blocks (the reference
     leaves the tail rows unwritten): S or Sk of 320 is refused, on the CPU
