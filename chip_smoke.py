@@ -30,7 +30,14 @@ dense and paged f32, chunked paged f32) with its decode breakdown. The
 Mamba2 family last: the SSD scan kernel against its plain version at
 mamba2-780m's width, reduced mamba2-780m and the reduced jamba hybrid on
 card and CPU, and the full-width mamba2-780m serving the same shape
-admit-stall (dense and paged f32) with its decode breakdown. Prints
+admit-stall (dense and paged f32) with its decode breakdown. Every
+full-width decode path runs twice: its decode step replayed from a
+captured CUDA graph (the main path: ``model.DecodeGraph``, the engines'
+``DecodeTick``; launches count the replays), then eagerly; the two must
+give the same tokens and, step for step, the same kernels in the same
+order, and a replayed step at most MAX_GRAPH_LAUNCHES host launch calls;
+both modes' phase splits, tick percentiles and decode breakdowns are
+printed side by side. Prints
 the card, the phase numbers, one JSON line describing each kernel and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails.
@@ -1109,7 +1116,10 @@ def read_launches(kernels):
 
 
 def full_width(cfg, params):
-    """Phase 4: the full-width molmoact-7b control step, B=4."""
+    """Phase 4: the full-width molmoact-7b control step, B=4, its decode
+    replayed from a CUDA graph (``M.DecodeGraph``, the main path) and run
+    eagerly (the oracle): the same tokens, the same kernels a step (by
+    name, in order), both modes timed phase by phase."""
     import torch
     from repro_torch.core import vla
     from repro_torch.models import model as M
@@ -1125,11 +1135,14 @@ def full_width(cfg, params):
 
     prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
     batch = {"tokens": tokens, "prefix": prefix}
+    graphs = {"graphed": M.DecodeGraph(dev),
+              "eager": M.DecodeGraph(dev, eager=True)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
     t0 = time.perf_counter()
-    out = vla.vla_control_step(cfg, opts, params, batch, device=dev)
+    out = vla.vla_control_step(cfg, opts, params, batch, device=dev,
+                               graph=graphs["graphed"])
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = read_launches(kernels)
@@ -1138,7 +1151,8 @@ def full_width(cfg, params):
             "decode_attention": cfg.num_layers * (cfg.n_cot_tokens + n_act),
             "paged_decode_attention": 0, "paged_chunk_prefill": 0,
             "gmm_gated": 0, "gmm_down": 0, "ssd": 0, "flash_attention": 0}
-    print(f"  launches on the main path: {launches} (expected {want})")
+    print(f"  launches on the main path (decode graph-replayed, replays "
+          f"counted): {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the main path did not run through the kernels "
                              "as expected")
@@ -1148,55 +1162,229 @@ def full_width(cfg, params):
                 or int(t.max()) >= cfg.vocab_size:
             raise AssertionError(f"{name}: shape {tuple(t.shape)}, range "
                                  f"[{int(t.min())}, {int(t.max())}]")
+    eager = vla.vla_control_step(cfg, opts, params, batch, device=dev,
+                                 graph=graphs["eager"])
+    if not (torch.equal(eager.cot_tokens, out.cot_tokens)
+            and torch.equal(eager.action_tokens, out.action_tokens)):
+        raise AssertionError("graphed and eager control steps give other "
+                             "tokens")
+    print(f"  graphed and eager control steps: the same {cfg.n_cot_tokens} "
+          f"CoT and {n_act} action tokens per robot")
 
-    # the same phases, timed one by one with CUDA events
+    # the same phases, timed one by one with CUDA events, in both modes
     names = ("vision", "prefill", "cot_decode", "action_decode")
-    runs = []
+    runs = {mode: [] for mode in graphs}
     for rep in range(PHASE_REPEATS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
-        ev[1].record()
-        logits, caches = M.prefill(cfg, opts, params,
-                                   {"tokens": tokens, "prefix": prefix},
-                                   max_seq, device=dev)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        ev[2].record()
-        cot, tok, caches = vla.decode_tokens(cfg, opts, params, tok, caches,
-                                             prompt, cfg.n_cot_tokens,
-                                             device=dev)
-        ev[3].record()
-        act, _, _ = vla.decode_tokens(cfg, opts, params, tok, caches,
-                                      prompt + cfg.n_cot_tokens, n_act,
-                                      device=dev)
-        ev[4].record()
-        torch.cuda.synchronize()
-        if not (bool(torch.isfinite(logits).all())
-                and torch.equal(cot, out.cot_tokens)
-                and torch.equal(act, out.action_tokens)):
-            raise AssertionError("the phase-by-phase run disagrees with "
-                                 "vla_control_step")
-        runs.append({n: ev[i].elapsed_time(ev[i + 1])
-                     for i, n in enumerate(names)})
-        print(f"  run {rep}: phases (ms) " + ", ".join(
-            f"{n}={t:.2f}" for n, t in runs[-1].items())
-            + f", step {sum(runs[-1].values()):.2f}")
-    phase_ms = {n: float(np.median([r[n] for r in runs])) for n in names}
-    total = float(np.median([sum(r.values()) for r in runs]))
-    act_share = np.median([r["action_decode"] / sum(r.values())
-                           for r in runs])
-    dec_share = np.median([(r["cot_decode"] + r["action_decode"])
-                           / sum(r.values()) for r in runs])
-    print(f"  median of {PHASE_REPEATS}: control step {total:.2f} ms; "
-          f"action-generation share {act_share:.4f}; "
-          f"CoT+action decode share {dec_share:.4f}; "
-          f"vla_control_step (vision precomputed, first call) "
-          f"{step_s * 1e3:.2f} ms by host clock; peak memory {peak_gb:.2f} GB")
+        for mode, graph in graphs.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
+            ev[1].record()
+            logits, caches = M.prefill(cfg, opts, params,
+                                       {"tokens": tokens, "prefix": prefix},
+                                       max_seq, device=dev)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            ev[2].record()
+            cot, tok, caches = vla.decode_tokens(
+                cfg, opts, params, tok, caches, prompt, cfg.n_cot_tokens,
+                device=dev, graph=graph)
+            ev[3].record()
+            act, _, _ = vla.decode_tokens(
+                cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
+                n_act, device=dev, graph=graph)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(logits).all())
+                    and torch.equal(cot, out.cot_tokens)
+                    and torch.equal(act, out.action_tokens)):
+                raise AssertionError(f"the phase-by-phase run ({mode}) "
+                                     f"disagrees with vla_control_step")
+            runs[mode].append({n: ev[i].elapsed_time(ev[i + 1])
+                               for i, n in enumerate(names)})
+            print(f"  run {rep} ({mode}): phases (ms) " + ", ".join(
+                f"{n}={t:.2f}" for n, t in runs[mode][-1].items())
+                + f", step {sum(runs[mode][-1].values()):.2f}")
+    phase_ms = {}
+    for mode, rs in runs.items():
+        phase_ms[mode] = {n: float(np.median([r[n] for r in rs]))
+                          for n in names}
+        total = float(np.median([sum(r.values()) for r in rs]))
+        act_share = np.median([r["action_decode"] / sum(r.values())
+                               for r in rs])
+        dec_share = np.median([(r["cot_decode"] + r["action_decode"])
+                               / sum(r.values()) for r in rs])
+        print(f"  {mode}, median of {PHASE_REPEATS}: control step "
+              f"{total:.2f} ms (" + ", ".join(
+                  f"{n} {t:.2f}" for n, t in phase_ms[mode].items())
+              + f"); action-generation share {act_share:.4f}; CoT+action "
+              f"decode share {dec_share:.4f}")
+    runner = graphs["graphed"].runner
+    print(f"  vla_control_step (graphed, vision precomputed, first call) "
+          f"{step_s * 1e3:.2f} ms by host clock; peak memory {peak_gb:.2f} "
+          f"GB; decode graph captures {runner.captures} (one a control "
+          f"step's caches), {runner.capture_s / runner.captures * 1e3:.1f} "
+          f"ms a capture")
+    graph = graphs["graphed"]
+
+    def reset():
+        # the traced steps decode at the action loop's first position
+        # again: the caches hold one position past the loops, no more
+        graph.counter.zero_()
+        graph.idx.fill_(prompt + cfg.n_cot_tokens)
+    graph_step_checks("control-step decode", runner, reset)
     tok = torch.zeros(FULL_B, 1, dtype=torch.long, device="cuda")
-    decode_breakdown(lambda n: vla.decode_tokens(
-        cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens, n,
-        device="cuda"), phase_ms["action_decode"] / n_act)
+    for mode, graph in graphs.items():
+        def run_steps(n, g=graph):
+            vla.decode_tokens(cfg, opts, params, tok, caches,
+                              prompt + cfg.n_cot_tokens, n, device="cuda",
+                              graph=g)
+        run_steps(1)             # a capture for these caches, untraced
+        decode_breakdown(run_steps, phase_ms[mode]["action_decode"] / n_act,
+                         label=f"decode step ({mode})")
     return launches
+
+
+def graph_step_checks(label: str, runner, reset):
+    """One step replayed from ``runner``'s graph against the same step run
+    eagerly: the same kernels by name in the order the device ran them
+    (both traced in one profiler session), and at most
+    MAX_GRAPH_LAUNCHES host launch calls a replayed step (torch.profiler's
+    runtime events over 4 replays; the eager step's are printed beside).
+    ``reset`` puts the step's counter (and any position that would leave
+    its cache) back before each traced run: its buffers take only so many
+    steps."""
+    import difflib
+    replay = (lambda: runner.step(runner.key))
+    # the profiler has now and then left a few of a long step's device
+    # events (or a marker) out of a trace: a trace with a missing marker
+    # or a difference is taken again, up to TRACE_ATTEMPTS times in all,
+    # and each attempt's outcome is printed. A step that runs other
+    # kernels when replayed differs in every attempt.
+    graphed = eager = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        seqs = step_sequences([(reset, replay), (reset, runner.body)])
+        if seqs is not None:
+            graphed, eager = seqs
+            if graphed and graphed == eager:
+                break
+        print(f"  {label}: trace {attempt} " + (
+            "lost a marker kernel" if seqs is None else
+            f"has {len(seqs[0])} device events graph-replayed, "
+            f"{len(seqs[1])} eager, not the same"))
+    if graphed is None:
+        raise AssertionError(f"{label}: every trace lost a marker kernel")
+    reset()
+    calls = launch_calls(replay, steps=4)
+    reset()
+    e_calls = launch_calls(runner.body)
+    n_calls = sum(calls.values())
+    print(f"  {label}: a step runs {len(graphed)} kernels graph-replayed, "
+          f"{len(eager)} eagerly; host launch calls a step: graphed "
+          f"{n_calls:g} {calls}, eager {sum(e_calls.values()):g}; capture "
+          f"{runner.capture_s / max(runner.captures, 1) * 1e3:.1f} ms")
+    if not graphed or graphed != eager:
+        ops = [op for op in difflib.SequenceMatcher(
+            None, graphed, eager, autojunk=False).get_opcodes()
+            if op[0] != "equal"]
+        raise AssertionError(
+            f"{label}: the replayed step's kernels differ from the eager "
+            f"step's: " + "; ".join(
+                f"{tag} graphed[{i1}:{i2}] {[n[:60] for n in graphed[i1:i2]]}"
+                f" eager[{j1}:{j2}] {[n[:60] for n in eager[j1:j2]]}"
+                for tag, i1, i2, j1, j2 in ops[:4]))
+    if not 0 < n_calls <= MAX_GRAPH_LAUNCHES:
+        raise AssertionError(f"{label}: {n_calls} host launch calls a "
+                             f"graph-replayed step")
+
+
+# host calls that start work on the device, as the profiler names them
+# (cudaLaunchKernel, cuLaunchKernel, cudaGraphLaunch and the like)
+MAX_GRAPH_LAUNCHES = 2
+TRACE_ATTEMPTS = 3
+TRACE_PAD_S = 0.2     # idle host time at each edge of a traced window
+
+
+def _traced(body):
+    """torch.profiler's events (device activity and runtime calls) over
+    ``body()``. A warm-up cycle and a pause come first, and a pause last:
+    device events near the edges of a traced window were sometimes
+    missing from it, more often the longer the process had run (as if
+    the device's timestamps drifted from the host's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traces = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traces.append(p.events())) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_PAD_S)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        prof.step()
+    events, = traces
+    return events
+
+
+def step_sequences(segments):
+    """For each (prepare, fn) of ``segments``: the names of the device's
+    kernels, memory copies and sets over one call of ``fn``, in the order
+    it ran them. One profiler session traces them all; a marker kernel
+    (``torch.cuda._sleep``) before and after each call splits the
+    device's timeline. The first segment runs twice, and its first run is
+    not read: the device events at the start of a traced window were
+    sometimes left out of it (a marker among them, their timestamps ~1
+    ms ahead of the host's launch calls). None when a marker of a segment
+    read was lost."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def body():
+        for prepare, fn in segments[:1] + segments:
+            prepare()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+    device = sorted((e for e in _traced(body)
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+    n = 2 * len(segments)
+    if not n <= len(marks) <= n + 2:
+        print(f"  a trace of {len(device)} device events holds "
+              f"{len(marks)} marker kernels, not {n} (+ 2 unread)")
+        return None
+    marks = marks[-n:]
+    return [[_op(e.name) for e in device[a + 1:b]]
+            for a, b in zip(marks[::2], marks[1::2])]
+
+
+def launch_calls(fn, steps: int = 1):
+    """Host launch calls per call of ``fn`` by name, over ``steps``
+    calls (torch.profiler's runtime events)."""
+    from torch.autograd import DeviceType
+
+    def body():
+        for _ in range(steps):
+            fn()
+    calls = {}
+    for e in _traced(body):
+        if e.device_type != DeviceType.CUDA and "Launch" in e.name:
+            calls[e.name] = calls.get(e.name, 0) + 1 / steps
+    return calls
+
+
+def _op(name: str) -> str:
+    """A device event's name, a memory copy or set by its kind only: a
+    graph runs a captured copy as a memcpy node, which the profiler names
+    by the kernel that carries it out (``memcpy32_post``), where an eager
+    step names the copy itself."""
+    low = name.lower()
+    return next((k for k in ("memcpy", "memset") if low.startswith(k)),
+                name)
 
 
 # substrings of kernel names -> the part of a decode step they belong to
@@ -1244,6 +1432,22 @@ def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
     for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
+    # the port's own kernels (grouped experts, attention): device ms a
+    # launch as this step runs them, and launches a step
+    ours = [e for e in rows if e.self_device_time_total and any(
+        k in e.key for _, keys in KERNEL_GROUPS[:2] for k in keys)]
+    if ours:
+        print("    port kernels, ms a launch x launches a step: " + "; ".join(
+            f"{_short(e.key)} "
+            f"{e.self_device_time_total / 1e3 / e.count:.4f} x "
+            f"{e.count / steps:g}" for e in ours))
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, namespaces, template
+    arguments and parameters."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0].split("::")[-1]
 
 
 def observations(cfg, vocab: int, seed: int):
@@ -1340,18 +1544,20 @@ def serving_full(cfg, params):
     cfg, params = first_layers(cfg, params, SERVE_LAYERS)
     results, streams = {}, {}
     for name, kw in SERVE_ENGINES + CHUNKED_ENGINES:
-        eng, out, launches, gates = serve_engine(
+        eng, out, launches, gates, eager = serve_both(
             cfg, params, obs, name, kw, cfg.vision.num_tokens + FULL_TEXT)
         if eng.scheduler is not None:
             plan = plans["paged" if eng.paged else "dense"]
             gates["host plan counts equal the CPU replay's"] = \
-                plan_counts(eng) == plan
+                plan_counts(eng) == plan == plan_counts(eager)
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width serving ({name}): {failed}")
         streams[name] = out
         results[name] = (launches, eng.stats, eng.masked_steps)
-        del eng
+        if name == "dense":
+            tick_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers)")
+        del eng, eager
     for paged, dense in (("paged-f32", "dense"),
                          ("paged-f32-chunked", "dense-chunked")):
         if streams[paged] != streams[dense]:
@@ -1389,9 +1595,12 @@ def first_layers(cfg, params, n: int, dtype=None):
     return dataclasses.replace(cfg, num_layers=n), cut
 
 
-def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
-    """The 16 requests through one full-width engine on the card; prints
-    its serving row and returns (engine, {uid: tokens}, launches, gates).
+def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
+                 graphs: bool = True):
+    """The 16 requests through one full-width engine on the card, its tick
+    step replayed from a CUDA graph or (``graphs=False``) run eagerly;
+    prints its serving row and returns (engine, {uid: tokens}, launches,
+    gates). Launches count replays (``graphs.StepGraph``).
     Gates: every request finishes with 193 tokens; each decode step (masked
     steps too) launches the engine's decode kernel once an attention layer,
     and each prefill run its chunk kernel once an attention layer
@@ -1410,7 +1619,8 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
-    eng, out, wall = run_engine(cfg, params, obs, kw, "cuda")
+    eng, out, wall = run_engine(cfg, params, obs, dict(kw, graphs=graphs),
+                                "cuda")
     launches = read_launches(kernels)
     st = eng.stats
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1433,7 +1643,8 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
                 "gmm_down": n_moe * (runs + steps),
                 "ssd": (L - n_attn) * runs}
     idle = [k for k in launches if not expected.get(k)]
-    print(f"  {name}: {len(out)} requests, {n_tok} tokens in "
+    print(f"  {name} ({'graphed' if graphs else 'eager'}): {len(out)} "
+          f"requests, {n_tok} tokens in "
           f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
           f"{st.ticks}, device steps {st.device_steps}, masked steps "
           f"{eng.masked_steps}; TTFT p50/p99 "
@@ -1490,6 +1701,61 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int):
     return eng, out, launches, gates
 
 
+def serve_both(cfg, params, obs, name: str, kw, prompt_len: int):
+    """One engine of a serving phase in both modes: its tick step replayed
+    from a CUDA graph (the main path), then run eagerly (``graphs=False``,
+    the oracle). Each run holds ``serve_engine``'s gates; the graphed run's
+    streams and launches must equal the eager run's, and a replayed step
+    must run the eager step's kernels with at most a couple of host launch
+    calls (``graph_step_checks``). Prints the two runs' walls and tick
+    percentiles side by side. Returns (graphed engine, its streams, its
+    launches, gates, eager engine)."""
+    eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
+                                             prompt_len)
+    tick = eng._tick
+    graph_step_checks(f"{name} tick step", tick.graph,
+                      reset=tick.counter.zero_)
+    eager, out_e, launches_e, gates_e = serve_engine(
+        cfg, params, obs, name, kw, prompt_len, graphs=False)
+    gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
+    gates["graphed streams equal eager streams"] = out == out_e
+    gates["graphed launches equal eager launches"] = launches == launches_e
+    g, e = eng.stats, eager.stats
+    print(f"  {name}, graphed vs eager: decode tick p50/p99 "
+          f"{np.percentile(g.decode_tick_s, 50) * 1e3:.2f}/"
+          f"{np.percentile(g.decode_tick_s, 99) * 1e3:.2f} vs "
+          f"{np.percentile(e.decode_tick_s, 50) * 1e3:.2f}/"
+          f"{np.percentile(e.decode_tick_s, 99) * 1e3:.2f} ms; tick p50/p99 "
+          f"{np.percentile(g.tick_s, 50) * 1e3:.2f}/"
+          f"{np.percentile(g.tick_s, 99) * 1e3:.2f} vs "
+          f"{np.percentile(e.tick_s, 50) * 1e3:.2f}/"
+          f"{np.percentile(e.tick_s, 99) * 1e3:.2f} ms; decode "
+          f"{g.decode_time:.3f} vs {e.decode_time:.3f} s; one capture "
+          f"{tick.graph.capture_s * 1e3:.1f} ms")
+    return eng, out, launches, gates, eager
+
+
+def tick_breakdown(eng, label: str):
+    """``decode_breakdown`` of an engine's tick step after it drained (8
+    slots, every step masked but each a full decode), replayed from its
+    graph and run eagerly; the wall by host clock over 4 steps."""
+    import torch
+    tick = eng._tick
+    for mode, step in (("graphed", lambda: tick.graph.step(tick.graph.key)),
+                       ("eager", tick.graph.body)):
+        def run_steps(n, step=step):
+            tick.counter.zero_()
+            for _ in range(n):
+                step()
+        run_steps(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps(4)
+        torch.cuda.synchronize()
+        decode_breakdown(run_steps, (time.perf_counter() - t0) / 4 * 1e3,
+                         label=f"{label} tick step ({mode})")
+
+
 def moe_serving_full(cfg):
     """Phase 7: full-width granite-moe-3b-a800m (seeded bf16 weights)
     serving the molmoact engines' shape: 16 requests from 8 prompts of 640
@@ -1509,8 +1775,8 @@ def moe_serving_full(cfg):
             None) for _ in range(SERVE_OBS)]
     results, streams = {}, {}
     for name, kw in MOE_ENGINES:
-        eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
-                                                 MOE_PROMPT)
+        eng, out, launches, gates, eager = serve_both(cfg, params, obs, name,
+                                                      kw, MOE_PROMPT)
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width MoE serving ({name}): "
@@ -1519,7 +1785,8 @@ def moe_serving_full(cfg):
         results[name] = (launches, eng.stats, eng.masked_steps)
         if name == "moe-dense":
             caches = eng.caches
-        del eng
+            tick_breakdown(eng, cfg.name)
+        del eng, eager
     if streams["moe-paged-f32"] != streams["moe-dense"]:
         raise AssertionError("full-width MoE serving: moe-paged-f32 streams "
                              "differ from moe-dense streams")
@@ -2154,10 +2421,10 @@ def ssm_serving_full(cfg):
     plans = replayed_plan(cfg, obs, SSM_ENGINES)
     results, streams = {}, {}
     for name, kw in SSM_ENGINES:
-        eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
-                                                 MOE_PROMPT)
+        eng, out, launches, gates, eager = serve_both(cfg, params, obs, name,
+                                                      kw, MOE_PROMPT)
         gates["host plan counts equal the CPU replay's"] = \
-            plan_counts(eng) == plans[name]
+            plan_counts(eng) == plans[name] == plan_counts(eager)
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width SSM serving ({name}): "
@@ -2166,7 +2433,8 @@ def ssm_serving_full(cfg):
         results[name] = (launches, eng.stats, eng.masked_steps)
         if name == "ssm-dense":
             caches = eng.caches
-        del eng
+            tick_breakdown(eng, cfg.name)
+        del eng, eager
     if streams["ssm-paged-f32"] != streams["ssm-dense"]:
         raise AssertionError("full-width SSM serving: ssm-paged-f32 streams "
                              "differ from ssm-dense streams")

@@ -24,11 +24,13 @@ class VLAOutput:
 
 
 def decode_tokens(cfg: ModelConfig, opts: ModelOptions, params, first_token,
-                  caches, start_index: int, n_steps: int, *, device="cuda"):
-    """Greedy decode of ``n_steps`` tokens. Returns (tokens [B, n_steps],
-    last_token, caches)."""
+                  caches, start_index: int, n_steps: int, *, device="cuda",
+                  graph: Optional[M.DecodeGraph] = None):
+    """Greedy decode of ``n_steps`` tokens, each step one replay of
+    ``graph`` on the card (``M.decode_loop``). Returns (tokens [B,
+    n_steps], last_token, caches)."""
     return M.decode_loop(cfg, opts, params, first_token, caches, start_index,
-                         n_steps, device=device)
+                         n_steps, device=device, graph=graph)
 
 
 def control_step_lengths(cfg: ModelConfig, n_text: int):
@@ -42,14 +44,18 @@ def control_step_lengths(cfg: ModelConfig, n_text: int):
 
 
 def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
-                     max_seq: Optional[int] = None, *,
-                     device="cuda") -> VLAOutput:
+                     max_seq: Optional[int] = None, *, device="cuda",
+                     graph: Optional[M.DecodeGraph] = None) -> VLAOutput:
     """One full control step for a VLA observation batch.
 
     batch: {'tokens': [B, n_prompt] instruction, and 'patches': [B,T,e]
-    image or 'prefix': [B,T,d_model] from ``M.encode_vision``}.
+    image or 'prefix': [B,T,d_model] from ``M.encode_vision``}. The CoT
+    and action loops share one ``M.DecodeGraph``: ``graph``, which a
+    caller may keep across control steps (it captures again only when the
+    new step's caches lie elsewhere), else a new one.
     """
     dev = resolve_device(device)
+    graph = graph if graph is not None else M.DecodeGraph(dev)
     a = cfg.action
     if a is not None and a.mode != "discrete":
         raise NotImplementedError("the DiT action head is ROADMAP item 4")
@@ -58,10 +64,11 @@ def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
                                device=dev)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     cot, tok, caches = decode_tokens(cfg, opts, params, tok, caches, prompt,
-                                     cfg.n_cot_tokens, device=dev)
+                                     cfg.n_cot_tokens, device=dev,
+                                     graph=graph)
     action_tokens, _, caches = decode_tokens(
         cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
-        n_act or 24, device=dev)
+        n_act or 24, device=dev, graph=graph)
     n_vis = cfg.vision.num_tokens if cfg.vision else 0
     return VLAOutput(
         cot_tokens=cot, action_tokens=action_tokens, trajectory=None,

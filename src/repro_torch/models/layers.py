@@ -717,7 +717,10 @@ def moe(p, x, cfg: ModelConfig, opts: ModelOptions):
     buf_tokens = torch.zeros(E * C + 1, dtype=torch.long, device=x.device)
     buf_tokens[dest] = token_of
     buf_valid = torch.zeros(E * C + 1, dtype=x.dtype, device=x.device)
-    buf_valid[dest] = 1.0
+    # index_fill_ takes the 1 as a scalar: an indexed assignment of a
+    # Python number copies it to the device first, a host sync that a
+    # CUDA graph cannot capture
+    buf_valid.index_fill_(0, dest, 1.0)
     xe = (xt[buf_tokens[:-1]].reshape(E, C, D)
           * buf_valid[:-1].reshape(E, C, 1))
     he = grouped_mlp(xe, p["moe_wi"], p["moe_wg"], p["moe_wo"], cfg.act)

@@ -10,6 +10,8 @@
                                    caches, s, n_valid=n)
     logits, caches = decode_step(cfg, opts, params, tok, caches, index)
     logits, caches = decode_step(..., page_table=table)   # paged pools
+    toks, last, caches = decode_loop(cfg, opts, params, tok, caches,
+                                     index, n_steps)   # one graph a step
 
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
 tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
@@ -21,7 +23,7 @@ only: its scan starts from a zero state, so positioned prefill and
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -29,11 +31,13 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models import stacks
+from repro_torch.models.graphs import StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, apply_norm
 from repro_torch.models.stacks import init_caches  # re-export
 
 __all__ = ["model_template", "forward", "prefill", "embed_prompt",
-           "prefill_chunk", "decode_step", "decode_loop", "encode_vision",
+           "prefill_chunk", "decode_step", "decode_loop", "DecodeGraph",
+           "encode_vision",
            "init_params", "init_caches", "ModelOptions"]
 
 
@@ -265,22 +269,83 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     return _logits(params, x, cfg), caches
 
 
+class DecodeGraph:
+    """``decode_loop``'s static buffers and its one decode step, captured
+    in a CUDA graph on the card and replayed once a token (``graphs.
+    StepGraph``), reusable across calls: the CoT and action loops of a
+    control step share one. Its buffers are the current token [B,1], the
+    position [B], the output [B, n] and a device step counter; the step
+    runs ``decode_step``, the argmax, writes ``toks[:, counter]`` through
+    the counter and advances the position and the counter, with no host
+    sync. The graph is keyed on every tensor it reads or writes (caches,
+    parameters, buffers): a call with other caches (``prefill`` allocates
+    new ones each control step) reuses it when their addresses and layout
+    match and captures again when any differs, as it does for a larger
+    ``n_steps``. ``eager=True`` runs the same step without a graph: the
+    oracle the graphed loop is held to. On the CPU the step always runs
+    eagerly, on the same buffers."""
+
+    def __init__(self, device="cuda", *, eager: bool = False):
+        self.device = resolve_device(device)
+        self.runner = StepGraph(self._step, self.device, eager=eager)
+        self.tok = self.idx = self.toks = self.counter = None
+        self._args = None
+
+    def _buffers(self, B: int, n_steps: int):
+        if self.tok is None or self.tok.shape[0] != B \
+                or self.toks.shape[1] < n_steps:
+            dev = self.device
+            self.tok = torch.zeros(B, 1, dtype=torch.long, device=dev)
+            self.idx = torch.zeros(B, dtype=torch.int32, device=dev)
+            self.toks = torch.zeros(B, n_steps, dtype=torch.long, device=dev)
+            self.counter = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def _step(self):
+        cfg, opts, params, caches = self._args
+        logits, _ = decode_step(cfg, opts, params, self.tok, caches, self.idx,
+                                device=self.device)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)              # [B, 1]
+        self.toks.index_copy_(1, self.counter, nxt)
+        self.tok.copy_(nxt)
+        self.idx.add_(1)
+        self.counter.add_(1)
+
+    def run(self, cfg: ModelConfig, opts: ModelOptions, params, token,
+            caches, index, n_steps: int):
+        """``decode_loop`` through this graph (same arguments, less the
+        device: the graph's)."""
+        _check_params(params, self.device)
+        tok = _on(token, self.device, torch.long)
+        self._buffers(tok.shape[0], n_steps)
+        self.tok.copy_(tok)
+        self.idx.copy_(torch.as_tensor(index, dtype=torch.int32)
+                       .reshape(-1).expand(tok.shape[0]))
+        self.counter.zero_()
+        self._args = (cfg, opts, params, caches)
+        key = self.key()
+        for _ in range(n_steps):
+            self.runner.step(key)
+        return self.toks[:, :n_steps].clone(), self.tok.clone(), caches
+
+    def key(self):
+        """The captured step's key: every tensor it reads or writes, and
+        the configuration and options that chose its kernels."""
+        cfg, opts, params, caches = self._args
+        return (cfg, opts) + tensor_key(params, caches, self.tok, self.idx,
+                                        self.toks, self.counter)
+
+
 def decode_loop(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
-                index, n_steps: int, *, device="cuda"):
+                index, n_steps: int, *, device="cuda",
+                graph: Optional[DecodeGraph] = None):
     """``n_steps`` greedy decode steps. The position advances on the device
-    and tokens stay there, so the loop never waits on the host. index: int
-    start position or per-slot [B]. Returns (tokens [B, n_steps],
-    last_token [B,1], caches)."""
-    dev = resolve_device(device)
-    tok = _on(token, dev, torch.long)
-    B = tok.shape[0]
-    idx = torch.as_tensor(index, device=dev, dtype=torch.int32) \
-        .reshape(-1).expand(B).clone()
-    toks = torch.empty(B, n_steps, dtype=torch.long, device=dev)
-    for i in range(n_steps):
-        logits, caches = decode_step(cfg, opts, params, tok, caches, idx,
-                                     device=dev)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        toks[:, i] = tok[:, 0]
-        idx += 1
-    return toks, tok, caches
+    and tokens stay there, so the loop never waits on the host; on the card
+    each step is one replay of a captured CUDA graph (``DecodeGraph``:
+    ``graph`` to reuse one across calls, else a new one). index: int start
+    position or per-slot [B]. Returns (tokens [B, n_steps], last_token
+    [B,1], caches)."""
+    graph = graph if graph is not None else DecodeGraph(device)
+    if graph.device != resolve_device(device):
+        raise ValueError(f"the decode graph is on {graph.device}, the call "
+                         f"asked for {device}")
+    return graph.run(cfg, opts, params, token, caches, index, n_steps)

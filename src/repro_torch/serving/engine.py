@@ -8,9 +8,14 @@ position. A finished slot is refilled from the queue: vision runs as its
 own stage, then a batch-1 prefill into an f32 cache whose rows are
 scattered into the slot's batch row (dense) or into pool pages (paged).
 
-- **fused** (default): ``_fused_tick`` runs ``min(tick_tokens,
-  max_steps)`` decode steps with sampling on the device and reads the
-  results back once. The reference exits its ``while_loop`` early when
+- **fused** (default): the tick runs ``min(tick_tokens, max_steps)``
+  decode steps with sampling on the device and reads the results back
+  once. Its carry lives in static buffers and one masked step over them
+  (``DecodeTick``) is captured in a CUDA graph on the card, once for the
+  engine's life, and replayed for each step: a step costs the host one
+  graph launch, not one launch a kernel (the counterpart of the
+  reference's jitted ``lax.while_loop``). ``graphs=False`` runs the same
+  step eagerly. The reference exits its ``while_loop`` early when
   every slot is done or a slot newly finishes; a Python ``if`` on a device
   value would force a host sync, so here a device-side ``go`` flag masks
   the steps after that point instead:
@@ -66,6 +71,7 @@ from repro_torch.kernels.decode_attention.paged import PAGE_SIZE
 from repro_torch.kernels.ssd.ops import Q_MAX, chunk_len
 from repro_torch.models import kv_quant
 from repro_torch.models import model as M
+from repro_torch.models.graphs import StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, band_len
 from repro_torch.models.params import leaves
 from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
@@ -221,61 +227,135 @@ def prefix_page_keys(cfg_name: str, page_size: int, kv_dtype: str,
     return keys
 
 
+class DecodeTick:
+    """The fused tick's carry in static device buffers, and one masked
+    decode step over them: the body a ``graphs.StepGraph`` captures once
+    on the card and replays ``cap`` times a tick, so that one graph serves
+    every depth the chunked planner picks.
+
+    Buffers (``load`` fills them from the host before a tick, outside the
+    graph): current token ``tokens`` [B,1], position ``index`` [B],
+    remaining ``budget`` [B], ``done`` [B] and its value at the tick's
+    entry, the slots' sampling ``keys`` [B], the ``page_table`` [B, npg]
+    of a paged cache; a step writes ``out`` [B,K] (each live slot fills a
+    prefix of its row, ``n_emit`` long) through the device step counter
+    and counts the steps where ``go`` held in ``steps``.
+
+    The reference stops when every slot is done or once any slot newly
+    finishes; here that condition is a device flag ``go``, and a step
+    taken after it turns false is masked: every row counts as done, so no
+    carry value changes and each row's cache write lands where a done
+    row's does in the reference (its unchanged position: a retired slot's
+    null page, a live slot's next position, rewritten identically by its
+    next real step), and the null page of a paged cache is put back as the
+    step found it (the reference never ran the step, and retired slots
+    attend that page), and so is every Mamba2 state (a step advances it,
+    so a masked step would advance each slot's state once more than the
+    reference does). A step's sampling noise is keyed on the row's
+    position, so masked steps consume no randomness. ``graphs=False`` runs
+    the same step eagerly (the oracle of the graphed tick); on the CPU it
+    always runs eagerly."""
+
+    def __init__(self, cfg: ModelConfig, opts: ModelOptions, params, caches,
+                 n_slots: int, K: int, eos: int, temperature: float,
+                 top_k: int, pages_per_slot: int = 0, *, device,
+                 graphs: bool = True):
+        self.args = (cfg, opts, params, caches)
+        self.eos, self.temperature, self.top_k = eos, temperature, top_k
+        B = n_slots
+        self.tokens = torch.zeros(B, 1, dtype=torch.long, device=device)
+        self.index = torch.zeros(B, dtype=torch.int32, device=device)
+        self.budget = torch.zeros(B, dtype=torch.int32, device=device)
+        self.done = torch.zeros(B, dtype=torch.bool, device=device)
+        self.entry_done = torch.zeros(B, dtype=torch.bool, device=device)
+        self.keys = torch.zeros(B, dtype=torch.long, device=device)
+        self.page_table = (torch.zeros(B, pages_per_slot, dtype=torch.int32,
+                                       device=device)
+                           if pages_per_slot else None)
+        self.out = torch.full((B, K), -1, dtype=torch.long, device=device)
+        self.n_emit = torch.zeros(B, dtype=torch.int32, device=device)
+        self.steps = torch.zeros((), dtype=torch.int32, device=device)
+        self.counter = torch.zeros(1, dtype=torch.long, device=device)
+        self.null_pages = ([(leaf, cache_batch_axis(path))
+                            for path, leaf in leaves(caches)
+                            if is_paged_leaf(path)] if pages_per_slot else [])
+        self.recurrent = [leaf for path, leaf in leaves(caches)
+                          if is_recurrent_leaf(path)]
+        self.graph = StepGraph(self._step, device, eager=not graphs)
+
+    def load(self, tokens, index, budget, done, keys, page_table=None):
+        """Start a tick from the carry (host arrays or tensors)."""
+        for buf, value in ((self.tokens, tokens), (self.index, index),
+                           (self.budget, budget), (self.done, done),
+                           (self.keys, keys), (self.page_table, page_table)):
+            if value is not None:
+                buf.copy_(torch.as_tensor(value).reshape(buf.shape))
+        self.entry_done.copy_(self.done)
+        self.out.fill_(-1)
+        self.n_emit.zero_()
+        self.steps.zero_()
+        self.counter.zero_()
+
+    def key(self):
+        """Every tensor the step reads or writes, and the configuration."""
+        cfg, opts, params, caches = self.args
+        return (cfg, opts) + tensor_key(
+            params, caches, self.tokens, self.index, self.budget, self.done,
+            self.entry_done, self.keys, self.page_table, self.out,
+            self.n_emit, self.steps, self.counter)
+
+    def run(self, cap: int):
+        """``cap`` steps of the loaded tick."""
+        key = self.key()
+        for _ in range(cap):
+            self.graph.step(key)
+
+    def _step(self):
+        cfg, opts, params, caches = self.args
+        done, entry_done = self.done, self.entry_done
+        go = ~done.all() & ~(done & ~entry_done).any()
+        held = [leaf.select(axis, 0).clone() for leaf, axis in self.null_pages]
+        held_states = [leaf.clone() for leaf in self.recurrent]
+        logits, _ = M.decode_step(cfg, opts, params, self.tokens, caches,
+                                  self.index, self.page_table,
+                                  device=self.tokens.device)
+        for (leaf, axis), page in zip(self.null_pages, held):
+            leaf.select(axis, 0).copy_(
+                torch.where(go, leaf.select(axis, 0), page))
+        for leaf, old in zip(self.recurrent, held_states):
+            leaf.copy_(torch.where(go, leaf, old))
+        nxt = S.sample_token(logits, self.temperature, self.top_k, self.keys,
+                             self.index)                           # [B]
+        live = ~done & go
+        self.out.index_copy_(1, self.counter,
+                             torch.where(live, nxt, -1)[:, None])
+        self.n_emit.add_(live.int())
+        self.budget.copy_(torch.where(live, self.budget - 1, self.budget))
+        newly = live & ((nxt == self.eos) | (self.budget <= 0))
+        self.index.copy_(torch.where(live, self.index + 1, self.index))
+        self.tokens.copy_(torch.where(live[:, None], nxt[:, None],
+                                      self.tokens))
+        done.logical_or_(newly)
+        self.steps.add_(go.int())
+        self.counter.add_(1)
+
+
 def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
                 temperature: float, top_k: int, params, tokens, caches,
                 index, budget, done, keys, max_steps: int, page_table=None,
                 *, device):
-    """``cap = min(K, max_steps)`` decode steps on the device, without a
-    host sync. Per-slot carry: current token [B,1], position ``index``
-    [B], remaining ``budget`` [B], ``done`` [B]; emitted tokens land in
-    ``out`` [B,K] (each live slot fills a prefix of its row, ``n_emit``
-    long). The reference stops when every slot is done or once any slot
-    newly finishes; here that condition is a device flag ``go``, and a
-    step taken after it turns false is
-    masked: every row counts as done, so no carry value changes and each
-    row's cache write lands where a done row's does in the reference (its
-    unchanged position: a retired slot's null page, a live slot's next
-    position, rewritten identically by its next real step), and the null
-    page of a paged cache is put back as the step found it (the
-    reference never ran the step, and retired slots attend that page), and
-    so is every Mamba2 state (a step advances it, so a masked step would
-    advance each slot's state once more than the reference does).
-    ``steps`` counts the steps where ``go`` held (the reference's loop
-    count).
-    ``keys`` [B] are the slots' sampling keys; a step's noise is keyed on
-    the row's position, so masked steps consume no randomness. Returns (tokens, caches, index, budget, done, out, n_emit, steps)."""
+    """One fused tick over ``caches`` from the given carry, through a new
+    ``DecodeTick``: ``cap = min(K, max_steps)`` masked decode steps on the
+    device, without a host sync. Returns (tokens, caches, index, budget,
+    done, out, n_emit, steps)."""
     B = tokens.shape[0]
-    out = torch.full((B, K), -1, dtype=torch.long, device=device)
-    n_emit = torch.zeros(B, dtype=torch.int32, device=device)
-    steps = torch.zeros((), dtype=torch.int32, device=device)
-    entry_done = done
-    null_pages = ([(leaf, cache_batch_axis(path))
-                   for path, leaf in leaves(caches) if is_paged_leaf(path)]
-                  if page_table is not None else [])
-    recurrent = [leaf for path, leaf in leaves(caches)
-                 if is_recurrent_leaf(path)]
-    for step in range(min(K, max_steps)):
-        go = ~done.all() & ~(done & ~entry_done).any()
-        held = [leaf.select(axis, 0).clone() for leaf, axis in null_pages]
-        held_states = [leaf.clone() for leaf in recurrent]
-        logits, caches = M.decode_step(cfg, opts, params, tokens, caches,
-                                       index, page_table, device=device)
-        for (leaf, axis), page in zip(null_pages, held):
-            leaf.select(axis, 0).copy_(
-                torch.where(go, leaf.select(axis, 0), page))
-        for leaf, old in zip(recurrent, held_states):
-            leaf.copy_(torch.where(go, leaf, old))
-        nxt = S.sample_token(logits, temperature, top_k, keys, index)  # [B]
-        live = ~done & go
-        out[:, step] = torch.where(live, nxt, -1)
-        n_emit = n_emit + live.int()
-        budget = torch.where(live, budget - 1, budget)
-        newly = live & ((nxt == eos) | (budget <= 0))
-        index = torch.where(live, index + 1, index)
-        tokens = torch.where(live[:, None], nxt[:, None], tokens)
-        done = done | newly
-        steps = steps + go.int()
-    return tokens, caches, index, budget, done, out, n_emit, steps
+    tick = DecodeTick(cfg, opts, params, caches, B, K, eos, temperature,
+                      top_k, 0 if page_table is None else page_table.shape[1],
+                      device=device)
+    tick.load(tokens, index, budget, done, keys, page_table)
+    tick.run(min(K, max_steps))
+    return (tick.tokens, caches, tick.index, tick.budget, tick.done,
+            tick.out, tick.n_emit, tick.steps)
 
 
 class ServingEngine:
@@ -290,7 +370,7 @@ class ServingEngine:
                  token_budget: int = 64,
                  reserve_pages: Optional[int] = None,
                  spec_decode: bool = False, slo_hz: float = 0.0, mesh=None,
-                 *, device="cuda"):
+                 *, device="cuda", graphs: bool = True):
         """The reference's engine options, less those of the parts not
         ported yet: ``spec_decode`` and ``mesh`` are accepted only to be
         refused, and ``slo_hz`` is refused without chunked prefill, as in
@@ -298,7 +378,10 @@ class ServingEngine:
         ``prefix_cache`` are fixed on: a tick stops when a slot finishes,
         and full prompt pages are always shared. ``reserve_pages`` (paged)
         is the decode headroom admission never takes: n_slots by default
-        under chunked prefill, else 0."""
+        under chunked prefill, else 0. ``graphs`` (the card only): each
+        fused-tick step replays one captured CUDA graph (``DecodeTick``);
+        False runs the same step eagerly, the oracle the graphed engine is
+        held to."""
         if tick_tokens < 1:
             raise ValueError(f"tick_tokens must be >= 1, got {tick_tokens}")
         if mesh is not None:
@@ -394,6 +477,13 @@ class ServingEngine:
         else:
             self.caches = M.init_caches(cfg, n_slots, max_seq, torch.float32,
                                         device=dev)
+        # the fused tick's buffers and step, captured once on the card: the
+        # caches keep their storage for the engine's life (every write and
+        # admission scatter is in place)
+        self._tick = DecodeTick(
+            cfg, opts, params, self.caches, n_slots, tick_tokens, eos,
+            temperature, top_k, max_seq // page_size if paged else 0,
+            device=dev, graphs=graphs)
         self.stats = EngineStats()
         self.masked_steps = 0       # fused-tick steps run after go fell
         self.generator = torch.Generator().manual_seed(seed)
@@ -521,13 +611,15 @@ class ServingEngine:
         null page (``free_slot`` reset them), so their writes sink. A
         mid-prefill slot's row is live (its chunks need it), so it is
         nulled in this snapshot only: the tick's write at that slot's stale
-        index must not land on chunk rows already written."""
+        index must not land on chunk rows already written. It is copied
+        into the decode tick's one table buffer, which its graph reads."""
         pt = self.pool.page_table
         if self.scheduler is not None and self.scheduler.tasks:
             pt = pt.copy()
             for s in self.scheduler.tasks:
                 pt[s, :] = 0
-        return torch.as_tensor(pt, device=self.device)
+        self._tick.page_table.copy_(torch.from_numpy(pt))
+        return self._tick.page_table
 
     def _slot_req(self, s: int) -> Optional[Request]:
         """The request holding slot ``s``, decoding or mid-prefill."""
@@ -782,7 +874,7 @@ class ServingEngine:
             return 0
         pt = self._page_table_device() if self.paged else None
         t0 = time.perf_counter()
-        logits, self.caches = M.decode_step(
+        logits, _ = M.decode_step(
             self.cfg, self.opts, self.params,
             self._device(self.tokens, torch.long), self.caches,
             self._device(self.index, torch.int32), pt, device=self.device)
@@ -824,15 +916,16 @@ class ServingEngine:
         """The fused decode stage of one tick: ``min(max_steps,
         tick_tokens)`` device steps (a chunked engine's planned depth) and
         one readback of the out, n_emit, index, budget, done, tokens and
-        steps tensors together."""
+        steps tensors together. The carry goes into the ``DecodeTick``'s
+        buffers (copies outside its graph), and each step is one replay of
+        its graph on the card."""
         active = [s for s in range(self.n_slots) if self.slots[s] is not None]
         if not active:
             return 0
-        pt = None
         cap = min(max_steps, self.tick_tokens)
         if self.paged:
             self._ensure_pages(cap)
-            pt = self._page_table_device()
+            self._page_table_device()
             # growth may have preempted a slot under pool pressure
             active = [s for s in range(self.n_slots)
                       if self.slots[s] is not None]
@@ -841,19 +934,14 @@ class ServingEngine:
         t0 = time.perf_counter()
         done0 = np.asarray([self.slots[s] is None
                             for s in range(self.n_slots)])
-        tokens, self.caches, index, budget, done, out, n_emit, steps = \
-            _fused_tick(self.cfg, self.opts, self.tick_tokens, self.eos,
-                        self.temperature, self.top_k, self.params,
-                        self._device(self.tokens, torch.long), self.caches,
-                        self._device(self.index, torch.int32),
-                        self._device(self.budget, torch.int32),
-                        self._device(done0, torch.bool),
-                        self._device(self.keys, torch.long), cap, pt,
-                        device=self.device)
-        B, K = out.shape
-        host = torch.cat([out.reshape(-1), n_emit.long(), index.long(),
-                          budget.long(), done.long(), tokens[:, 0],
-                          steps.long().reshape(1)]).cpu().numpy()
+        tick = self._tick
+        tick.load(self.tokens, self.index, self.budget, done0, self.keys)
+        tick.run(cap)
+        B, K = tick.out.shape
+        host = torch.cat([tick.out.reshape(-1), tick.n_emit.long(),
+                          tick.index.long(), tick.budget.long(),
+                          tick.done.long(), tick.tokens[:, 0],
+                          tick.steps.long().reshape(1)]).cpu().numpy()
         now = time.perf_counter()
         out_h = host[:B * K].reshape(B, K)
         n_emit_h, idx_h, bud_h, done_h, tok_h = \

@@ -31,7 +31,12 @@ heads and h = 16 in f32 and bf16, causal or not, with windows and Sk !=
 S, against the plain version on the inputs taken to f32 (the function it
 computes from either type), f32 within 1e-4 x max(1, |plain|), with its
 log-sum-exp, and its backward against autograd through the plain version
-within 1e-4 x max(1, |plain|) (f32, sums in another order).
+within 1e-4 x max(1, |plain|) (f32, sums in another order). Decode
+replayed from a CUDA graph (``model.DecodeGraph``, the engine's
+``DecodeTick``) equals the same step run eagerly bit for bit, tokens and
+caches, for a graph reused on its caches and captured again for others,
+and for engines whose page tables and tick depths change between
+replays; a capture that fails raises.
 """
 import pytest
 import torch
@@ -792,3 +797,161 @@ def test_train_step_refuses_moe_and_mamba_on_card(name):
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         make_train_step(get_config(name).reduced(), ModelOptions(),
                         TrainConfig())
+
+
+# ---------------------------------------------------------------------------
+# decode as replayed CUDA graphs (models.graphs.StepGraph)
+# ---------------------------------------------------------------------------
+
+def _small_model(name="smollm-135m", seed=0):
+    """A reduced config with seeded bf16 weights on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(name).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, M.init_params(cfg, gen, torch.bfloat16, device="cuda")
+
+
+def _prefilled(cfg, params, B=4, S=40, max_seq=96, seed=1):
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    logits, caches = M.prefill(cfg, ModelOptions(), params,
+                               {"tokens": tokens}, max_seq, device="cuda")
+    return logits[:, -1].argmax(-1, keepdim=True), caches, S
+
+
+def _clone_tree(tree):
+    from repro_torch.models.params import leaves, set_leaf
+    out = {}
+    for p, t in leaves(tree):
+        set_leaf(out, p, t.clone())
+    return out
+
+
+def _same_tree(a, b):
+    from repro_torch.models.params import leaves
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(a),
+                                                           leaves(b)))
+
+
+@pytest.mark.gpu
+def test_replayed_decode_equals_eager_decode_on_card():
+    """``decode_loop`` replayed from its graph against the same step run
+    eagerly: tokens and every cache leaf bit for bit, and the decode
+    kernel's count includes the replays (one launch a layer a step)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    _cuda()
+    cfg, params = _small_model()
+    tok, caches, S = _prefilled(cfg, params)
+    twin = _clone_tree(caches)
+    before = da.decode_attention.launches
+    graph = M.DecodeGraph("cuda")
+    got, last, _ = M.decode_loop(cfg, ModelOptions(), params, tok, caches,
+                                 S, 12, device="cuda", graph=graph)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches - before == cfg.num_layers * 12
+    assert graph.runner.captures == 1
+    want, last_e, _ = M.decode_loop(cfg, ModelOptions(), params, tok, twin,
+                                    S, 12, device="cuda",
+                                    graph=M.DecodeGraph("cuda", eager=True))
+    assert torch.equal(got, want) and torch.equal(last, last_e)
+    assert _same_tree(caches, twin)
+
+
+@pytest.mark.gpu
+def test_decode_graph_recaptures_for_other_caches_on_card():
+    """A DecodeGraph replays for the caches it was captured on (the same
+    addresses) and captures again for caches that lie elsewhere, or for a
+    longer loop; each result equals the eager step's."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    _cuda()
+    cfg, params = _small_model()
+    opts = ModelOptions()
+    tok, caches, S = _prefilled(cfg, params)
+    other = _clone_tree(caches)
+    graph = M.DecodeGraph("cuda")
+    runs = [(caches, S, 6), (caches, S + 6, 6), (other, S, 6),
+            (other, S + 6, 9)]
+    for n_capt, (c, start, n) in zip((1, 1, 2, 3), runs):
+        twin = _clone_tree(c)
+        got, _, _ = M.decode_loop(cfg, opts, params, tok, c, start, n,
+                                  device="cuda", graph=graph)
+        want, _, _ = M.decode_loop(cfg, opts, params, tok, twin, start, n,
+                                   device="cuda",
+                                   graph=M.DecodeGraph("cuda", eager=True))
+        assert graph.runner.captures == n_capt
+        assert torch.equal(got, want) and _same_tree(c, twin)
+
+
+def _engine_run(name: str, graphs: bool, **kw):
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serving import Request, ServingEngine
+    cfg, params = _small_model(name)
+    eng = ServingEngine(cfg, ModelOptions(), params, n_slots=3, max_seq=128,
+                        eos=-999, tick_tokens=4, device="cuda",
+                        graphs=graphs, **kw)
+    gen = torch.Generator().manual_seed(5)
+    for i, (n, m) in enumerate([(40, 30), (70, 9), (20, 41), (33, 12),
+                                (64, 20)]):
+        eng.submit(Request(uid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (n,), generator=gen).numpy(), max_tokens=m))
+    done = eng.run()
+    torch.cuda.synchronize()
+    return eng, {r.uid: r.out_tokens for r in done}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", [
+    ("smollm-135m", {}), ("smollm-135m", dict(paged=True)),
+    ("smollm-135m", dict(paged=True, kv_dtype="int8")),
+    ("smollm-135m", dict(paged=True, chunked_prefill=True, chunk_size=32,
+                         token_budget=40)),
+    ("granite-moe-3b-a800m", dict(paged=True)), ("mamba2-780m", {})],
+    ids=["dense", "paged", "paged-int8", "paged-chunked", "moe-paged",
+         "ssm-dense"])
+def test_graphed_engine_equals_eager_engine_on_card(name, kw):
+    """The engine with its tick step replayed from one graph against the
+    same step run eagerly: streams, counters and caches bit for bit, while
+    slots grow into new pages between replays (the page table is copied
+    into the graph's buffer each tick) and, chunked, the planner changes
+    the tick's depth from tick to tick; the MoE dispatch and the masked
+    steps' Mamba2 state restores inside the graph. The graphed engine
+    captures once."""
+    _cuda()
+    eng, out = _engine_run(name, True, **kw)
+    ref, want = _engine_run(name, False, **kw)
+    assert out == want and len(out) == 5
+    for f in ("ticks", "device_steps", "pages_hwm", "prefill_tokens"):
+        assert getattr(eng.stats, f) == getattr(ref.stats, f), f
+    assert eng.masked_steps == ref.masked_steps
+    assert eng._tick.graph.captures == 1
+    assert _same_tree(eng.caches, ref.caches)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card():
+    """A body that syncs with the host raises, in the warm-up step (under
+    the sync debug mode) or in the capture; the runner keeps no graph and
+    never falls back to running the body eagerly."""
+    from repro_torch.models.graphs import StepGraph
+    dev = _cuda()
+    x = torch.zeros(4, device=dev)
+    calls = []
+
+    def syncs_under_capture():
+        calls.append(1)
+        x.add_(1)
+        if len(calls) > 1:
+            x.sum().item()
+    for body in (lambda: x.sum().item(), syncs_under_capture):
+        runner = StepGraph(body, dev)
+        with pytest.raises(RuntimeError):
+            runner.step("key")
+        assert runner.graph is None
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 4.0     # the second body's warm-up step ran
