@@ -37,7 +37,15 @@ captured CUDA graph (the main path: ``model.DecodeGraph``, the engines'
 give the same tokens and, step for step, the same kernels in the same
 order, and a replayed step at most MAX_GRAPH_LAUNCHES host launch calls;
 both modes' phase splits, tick percentiles and decode breakdowns are
-printed side by side. Prints
+printed side by side. Self-speculative decode: the chunk kernels at the
+verify chunk's shapes (S = 2, 4, 8 rows a slot from per-slot starts; the
+whole view bit-equal to the live band), the reduced engines (half-stack
+and full-depth int8 drafts; dense, paged f32 and int8-token) on card and
+CPU and equal to the card's fused streams, a decode write past a full
+cache (dense, paged, MoE) card vs CPU, phase 5c's full-width speculative
+engines (dense and paged f32) graphed and eager, and the verify chunk's
+kernel times; phase 4 prints the analytical model's phase split of the
+control step on an H100 beside the measured one. Prints
 the card, the phase numbers, one JSON line describing each kernel and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails.
@@ -88,6 +96,12 @@ SERVE_MAX_SEQ, SERVE_TICK = 864, 8
 # prefill check keep every layer
 SERVE_LAYERS = 14
 PAGE = 32
+SPEC_K = 4           # the speculative engines' chunk: 3 drafts + 1
+# phase 5c: (name, engine options, phase 5's engine whose streams it is
+# compared with); the draft is every layer, int8-rounded
+SPEC = dict(spec_decode=True, spec_k=SPEC_K, draft_quant="int8")
+SPEC_ENGINES = [("spec-dense", dict(SPEC), "dense"),
+                ("spec-paged-f32", dict(SPEC, paged=True), "paged-f32")]
 # (name, engine options): the first three carry the gates of the phase
 SERVE_ENGINES = [
     ("dense", {}),
@@ -203,6 +217,14 @@ FLASH_CASES = [("smollm f32", 4, 2048, 2048, 9, 3, 64, "float32", 0, True),
                 "bfloat16", 64, True)]
 
 
+# the speculative verify chunk (phase 2, phase 6): S query rows a slot from
+# per-slot starts, some with rows past the 864-position cache; the low
+# starts' live band (one of 32-row blocks up to 320) is shorter than the view
+VERIFY_S = (2, 4, 8)
+VERIFY_TIMED_S = 4
+VERIFY_STARTS = (0, 31, 32, 300, 639, 830, 858, 863)
+VERIFY_LOW_STARTS = (0, 5, 31, 32, 100, 250, 299, 300)
+VERIFY_PAGES = ("f32", "int8-token", "fp8-token")
 # per-slot decode positions of the engines' 8 slots in phase 2's checks
 SERVE_MIXED = (0, 31, 32, 300, 639, 700, 831, 5)
 # the decode shapes phase 2 also holds against the plain version, dense
@@ -508,6 +530,7 @@ def kernel_checks(cfg):
 
     paged = paged_checks(g, errs, (SERVE_SLOTS, N, K, h), smax)
     paged_chunk = paged_chunk_checks(cfg, g, errs)
+    verify = verify_checks(cfg, g, errs)
     # the other decode shapes: granite-moe-3b-a800m's and the wide groups
     for label, (n_q, n_kv, hd) in DECODE_SHAPES.items():
         print(f"decode shape: {label}")
@@ -521,7 +544,8 @@ def kernel_checks(cfg):
         paged_checks(g, errs, (SERVE_SLOTS, n_q, n_kv, hd), smax)
     return {"decode": (q, kc, vc), "decode_f32": (qs, ks32, vs32),
             "chunk": (qc, kv, vv), "chunk_f32": (q1, k1, v1),
-            "paged": paged, "paged_chunk": paged_chunk}, errs
+            "paged": paged, "paged_chunk": paged_chunk,
+            "verify": verify}, errs
 
 
 def decode_cases(name, q, kc, vc, cases, record):
@@ -856,6 +880,89 @@ def paged_chunk_checks(cfg, g, errs):
     return q2[:1].contiguous(), pools
 
 
+def verify_checks(cfg, g, errs):
+    """Phase 2, the speculative verify chunk's shapes: rows 3 and 4 at
+    S = 2, 4, 8 query rows a slot, B = 8 slots from their own starts (some
+    with rows past the 864-position cache: the engine drops their writes
+    with n_valid, their outputs are never read, and the kernels still
+    compute them) against the plain versions: dense bf16 and f32 views
+    with a bf16 q (an f32 q too, within TF32X3_TOL), paged f32, int8-token
+    and fp8-token pages. Then the live bound: from starts whose band is
+    shorter than the view, the whole view (a whole table) gives the same
+    bits as the band (the table sliced to it), which the graphed
+    speculative tick, captured over the whole view, relies on. Returns
+    the S = 4 inputs for the phase-6 timings."""
+    import torch
+    from repro_torch.kernels.chunk_prefill import ops as cp
+    from repro_torch.kernels.chunk_prefill import paged as pcp
+    from repro_torch.models.layers import band_len
+    dev = torch.device("cuda")
+    B, N, K, h = SERVE_SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, npg = SERVE_MAX_SEQ, SERVE_MAX_SEQ // PAGE
+    starts = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    low = torch.tensor(VERIFY_LOW_STARTS, dtype=torch.int32, device=dev)
+    kb = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+    vb = torch.randn(B, L, K, h, generator=g, device=dev).bfloat16()
+    kf = torch.randn(B, L, K, h, generator=g, device=dev)
+    vf = torch.randn(B, L, K, h, generator=g, device=dev)
+    pools = {name: make_pool(g, kv_dtype, store, 1 + B * npg, B, npg, K, h)
+             for name, kv_dtype, store in PAGED_VARIANTS
+             if name in VERIFY_PAGES}
+    inputs = {}
+    print(f"verify chunk (S = {list(VERIFY_S)}, B = {B}, starts "
+          f"{list(VERIFY_STARTS)}) vs plain versions")
+    for S in VERIFY_S:
+        q = torch.randn(B, S, N, h, generator=g, device=dev).bfloat16()
+        for view, (kv, vv) in (("bf16", (kb, vb)), ("f32", (kf, vf))):
+            key = "chunk_prefill" if view == "bf16" else "chunk_prefill_f32"
+            for qq, tol in ((q, KERNEL_TOL), (q.float(), TF32X3_TOL)):
+                if view == "bf16" and qq.dtype == torch.float32:
+                    continue
+                err = check(f"{view} view, {qq.dtype} q, S={S}",
+                            cp.chunk_prefill_attention(qq, kv, vv, starts),
+                            cp.chunk_prefill_ref(qq.float(), kv, vv, starts),
+                            tol, quiet=True)
+                k = f"{key}/verify" + ("_f32q" if qq.dtype == torch.float32
+                                       else "")
+                errs[k] = max(errs.get(k, 0.0), err)
+            # the live band of the low starts against the whole view
+            Lb = band_len(int(low.max()) + S, PAGE, L)
+            whole = cp.chunk_prefill_attention(q, kv, vv, low)
+            band = cp.chunk_prefill_attention(q, kv[:, :Lb], vv[:, :Lb], low)
+            torch.cuda.synchronize()
+            if not torch.equal(whole, band):
+                raise AssertionError(f"verify chunk ({view} view, S={S}): "
+                                     f"the band of {Lb} and the whole view "
+                                     f"give other bits")
+        for name, (kp, vp, ks, vs, table) in pools.items():
+            key = f"paged_chunk_prefill/{name}/verify"
+            errs[key] = max(errs.get(key, 0.0), check(
+                f"{name} pages, S={S}",
+                pcp.paged_chunk_prefill_attention(q, kp, vp, table, starts,
+                                                  k_scales=ks, v_scales=vs),
+                pcp.paged_chunk_prefill_ref(q.float(), kp, vp, table, starts,
+                                            ks, vs), KERNEL_TOL, quiet=True))
+            Lb = band_len(int(low.max()) + S, PAGE, L)
+            whole = pcp.paged_chunk_prefill_attention(
+                q, kp, vp, table, low, k_scales=ks, v_scales=vs)
+            band = pcp.paged_chunk_prefill_attention(
+                q, kp, vp, band_table(table, Lb), low, k_scales=ks,
+                v_scales=vs)
+            torch.cuda.synchronize()
+            if not torch.equal(whole, band):
+                raise AssertionError(f"verify chunk ({name} pages, S={S}): "
+                                     f"the band's pages and the whole table "
+                                     f"give other bits")
+        if S == VERIFY_TIMED_S:
+            inputs = {"q": q, "f32": (kf, vf), "pools": pools,
+                      "starts": starts}
+    for k in sorted(e for e in errs if "/verify" in e):
+        print(f"  {k}: max_abs_err={errs[k]:.3g}")
+    print(f"  the live band and the whole view (table) give the same bits "
+          f"(starts {list(VERIFY_LOW_STARTS)}, every view and page type)")
+    return inputs
+
+
 def moe_experts(g, cfg, C: int, dtype):
     """Seeded capacity buffer x [E,C,D] and expert weights wi, wg [E,D,F],
     wo [E,F,D] (normal / sqrt(fan_in)) of ``cfg`` on the card."""
@@ -1001,32 +1108,125 @@ def serving_card_vs_cpu(cfg, p_cpu, p_gpu):
                               ("paged-int8-token-chunked",
                                dict(paged=True, kv_dtype="int8",
                                     scale_granularity="token")))]
-    engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=2)
+    res = engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=2)
+    spec_card_vs_cpu(cfg, p_cpu, p_gpu, reqs,
+                     {layout: res[layout][0] for layout in
+                      ("dense", "paged-f32", "paged-int8-token")})
 
 
-def engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots: int):
+def engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots: int,
+                        opts=None):
     """Each run (name, engine options, requests, max_seq) on the card
     (kernels) and on the CPU (plain versions): every request finishes and
-    the greedy streams are equal."""
+    the greedy streams are equal. Returns {name: (streams, card
+    engine)}."""
+    import warnings
     from repro_torch.models import model as M
     from repro_torch.serving import Request, ServingEngine
+    out = {}
     for name, kw, rq, max_seq in runs:
-        streams = []
+        streams, engines = [], []
         for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
-            eng = ServingEngine(cfg, M.ModelOptions(), params,
+            eng = ServingEngine(cfg, opts or M.ModelOptions(), params,
                                 n_slots=n_slots, max_seq=max_seq, eos=-1,
                                 tick_tokens=4, page_size=PAGE, device=dev,
                                 **kw)
             for i, (prompt, m, px) in enumerate(rq):
                 eng.submit(Request(uid=i, prompt=prompt, max_tokens=m,
                                    patches=px))
-            streams.append({r.uid: r.out_tokens for r in eng.run()})
+            with warnings.catch_warnings():
+                # a budget clamped to the cache (the write-past-the-cache
+                # runs) warns; the run's gates are the streams
+                warnings.simplefilter("ignore", RuntimeWarning)
+                streams.append({r.uid: r.out_tokens for r in eng.run()})
+            engines.append(eng)
         if streams[0] != streams[1] or len(streams[0]) != len(rq):
             raise AssertionError(f"reduced serving ({name}): card "
                                  f"{streams[0]} vs CPU {streams[1]}")
         print(f"  reduced serving engine, {name}: {len(rq)} streams equal "
               f"on card and CPU ({sum(map(len, streams[0].values()))} "
               f"tokens)")
+        out[name] = (streams[0], engines[0])
+    return out
+
+
+def fault_requests(cfg, rng, max_seq: int):
+    """The write-past-a-full-cache repro at the card's page size: 2 slots,
+    the first request's prefill (vision prefix and prompt) 6 positions
+    short of ``max_seq`` and asking for 20 tokens, the second a 3-token
+    prompt asking for 12: the first one's budget is clamped to the cache
+    and its index reaches ``max_seq`` while the other slot still decodes
+    (masked steps, then retired-slot steps, write past the cache)."""
+    n_prefix = cfg.vision.num_tokens if cfg.vision else 0
+
+    def patches():
+        return (rng.standard_normal((n_prefix, cfg.vision.embed_dim),
+                                    dtype=np.float32) if n_prefix else None)
+    return [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+             patches()) for n, m in ((max_seq - 6 - n_prefix, 20), (3, 12))]
+
+
+def spec_card_vs_cpu(cfg, p_cpu, p_gpu, reqs, fused):
+    """Phase 3, self-speculative decode on the reduced model (f32): K = 4
+    with the half-stack draft and with the full-depth int8 draft, dense,
+    paged f32 and paged int8-token; card and CPU streams equal, and the
+    card's spec streams equal its fused streams (``fused``: {layout:
+    streams}). Then verify_chunk on the card over the whole view and over
+    the live band, the same bits; and the write-past-a-full-cache repro,
+    dense and paged, card vs CPU."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    L = cfg.num_layers
+    runs, layout_of = [], {}
+    for layout, kw in (("dense", {}), ("paged-f32", dict(paged=True)),
+                       ("paged-int8-token",
+                        dict(paged=True, kv_dtype="int8",
+                             scale_granularity="token"))):
+        for draft, dkw in (("half", {}), ("int8-full",
+                                          dict(draft_layers=L,
+                                               draft_quant="int8"))):
+            name = f"spec-{layout}-{draft}"
+            layout_of[name] = layout
+            runs.append((name, dict(kw, spec_decode=True, spec_k=SPEC_K,
+                                    **dkw), reqs, 64))
+    res = engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=2)
+    for name, (streams, eng) in res.items():
+        layout = layout_of[name]
+        if streams != fused[layout]:
+            raise AssertionError(f"reduced {name}: card spec streams differ "
+                                 f"from the card's fused {layout} streams")
+        rep = eng.stats.phase_report()
+        print(f"  {name}: = the card's fused {layout} streams; accepted a "
+              f"pass {rep['spec_accept_per_pass']:.3f}, histogram "
+              f"{rep['spec_accept_hist']}, masked rounds "
+              f"{eng.masked_steps}, syncs {eng.stats.decode_syncs} over "
+              f"{eng.stats.ticks} ticks")
+    rng = np.random.default_rng(SEED + 12)
+    caches = M.init_caches(cfg, 3, 64, torch.float32, device="cuda")
+    for _, t in leaves(caches):
+        t.normal_()
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, SPEC_K)),
+                           device="cuda")
+    start = torch.tensor([3, 17, 25], dtype=torch.int32, device="cuda")
+    outs = []
+    for live in (None, 32):
+        fresh = {}
+        for path, t in leaves(caches):
+            set_leaf(fresh, path, t.clone())
+        outs.append(M.verify_chunk(cfg, M.ModelOptions(), p_gpu, toks,
+                                   fresh, start, live_len=live,
+                                   device="cuda")[0])
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("reduced verify_chunk: the whole view and the "
+                             "live band give other bits on the card")
+    print("  reduced verify_chunk on the card: the whole view (64) and the "
+          "live band (32) give the same bits")
+    fault = fault_requests(cfg, rng, 64)
+    past_the_cache(engines_card_vs_cpu(
+        cfg, p_cpu, p_gpu, [("write-past-cache-dense", {}, fault, 64),
+                            ("write-past-cache-paged", dict(paged=True),
+                             fault, 64)], n_slots=2))
 
 
 def moe_card_vs_cpu(cfg_full):
@@ -1072,6 +1272,25 @@ def moe_card_vs_cpu(cfg_full):
              64),
             ("moe-paged-f32-chunked", chunked, long_reqs, 128)]
     engines_card_vs_cpu(cfg, p_cpu, p_gpu, runs, n_slots=3)
+    # the write-past-a-full-cache repro under capacity dispatch: a done
+    # row's hidden state competes with the live one's
+    past_the_cache(engines_card_vs_cpu(
+        cfg, p_cpu, p_gpu, [("moe-write-past-cache-dense", {},
+                             fault_requests(cfg, rng, 32), 32)], n_slots=2,
+        opts=M.ModelOptions(moe_capacity_factor=0.5)))
+
+
+def past_the_cache(res):
+    """The repro's runs really wrote past the cache: the first request
+    emitted the 7 tokens its clamped budget allows (the prefill's and 6
+    decoded, its index ending at max_seq) and later steps of its tick ran
+    masked."""
+    for name, (streams, eng) in res.items():
+        if len(streams[0]) != 7 or not eng.masked_steps:
+            raise AssertionError(f"{name}: {len(streams[0])} tokens, "
+                                 f"{eng.masked_steps} masked steps")
+        print(f"  {name}: the clamped request's index reached max_seq; "
+              f"{eng.masked_steps} masked steps wrote past the cache")
 
 
 def full_params(cfg):
@@ -1218,6 +1437,7 @@ def full_width(cfg, params):
                   f"{n} {t:.2f}" for n, t in phase_ms[mode].items())
               + f"); action-generation share {act_share:.4f}; CoT+action "
               f"decode share {dec_share:.4f}")
+    simulated_split(cfg, phase_ms["graphed"])
     runner = graphs["graphed"].runner
     print(f"  vla_control_step (graphed, vision precomputed, first call) "
           f"{step_s * 1e3:.2f} ms by host clock; peak memory {peak_gb:.2f} "
@@ -1242,6 +1462,37 @@ def full_width(cfg, params):
         decode_breakdown(run_steps, phase_ms[mode]["action_decode"] / n_act,
                          label=f"decode step ({mode})")
     return launches
+
+
+def simulated_split(cfg, measured):
+    """Phase 4, the paper's Fig. 2 question asked of the card: the
+    analytical model's phase split of the same control step (``core.
+    xpu_sim.simulate_vla`` at B = FULL_B) on an H100 built from this
+    script's data-sheet constants (HBM rate, bf16 peak; the model's
+    default efficiencies), beside the graphed step's measured split
+    (``measured``: ms by phase, medians). The generation fraction is the
+    paper's: prefill + CoT decode over the step."""
+    from repro_torch.core.hardware import Hardware
+    from repro_torch.core.xpu_sim import simulate_vla
+    hw = Hardware("h100", mem_bw_gbs=HBM_BYTES_PER_S / 1e9,
+                  bf16_tflops=OPS_PER_S["bfloat16"] / 1e12, hbm_gb=80)
+    sim = simulate_vla(cfg, hw, B=FULL_B)
+    sim_ms = {p: t * 1e3 for p, t in sim.phase_seconds().items()}
+    names = dict(zip(("vision_encode", "generation_prefill",
+                      "generation_decode", "action_generate"),
+                     ("vision", "prefill", "cot_decode", "action_decode")))
+    total = sum(measured.values())
+    gen = (measured["prefill"] + measured["cot_decode"]) / total
+    print(f"  analytical model (simulate_vla, {hw.name}: "
+          f"{hw.mem_bw_gbs:g} GB/s, {hw.bf16_tflops:g} TFLOP/s bf16, "
+          f"gemm_eff {hw.gemm_eff}, gemv_bw_eff {hw.gemv_bw_eff}; B="
+          f"{FULL_B}) vs measured (graphed, median): " + ", ".join(
+              f"{m} {sim_ms[p]:.2f} vs {measured[m]:.2f} ms"
+              for p, m in names.items())
+          + f"; step {sim.e2e * 1e3:.2f} vs {total:.2f} ms; generation "
+          f"fraction {sim.generation_fraction:.4f} vs {gen:.4f}; action "
+          f"share {sim.phase_fractions()['action_generate']:.4f} vs "
+          f"{measured['action_decode'] / total:.4f}")
 
 
 def graph_step_checks(label: str, runner, reset):
@@ -1555,8 +1806,9 @@ def serving_full(cfg, params):
             raise AssertionError(f"full-width serving ({name}): {failed}")
         streams[name] = out
         results[name] = (launches, eng.stats, eng.masked_steps)
-        if name == "dense":
-            tick_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers)")
+        if name in ("dense", "paged-f32"):
+            tick_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers, "
+                                f"{name})")
         del eng, eager
     for paged, dense in (("paged-f32", "dense"),
                          ("paged-f32-chunked", "dense-chunked")):
@@ -1573,7 +1825,146 @@ def serving_full(cfg, params):
     print(f"  dense-chunked vs dense (admit-stall): share of equal tokens "
           f"{stream_share(streams['dense-chunked'], streams['dense']):.4f} "
           f"(reported, not a gate)")
+    return results, streams
+
+
+def spec_serving_full(cfg, params, fused):
+    """Phase 5c: the full-width self-speculative engines. Phase 5's 16
+    requests, 8 slots, 8-token ticks, f32 caches, pages of 32 and first
+    SERVE_LAYERS layers; K = SPEC_K with the full-depth int8 draft (every
+    layer, weights rounded to int8 codes a channel), dense and paged f32,
+    each with its round replayed from a CUDA graph (the main path) and run
+    eagerly. Gates (``serve_spec``) in each mode, and: graphed streams and
+    launches equal eager ones, a replayed round runs the eager round's
+    kernels in order with at most MAX_GRAPH_LAUNCHES host launch calls.
+    Reported, not gated: the share of tokens equal to phase 5's fused
+    streams (``fused``): the verify chunk runs the chunk kernels and a
+    wider GEMM than a decode step, and near-tie argmaxes of random weights
+    flip. Returns {engine: (launches, stats, masked rounds)}."""
+    t0 = time.perf_counter()
+    obs = observations(cfg, cfg.vocab_size, SEED + 3)
+    cfg, params = first_layers(cfg, params, SERVE_LAYERS)
+    results = {}
+    for name, kw, ref in SPEC_ENGINES:
+        kw = dict(kw, draft_layers=cfg.num_layers)
+        eng, out, launches, gates = serve_spec(cfg, params, obs, name, kw)
+        tick = eng._tick
+        graph_step_checks(f"{name} round", tick.graph, reset=lambda: None)
+        eager, out_e, launches_e, gates_e = serve_spec(
+            cfg, params, obs, name, kw, graphs=False)
+        gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
+        gates["graphed streams equal eager streams"] = out == out_e
+        gates["graphed launches equal eager launches"] = \
+            launches == launches_e
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(f"full-width speculative serving ({name}): "
+                                 f"{failed}")
+        g, e = eng.stats, eager.stats
+        print(f"  {name}, graphed vs eager: decode tick p50/p99 "
+              f"{np.percentile(g.decode_tick_s, 50) * 1e3:.2f}/"
+              f"{np.percentile(g.decode_tick_s, 99) * 1e3:.2f} vs "
+              f"{np.percentile(e.decode_tick_s, 50) * 1e3:.2f}/"
+              f"{np.percentile(e.decode_tick_s, 99) * 1e3:.2f} ms; decode "
+              f"{g.decode_time:.3f} vs {e.decode_time:.3f} s; one capture "
+              f"{tick.graph.capture_s * 1e3:.1f} ms ({tick.graph.captures} "
+              f"captures); share of tokens equal to phase 5's {ref} streams "
+              f"{stream_share(out, fused[ref]):.4f} (reported, not a gate)")
+        round_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers, {name})")
+        results[name] = (launches, eng.stats, eng.masked_steps)
+        del eng, eager
+    print(f"  phase 5c took {time.perf_counter() - t0:.1f} s")
     return results
+
+
+def serve_spec(cfg, params, obs, name: str, kw, graphs: bool = True):
+    """The 16 requests through one full-width speculative engine, its
+    rounds replayed from a CUDA graph or (``graphs=False``) run eagerly;
+    prints its row and returns (engine, {uid: tokens}, launches, gates).
+    Gates: every request finishes with 193 tokens; a round (masked rounds
+    too) launches the decode kernel once a draft layer for each of its
+    spec_k - 1 draft steps and the layout's chunk kernel once a layer for
+    its verify chunk; each admission prefill the dense chunk kernel once a
+    layer; nothing else; one first-token readback per request and at least
+    one readback a tick; a paged pool drains to 0 pages."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    eng, out, wall = run_engine(cfg, params, obs, dict(kw, graphs=graphs),
+                                "cuda")
+    launches = read_launches(kernels)
+    st, L = eng.stats, cfg.num_layers
+    rounds = st.device_steps + eng.masked_steps
+    rep = st.phase_report()
+    n_tok = sum(map(len, out.values()))
+    decode_kernel = ("paged_decode_attention" if eng.paged
+                     else "decode_attention")
+    verify_kernel = "paged_chunk_prefill" if eng.paged else "chunk_prefill"
+    expected = {decode_kernel: rounds * (SPEC_K - 1) * eng.draft_layers,
+                verify_kernel: rounds * L}
+    expected["chunk_prefill"] = expected.get("chunk_prefill", 0) \
+        + 2 * SERVE_OBS * L
+    print(f"  {name} ({'graphed' if graphs else 'eager'}): {len(out)} "
+          f"requests, {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.2f} tokens/s); ticks {st.ticks}, rounds "
+          f"{st.device_steps}, masked rounds {eng.masked_steps} "
+          f"({eng.masked_steps / st.ticks:.3f} a tick), syncs "
+          f"{st.decode_syncs} ({st.decode_syncs / st.ticks:.3f} a tick); "
+          f"verify passes {st.spec_verify_passes}, accepted tokens a pass "
+          f"{rep['spec_accept_per_pass']:.4f}, histogram "
+          f"{rep['spec_accept_hist']}, spec_draft_frac "
+          f"{rep['spec_draft_frac']:.4f}; decode tick p50/p99 "
+          f"{rep['decode_tick_p50'] * 1e3:.2f}/"
+          f"{rep['decode_tick_p99'] * 1e3:.2f} ms; TTFT p50 "
+          f"{rep['ttft_p50'] * 1e3:.2f} ms; phases prefill "
+          f"{st.prefill_time:.3f} s decode {st.decode_time:.3f} s; pages_hwm "
+          f"{st.pages_hwm}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the draft's "
+          f"int8-rounded tree included); launches {launches}")
+    idle = [k for k in launches if not expected.get(k)]
+    gates = {
+        "every request finishes with 193 tokens":
+            len(out) == 2 * SERVE_OBS
+            and all(len(t) == SERVE_TOKENS for t in out.values()),
+        f"{decode_kernel} launches == rounds x {SPEC_K - 1} x "
+        f"{eng.draft_layers}":
+            launches[decode_kernel] == expected[decode_kernel],
+        f"{verify_kernel} launches == rounds x {L} (+ {L} x 16 admissions)":
+            launches[verify_kernel] == expected[verify_kernel],
+        "chunk_prefill launches as expected":
+            launches["chunk_prefill"] == expected["chunk_prefill"],
+        f"{idle} never launched": not any(launches[k] for k in idle),
+        "one first-token readback per request":
+            st.prefill_syncs == 2 * SERVE_OBS,
+        "a readback or more a tick": st.decode_syncs >= st.ticks,
+        "verify passes counted": st.spec_verify_passes > 0,
+    }
+    if eng.paged:
+        gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
+    return eng, out, launches, gates
+
+
+def round_breakdown(eng, label: str):
+    """``decode_breakdown`` of a speculative engine's round after it
+    drained (every round masked, but each a full draft and verify),
+    replayed from its graph and run eagerly; the wall by host clock over
+    4 rounds."""
+    import torch
+    tick = eng._tick
+    for mode, step in (("graphed", lambda: tick.graph.step(tick.graph.key)),
+                       ("eager", tick.graph.body)):
+        def run_steps(n, step=step):
+            for _ in range(n):
+                step()
+        run_steps(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps(4)
+        torch.cuda.synchronize()
+        decode_breakdown(run_steps, (time.perf_counter() - t0) / 4 * 1e3,
+                         label=f"{label} speculative round ({mode})")
 
 
 def stream_share(out, ref) -> float:
@@ -2184,6 +2575,109 @@ def kernel_timings(inputs, errs, launches, serving):
               f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), launches {r['launches']}"
               + ("" if r in rows else " (on no main path)"))
+    return rows
+
+
+def verify_timings(cfg, inputs, errs, spec):
+    """Phase 6, rows 3 and 4 at the speculative verify shape (B = 8 slots,
+    S = VERIFY_TIMED_S rows a slot from VERIFY_STARTS, molmoact's heads,
+    the engines' whole 864-position view or 27-page table, bf16 q): the
+    dense kernel over the f32 view, the paged one over f32 and int8-token
+    pages, launched one by one and replayed from a CUDA graph, each call's
+    inputs cold in the L2; the plain version's time; the bound from the
+    shapes (each slot's keys up to its last row read once, q read and the
+    output written once; the causal pairs' operations at the f32 rate, as
+    the other f32 rows); SDPA with a boolean mask over the dense view as
+    the library time. Launches are phase 5c's verify chunks (its
+    admission prefills left out); int8-token pages run on no engine of
+    phase 5c, so that row is printed and kept out of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.chunk_prefill import ops as cp
+    from repro_torch.kernels.chunk_prefill import paged as pcp
+    q, (kf, vf), pools = inputs["q"], inputs["f32"], inputs["pools"]
+    starts = inputs["starts"]
+    B, S, N, h = q.shape
+    L, K = kf.shape[1], kf.shape[2]
+    first = torch.tensor(VERIFY_STARTS)
+    pos = (first[:, None] + torch.arange(S)).clamp(max=L - 1)   # [B, S]
+    keys = int((first + S).clamp(max=L).sum())     # rows each slot reads
+    pairs = int((pos + 1).sum())                   # causal (row, key) pairs
+    ops = 4 * N * h * pairs
+    q_bytes = 2 * q.numel() * q.element_size()
+    n_attn = SERVE_LAYERS
+    dense_v = spec["spec-dense"][0]["chunk_prefill"] \
+        - 2 * SERVE_OBS * n_attn
+    paged_v = spec["spec-paged-f32"][0]["paged_chunk_prefill"]
+    rows, off_path = [], []
+
+    def clone(t):
+        return None if t is None else t.clone()
+
+    # the dense f32 view, against SDPA with the same causal mask
+    nbytes = q_bytes + keys * K * h * 2 * kf.element_size()
+    t_b, by = bound(nbytes, ops, kf.dtype)
+    copies = [(kf, vf)] + [(kf.clone(), vf.clone())
+                           for _ in range(cold_copies(nbytes) - 1)]
+    qpos = starts.long()[:, None] + torch.arange(S, device=q.device)
+    mask = (torch.arange(L, device=q.device)[None, None]
+            <= qpos[..., None])[:, None]                     # [B,1,S,L]
+    qs = q.transpose(1, 2).float()
+    kernel = cycling(lambda k, v: cp.chunk_prefill_attention(q, k, v,
+                                                             starts), copies)
+    library = cycling(lambda k, v: F.scaled_dot_product_attention(
+        qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), copies)
+    print(f"  verify chunk (B={B}, S={S}, starts {list(VERIFY_STARTS)}): "
+          f"{len(copies)} copies of the f32 view in turn (L2 cold)")
+    row = {"name": "chunk_prefill/verify_f32_kv", "route": "cuda",
+           "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
+                     "chunk_tf32.cuh",
+           "replaces": "src/repro/kernels/chunk_prefill/chunk_prefill.py:152",
+           "launches": dense_v,
+           "max_abs_err": errs["chunk_prefill_f32/verify"],
+           "ms": time_ms(kernel, 50),
+           "plain_ms": time_ms(lambda: cp.chunk_prefill_ref(q, kf, vf,
+                                                            starts), 5),
+           "bound_ms": t_b, "bound_by": by, "library_ms": time_ms(library, 50)}
+    redesigned(row, "SDPA", kernel, library)
+    rows.append(row)
+    for name, launches in (("f32", paged_v), ("int8-token", 0)):
+        kp, vp, ks, vs, table = pools[name]
+        nbytes = (q_bytes + keys * K * h * 2 * kp.element_size()
+                  + B * table.shape[1] * 4)                   # table entries
+        if ks is not None:
+            nbytes += keys * K * 2 * 4                        # a row's scales
+        t_b, by = bound(nbytes, ops, kp.dtype)
+        copies = [(kp, vp, ks, vs)] + [
+            (kp.clone(), vp.clone(), clone(ks), clone(vs))
+            for _ in range(cold_copies(nbytes) - 1)]
+        kernel = cycling(lambda kp, vp, ks, vs, table=table:
+                         pcp.paged_chunk_prefill_attention(
+                             q, kp, vp, table, starts, k_scales=ks,
+                             v_scales=vs), copies)
+        row = {"name": f"paged_chunk_prefill/verify_{name}", "route": "cuda",
+               "source": "src/repro_torch/kernels/chunk_prefill/csrc/"
+                         + ("paged_chunk_prefill.cu" if name == "f32"
+                            else "paged_chunk_int8.cu"),
+               "replaces": "src/repro/kernels/chunk_prefill/paged.py:135",
+               "launches": launches,
+               "max_abs_err": errs[f"paged_chunk_prefill/{name}/verify"],
+               "ms": time_ms(kernel, 50),
+               "plain_ms": time_ms(lambda kp=kp, vp=vp, ks=ks, vs=vs,
+                                   table=table: pcp.paged_chunk_prefill_ref(
+                                       q, kp, vp, table, starts, ks, vs), 5),
+               "bound_ms": t_b, "bound_by": by, "library_ms": None}
+        redesigned(row, None, kernel, None)
+        (rows if launches else off_path).append(row)
+    for r in rows + off_path:
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), launches {r['launches']}, launches x "
+              f"(ms - bound) {r['launches'] * (r['ms'] - r['bound_ms']):.1f}"
+              f" ms" + ("" if r in rows else " (on no main path)"))
     return rows
 
 
@@ -2857,8 +3351,11 @@ def main() -> int:
     print("phase 4: full-width control step")
     launches = full_width(cfg, params)
     print("phase 5: full-width serving engine")
-    serving = serving_full(cfg, params)
+    serving, fused_streams = serving_full(cfg, params)
     prefill_consistency(cfg, params)
+    print("phase 5c: full-width self-speculative serving engine")
+    spec_serving = spec_serving_full(cfg, params, fused_streams)
+    del fused_streams
     del params
     torch.cuda.empty_cache()
     print(f"phase 7: full-width {MOE_ARCH} serving engine")
@@ -2871,6 +3368,7 @@ def main() -> int:
     train_launches = train_full()
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
+    rows += verify_timings(cfg, inputs["verify"], errs, spec_serving)
     rows += moe_timings(moe_cfg, moe_errs, moe_serving)
     rows += ssd_timings(ssd_inputs_640, ssd_errs, ssm_serving)
     for r in rows[-2 * len(MOE_C) - 1:]:

@@ -106,6 +106,51 @@ class ModelConfig:
             return False
         return i % self.moe_every == self.moe_every - 1
 
+    def param_counts(self) -> dict:
+        """Analytical parameter counts, split by component (the analytical
+        model's, ``core.scaling`` and ``core.workload``)."""
+        d, hd = self.d_model, self.head_dim
+        counts = {"embed": self.vocab_size * d,
+                  "lm_head": 0 if self.tie_embeddings
+                  else self.vocab_size * d}
+        attn = mlp = moe = ssm = 0.0
+        for i in range(self.num_layers):
+            if self.is_attn_layer(i):
+                q = d * self.num_heads * hd
+                kv = 2 * d * self.num_kv_heads * hd
+                o = self.num_heads * hd * d
+                attn += q + kv + o
+            elif self.family in ("ssm", "hybrid"):
+                d_in = self.ssm_expand * d
+                nheads = d_in // self.ssm_head_dim
+                ssm += (d * (2 * d_in + 2 * self.ssm_state + nheads)
+                        + d_in * d)
+            if self.is_moe_layer(i):
+                moe += (self.num_experts * 3 * d * self.moe_d_ff
+                        + d * self.num_experts)
+                if self.dense_residual and self.d_ff:
+                    mlp += 3 * d * self.d_ff
+            elif self.d_ff and self.family != "ssm":
+                gate = 3 if self.act in ("silu", "gelu") else 2
+                mlp += gate * d * self.d_ff
+        tower = 0.0
+        for enc in (self.encoder, self.vision):
+            if enc is not None:
+                # MHA (4 d^2) + plain-gelu MLP (2 d d_ff) per layer + projector
+                tower += enc.num_layers * (4 * enc.d_model ** 2
+                                           + 2 * enc.d_model * enc.d_ff)
+                tower += enc.embed_dim * enc.d_model + enc.d_model * d
+        counts.update(attn=attn, mlp=mlp, moe=moe, ssm=ssm, tower=tower)
+        counts["total"] = sum(counts.values())
+        # active params per token (MoE: only top_k experts fire)
+        active = counts["total"] - moe
+        for i in range(self.num_layers):
+            if self.is_moe_layer(i):
+                active += (self.top_k * 3 * d * self.moe_d_ff
+                           + d * self.num_experts)
+        counts["active"] = active
+        return counts
+
     def reduced(self) -> "ModelConfig":
         """Same family/topology, tiny dimensions (the CPU test size)."""
         kv = max(1, min(self.num_kv_heads, 2))

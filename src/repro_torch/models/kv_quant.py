@@ -14,8 +14,8 @@
 
 Rounding follows the reference: int8 rounds half to even (``torch.round``
 as ``jnp.round``) and clips to +-127; fp8 clamps to +-448 first, then
-casts with round-to-nearest-even. ``fake_quantize_tree`` comes with
-speculative decode (ROADMAP item 9).
+casts with round-to-nearest-even. ``fake_quantize_tree`` makes the
+weight-quantized draft of self-speculative decode.
 """
 from __future__ import annotations
 
@@ -82,3 +82,37 @@ def quantize_page_rows(rows, dtype, granularity: str = "head"):
     bcast = (scales[..., None, :, None] if granularity == "head"
              else scales[..., None])
     return encode(rows, bcast, dtype), scales
+
+
+def fake_quantize_tree(params, kv_dtype: str):
+    """Round-trip a parameter tree through ``kv_dtype`` codes: the
+    self-speculative weight-quantized draft, which runs in the weights'
+    own dtype with int8/fp8 precision. Per-output-channel symmetric scales
+    (amax over every axis but the last, the stacked layer axis included,
+    as in the reference). Matrices (``dim >= 2``) of a floating type
+    quantize; vectors and integer leaves pass through as they are. Returns
+    a new tree of the same dtypes ("bf16": ``params`` itself).
+
+    The encode is ``encode``'s, so fp8 clamps to +-448 before the cast;
+    under a per-channel amax scale ``|x / scale| <= 448`` up to rounding,
+    where the reference's saturating cast gives the same code, so the
+    clamp changes no weight."""
+    dtype = quant_dtype(kv_dtype)
+    if dtype is None:
+        return params
+
+    def leaf(x):
+        if x.dim() < 2 or not x.is_floating_point():
+            return x
+        # the amax of x's own type is exact; the round trip goes in pieces
+        # of the leading axis, so the f32 temporaries stay small
+        scale = (x.abs().amax(dim=tuple(range(x.dim() - 1)), keepdim=True)
+                 .float() / qmax(dtype))
+        rows = max(1, (1 << 26) // max(1, x[0].numel()))
+        return torch.cat([decode(encode(part, scale, dtype), scale)
+                          .to(x.dtype) for part in x.split(rows)])
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in tree.items()}
+    return walk(params)

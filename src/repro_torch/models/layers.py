@@ -304,32 +304,83 @@ def update_cache(cache, new, index: int):
     return cache
 
 
-def update_cache_chunk(cache, new, index, n_valid=None):
-    """Write ``new`` [B,C,K,h] into ``cache`` [B,Smax,K,h] at positions
-    ``index .. index+C-1`` (``index`` int or per-slot [B] tensor), in
-    place. With ``n_valid`` (int or [B]; the padding tail of a partial
-    final chunk), rows at or past it, and rows past the cache, are dropped,
-    as the reference's out-of-bounds scatter drops them. Positions and the
-    drop are computed on the device, so a device index or ``n_valid``
-    costs no host sync: a dropped row rewrites the value its target
-    already holds, and a target past the cache moves back by C, below the
-    chunk's first position, so no two rows of one slot share a target."""
-    B, C = new.shape[:2]
-    dev = cache.device
+def chunk_write_plan(index, n_valid, B: int, C: int, smax: int, dev):
+    """Where ``update_cache_chunk`` writes C rows of B slots from
+    ``index`` (int or [B]) into a dense cache of ``smax`` rows: (rows
+    [B,1], positions [B,C], keep [B,C]). Rows past the cache, and with
+    ``n_valid`` (int or [B]) rows at or past it, are not kept; a position
+    past the cache moves back by C, below the chunk's first row, so no two
+    rows of one slot share a target. Computed once for a layer's K and V
+    write, on the device (no host sync)."""
     r = torch.arange(C, device=dev)[None]                         # [1, C]
     pos = slot_index(index, B, dev).long()[:, None] + r           # [B, C]
-    rows = torch.arange(B, device=dev)[:, None]
-    new = new.to(cache.dtype)
+    inside = pos < smax
+    keep = inside
     if n_valid is not None:
-        inside = pos < cache.shape[1]
         keep = inside & (r < slot_index(n_valid, B, dev).long()[:, None])
-        pos = torch.where(inside, pos, pos - C)
-        new = torch.where(keep[..., None, None], new, cache[rows, pos])
-    cache[rows, pos] = new
+    return (torch.arange(B, device=dev)[:, None],
+            torch.where(inside, pos, pos - C), keep)
+
+
+def update_cache_chunk(cache, new, index, n_valid=None, plan=None):
+    """Write ``new`` [B,C,K,h] into ``cache`` [B,Smax,K,h] at positions
+    ``index .. index+C-1`` (``index`` int or per-slot [B] tensor), in
+    place. Rows past the cache, and with ``n_valid`` (int or [B]; the
+    padding tail of a partial final chunk, a dead draft row) rows at or
+    past it, are dropped, as the reference's out-of-bounds scatter drops
+    them: a decode step of a slot whose index reached ``Smax`` (a request
+    its budget cut to the cache) writes nothing. A dropped row rewrites
+    the value its target already holds (``chunk_write_plan``; ``plan``:
+    one computed already)."""
+    B, C = new.shape[:2]
+    rows, pos, keep = plan or chunk_write_plan(index, n_valid, B, C,
+                                               cache.shape[1], cache.device)
+    cache[rows, pos] = torch.where(keep[..., None, None],
+                                   new.to(cache.dtype), cache[rows, pos])
     return cache
 
 
-def update_cache_paged(pages, new, page_table, index, scales=None):
+def _last_writer(pid, row, writes):
+    """For each of B row writes to cells (``pid``, ``row``) [B], the last
+    row ``b'`` with ``writes[b']`` that targets the same cell, or -1: the
+    write that wins when XLA applies a scatter's duplicates in order. Each
+    row then writes the winner's value (or, with none, what the cell
+    holds), so every duplicate writes one value and the result does not
+    depend on the device's write order."""
+    b = torch.arange(pid.shape[0], device=pid.device)
+    same = ((pid[:, None] == pid[None]) & (row[:, None] == row[None])
+            & writes[None])
+    return torch.where(same, b[None], -1).amax(1)
+
+
+def paged_write_plan(page_table, index, B: int, ps: int, valid=None,
+                     last: bool = True):
+    """Where ``update_cache_paged`` writes one row of each of B slots at
+    ``index`` (int or [B]) through ``page_table`` [B, npg] into pages of
+    ``ps`` rows: (page ids [B], rows [B], dropped [B], live [B] or None,
+    the last writer of each row's cell [B] or None). ``valid`` masks rows
+    into the null page; a row at or past ``npg * ps`` that ``valid`` does
+    not mask is dropped (its page column clamped for the gather). Computed
+    once for a layer's K and V write, on the device; ``last`` only for
+    writes of single rows (unquantized and token-scale pools)."""
+    npg = page_table.shape[1]
+    dev = page_table.device
+    idx = slot_index(index, B, dev).long()
+    col = idx // ps
+    pid = page_table.long().gather(1, col.clamp(max=npg - 1)[:, None])[:, 0]
+    drop, live = col >= npg, None
+    if valid is not None:
+        live = torch.as_tensor(valid, device=dev).reshape(-1).expand(B) \
+            .bool()
+        drop = drop & live
+        pid = torch.where(live, pid, 0)
+    row = idx % ps
+    return (pid, row, drop, live,
+            _last_writer(pid, row, ~drop) if last else None)
+
+
+def update_cache_paged(pages, new, page_table, index, scales=None,
+                       valid=None, plan=None):
     """Write the decode token's KV ``new`` [B,1,K,h] into the page pool
     ``pages`` [P, ps, K, h] in place, quantizing on write for an int8/fp8
     pool. Position i of slot b lives at (page_table[b, i // ps], i % ps);
@@ -345,6 +396,15 @@ def update_cache_paged(pages, new, page_table, index, scales=None):
     so its contents must be the reference's. Live slots own distinct
     pages, so no two live writes collide.
 
+    ``valid`` ([B] bool or 0/1; a draft step's dead rows and rows past the
+    cache) sends the rows it masks to the null page as zeros, as the
+    reference's ``valid`` does. A row at or past the table's last position
+    (a slot whose index reached ``npg * ps``), unless ``valid`` masks it,
+    writes nothing: the page column is clamped to ``npg - 1`` for the
+    gather, and the write is dropped, as the reference's does (its gather
+    fills the page id with the least int32, which its scatter drops).
+    ``plan``: ``paged_write_plan``'s, computed already.
+
     Quantized pools follow the reference's two policies:
     - ``scales`` [P, ps, K] ("token"): the row's codes and its scale are
       replaced; nothing else is touched.
@@ -354,31 +414,40 @@ def update_cache_paged(pages, new, page_table, index, scales=None):
       reference skips the page round trip with ``lax.cond`` when no scale
       grew; here every step takes it, because a host branch would read a
       device value. The result is bit-identical: at a fixed scale
-      ``encode(decode(c)) == c`` for int8 and fp8 codes."""
+      ``encode(decode(c)) == c`` for int8 and fp8 codes, which also makes
+      a dropped row's page write (old scale, no row inserted) a no-op."""
     ps = pages.shape[1]
     B = new.shape[0]
-    idx = slot_index(index, B, pages.device).long()
-    pid = page_table.long().gather(1, (idx // ps)[:, None])[:, 0]    # [B]
-    row = idx % ps
+    dev = pages.device
+    pid, row, drop, live, last = plan or paged_write_plan(
+        page_table, index, B, ps, valid,
+        last=scales is None or scales.dim() == 3)
+    if live is not None:
+        new = torch.where(live[:, None, None, None], new, 0.0)
     sink = (pid == 0)[:, None, None]                                 # [B,1,1]
     if scales is None:
-        b = torch.arange(B, device=pages.device)
-        same = (pid[:, None] == pid[None]) & (row[:, None] == row[None])
-        last = torch.where(same, b[None], -1).amax(1)    # the last writer
-        pages[pid, row] = new[last, 0].float().to(pages.dtype)
+        pages[pid, row] = torch.where(
+            (last >= 0)[:, None, None],
+            new[last.clamp(min=0), 0].float().to(pages.dtype),
+            pages[pid, row])
         return pages, None
     tok = torch.where(sink, 0.0, new[:, 0].float())                  # [B,K,h]
     tok_scale = tok.abs().amax(-1) / kv_quant.qmax(pages.dtype)      # [B,K]
     if scales.dim() == 3:
-        pages[pid, row] = kv_quant.encode(tok, tok_scale[..., None],
-                                          pages.dtype)
-        scales[pid, row] = tok_scale
+        won = (last >= 0)[:, None]
+        codes = kv_quant.encode(tok, tok_scale[..., None], pages.dtype)
+        pages[pid, row] = torch.where(won[..., None],
+                                      codes[last.clamp(min=0)],
+                                      pages[pid, row])
+        scales[pid, row] = torch.where(won, tok_scale[last.clamp(min=0)],
+                                       scales[pid, row])
         return pages, scales
     old_scale = scales[pid]                                          # [B,K]
-    new_scale = torch.where(sink[:, :, 0], old_scale,
+    new_scale = torch.where((sink[:, :, 0] | drop[:, None]), old_scale,
                             torch.maximum(old_scale, tok_scale))
     page_f = kv_quant.decode(pages[pid], old_scale[:, None, :, None])
-    page_f[torch.arange(B, device=pages.device), row] = tok
+    b = torch.arange(B, device=dev)
+    page_f[b, row] = torch.where(drop[:, None, None], page_f[b, row], tok)
     pages[pid] = kv_quant.encode(page_f, new_scale[:, None, :, None],
                                  pages.dtype)
     scales[pid] = new_scale
@@ -582,8 +651,17 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
     if cache is not None and page_table is not None:
         k_sc, v_sc = cache[2:] if len(cache) == 4 else (None, None)
         if S == 1:
-            update_cache_paged(cache[0], k, page_table, cache_index, k_sc)
-            update_cache_paged(cache[1], v, page_table, cache_index, v_sc)
+            # n_valid (0 or 1 a slot; a draft step's) masks dead rows and
+            # rows past the cache into the null page
+            valid = None if n_valid is None else \
+                slot_index(n_valid, B, x.device) > 0
+            plan = paged_write_plan(page_table, cache_index, B,
+                                    cache[0].shape[1], valid,
+                                    last=k_sc is None or k_sc.dim() == 3)
+            update_cache_paged(cache[0], k, page_table, cache_index, k_sc,
+                               plan=plan)
+            update_cache_paged(cache[1], v, page_table, cache_index, v_sc,
+                               plan=plan)
         else:
             update_cache_paged_chunk(cache[0], k, page_table, cache_index,
                                      n_valid, k_sc)
@@ -603,8 +681,10 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
                                       "item 12")
         if S > smax:
             raise ValueError(f"prefill length {S} exceeds cache {smax}")
-        update_cache_chunk(cache[0], k, cache_index, n_valid)
-        update_cache_chunk(cache[1], v, cache_index, n_valid)
+        plan = chunk_write_plan(cache_index, n_valid, B, S, smax,
+                                cache[0].device)
+        update_cache_chunk(cache[0], k, cache_index, plan=plan)
+        update_cache_chunk(cache[1], v, cache_index, plan=plan)
         whole = (isinstance(cache_index, int) and cache_index == 0
                  and S == smax)
         mode = "decode" if S == 1 else ("fresh" if whole else "chunk")

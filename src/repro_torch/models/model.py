@@ -10,6 +10,10 @@
                                    caches, s, n_valid=n)
     logits, caches = decode_step(cfg, opts, params, tok, caches, index)
     logits, caches = decode_step(..., page_table=table)   # paged pools
+    logits, caches = draft_step(cfg, opts, params, tok, caches, index,
+                                draft_blocks, n_valid=nv)  # speculative
+    logits, caches = verify_chunk(cfg, opts, params, toks, caches, index,
+                                  n_valid=nv)          # logits [B, K, V]
     toks, last, caches = decode_loop(cfg, opts, params, tok, caches,
                                      index, n_steps)   # one graph a step
 
@@ -36,7 +40,8 @@ from repro_torch.models.layers import ModelOptions, apply_norm
 from repro_torch.models.stacks import init_caches  # re-export
 
 __all__ = ["model_template", "forward", "prefill", "embed_prompt",
-           "prefill_chunk", "decode_step", "decode_loop", "DecodeGraph",
+           "prefill_chunk", "decode_step", "draft_step", "verify_chunk",
+           "decode_loop", "DecodeGraph",
            "encode_vision",
            "init_params", "init_caches", "ModelOptions"]
 
@@ -266,6 +271,64 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
                                      positions, caches=caches,
                                      cache_index=index,
                                      page_table=page_table)
+    return _logits(params, x, cfg), caches
+
+
+def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
+               index, draft_blocks: int, page_table=None, n_valid=None, *,
+               device="cuda"):
+    """The self-speculative draft pass: ``decode_step`` through the
+    leading ``draft_blocks`` stacked blocks only (``stacks.apply_decoder(
+    n_blocks=)``), leaving through the shared final norm and lm head. Its
+    layers' KV lands in the same caches, where the verify pass rewrites
+    it. ``n_valid`` (0 or 1 a slot, int or [B]) keeps a dead slot's row,
+    and a row past the cache, out of the cache: dropped from a dense
+    cache, sent to the null page of a pool. Returns (logits [B,1,V],
+    caches)."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    token = _on(token, dev, torch.long)
+    B = token.shape[0]
+    positions = _positions(index, B, 1, dev)
+    x = _embed_tokens(params, token)
+    if page_table is not None:
+        page_table = _on(page_table, dev, torch.int32)
+    x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
+                                     positions, caches=caches,
+                                     cache_index=index,
+                                     page_table=page_table, n_valid=n_valid,
+                                     n_blocks=draft_blocks)
+    return _logits(params, x, cfg), caches
+
+
+def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
+                 caches, cache_index, n_valid=None, page_table=None,
+                 live_len=None, *, device="cuda"):
+    """The self-speculative verify pass: K candidate tokens [B, K] a slot
+    through the full model as one chunk (the chunk-prefill kernels) from
+    each slot's own start ``cache_index`` (int or [B]). Returns the logits
+    of every row [B, K, V] (acceptance reads all K argmaxes) and the
+    caches, every layer's KV rewritten at ``cache_index .. +K-1`` (which
+    erases the draft's rows and an earlier round's rejected ones before
+    anything reads them). ``n_valid`` (int or [B]) keeps rows past a
+    slot's cache, and a dead slot's, out of the write path; their logits
+    are never accepted. ``live_len`` bounds the chunk core's key axis
+    (None: the whole view); the kernels skip each slot's key blocks past
+    its last row either way, so the bound changes no bit."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    _refuse_ssm_resume(cfg)
+    tokens = _on(tokens, dev, torch.long)
+    B, K = tokens.shape
+    positions = _positions(cache_index, B, K, dev)
+    x = _embed_tokens(params, tokens)
+    if page_table is not None:
+        page_table = _on(page_table, dev, torch.int32)
+    x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
+                                     positions, caches=caches,
+                                     cache_index=cache_index,
+                                     page_table=page_table, n_valid=n_valid,
+                                     live_len=live_len)
     return _logits(params, x, cfg), caches
 
 

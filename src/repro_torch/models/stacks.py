@@ -237,13 +237,25 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
                   positions, caches=None, cache_index=None, live_len=None,
-                  page_table=None, n_valid=None):
+                  page_table=None, n_valid=None, n_blocks=None):
     """Run the decoder stack, layer by layer. ``caches`` (from
     ``init_caches``) is updated in place; ``page_table`` [B, npg] marks
     them as page pools; ``n_valid`` masks a prefill chunk's padding rows
-    out of every layer's cache write. Returns (x, caches)."""
+    (or a draft step's dead rows) out of every layer's cache write.
+
+    ``n_blocks`` truncates the stack to its leading ``n_blocks`` stacked
+    blocks: the self-speculative draft pass, which shares the parameters
+    and caches of the full model and writes its layers' KV into them (the
+    verify pass rewrites those rows). The tail layers are skipped then,
+    even at ``n_blocks == num_blocks``, as in the reference. Returns (x,
+    caches)."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
+    if n_blocks is not None:
+        if not 0 < n_blocks <= nblocks:
+            raise ValueError(f"n_blocks must be in 1..{nblocks}, "
+                             f"got {n_blocks}")
+        nblocks, ntail = n_blocks, 0
     layers = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
                layer_slice(caches["blocks"], i)[f"sub{j}"] if caches else None)
               for i in range(nblocks) for j in range(period)]

@@ -50,8 +50,17 @@ chunks under ``token_budget`` beside the budget-capped decode stage
 (``_tick_chunked``); ``slo_hz`` adds the SLO controller. Chunks write a
 batch-1 dense cache (dense engines) or the slot's pool pages in place.
 
-Not ported yet, and refused with ``NotImplementedError``: speculative
-decode (ROADMAP item 9), a device mesh (item 11).
+Self-speculative decode (``spec_decode=True``; fused and greedy only,
+attention-only decoders): each round of the tick drafts ``spec_k - 1``
+tokens with the model's leading ``draft_layers`` (optionally through
+int8/fp8-rounded weights), verifies all ``spec_k`` positions through the
+full model as one chunk (the chunk-prefill kernels) and emits the longest
+accepted prefix plus one bonus token, the stream the plain tick makes. Its
+carry lives in static buffers and one round is captured in a CUDA graph
+once an engine (``SpecTick``).
+
+Not ported yet, and refused with ``NotImplementedError``: a device mesh
+(ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -75,7 +84,8 @@ from repro_torch.models.graphs import StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, band_len
 from repro_torch.models.params import leaves
 from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
-                                       is_recurrent_leaf, is_scale_leaf)
+                                       is_recurrent_leaf, is_scale_leaf,
+                                       stack_plan)
 from repro_torch.serving import sampler as S
 from repro_torch.serving.kv_pool import KVPool, PoolExhausted
 from repro_torch.serving.scheduler import (BEST_EFFORT, ChunkedScheduler,
@@ -113,8 +123,8 @@ class Request:
 @dataclass
 class EngineStats:
     """Host-sync contract + phase + cache accounting for one engine
-    lifetime (the reference's fields, less those of speculative decode and
-    sharded serving, which come with ROADMAP items 9 and 11).
+    lifetime (the reference's fields, less those of sharded serving, which
+    come with ROADMAP item 11).
 
     A "sync" is a device->host readback that blocks the Python loop: the
     fused path pays one per tick, the per-token path one per token. The
@@ -139,6 +149,18 @@ class EngineStats:
     pages_hwm: int = 0          # paged: high-water pages in use
     cache_bytes_hwm: int = 0    # paged: high-water KV bytes actually held
     prefix_hits: int = 0        # paged: pages reused via the prefix cache
+    # speculative decode: a verify pass is one slot's row block of a
+    # full-model verify chunk (spec_k positions), the weight and cache
+    # pass speculation shares; spec_accept_hist[n] counts passes that
+    # emitted n tokens, so emitted / passes is the tokens a pass. Draft
+    # steps cost draft_layers / num_layers of a pass (spec_draft_pass_
+    # equiv); spec_key_lanes sums verify rows x each slot's own band bound
+    spec_verify_passes: int = 0
+    spec_draft_steps: int = 0            # truncated draft steps executed
+    spec_draft_pass_equiv: float = 0.0   # draft cost in full-model passes
+    spec_accept_hist: List[int] = field(default_factory=list)
+    spec_key_lanes: int = 0              # verify rows x per-slot band bound
+    spec_key_lanes_full: int = 0         # verify rows x max_seq
     queue_s: List[float] = field(default_factory=list)
     ttft_s: List[float] = field(default_factory=list)
     tick_s: List[float] = field(default_factory=list)    # whole-tick wall
@@ -200,6 +222,19 @@ class EngineStats:
             rep["pages_hwm"] = float(self.pages_hwm)
             rep["cache_bytes_hwm"] = float(self.cache_bytes_hwm)
             rep["prefix_hits"] = float(self.prefix_hits)
+        if self.spec_verify_passes:
+            emitted = sum(n * c for n, c in enumerate(self.spec_accept_hist))
+            rep["spec_verify_passes"] = float(self.spec_verify_passes)
+            rep["spec_accept_per_pass"] = emitted / self.spec_verify_passes
+            rep["spec_accept_hist"] = [int(c) for c in self.spec_accept_hist]
+            rep["spec_draft_steps"] = float(self.spec_draft_steps)
+            rep["spec_draft_pass_equiv"] = float(self.spec_draft_pass_equiv)
+            # the share of the model work (in full-model passes) drafting
+            tot = self.spec_draft_pass_equiv + self.spec_verify_passes
+            rep["spec_draft_frac"] = float(self.spec_draft_pass_equiv / tot)
+            if self.spec_key_lanes_full:
+                rep["spec_key_lane_ratio"] = (self.spec_key_lanes
+                                              / self.spec_key_lanes_full)
         return rep
 
 
@@ -340,6 +375,158 @@ class DecodeTick:
         self.counter.add_(1)
 
 
+class SpecTick:
+    """The self-speculative tick's carry in static device buffers, and one
+    draft -> verify -> accept round over them: the body a
+    ``graphs.StepGraph`` captures once on the card and replays (the
+    counterpart of the reference's ``_fused_spec_tick`` loop body).
+
+    A round, for each live slot at position ``index`` with its current
+    token ``tokens`` (whose KV is not yet written):
+
+    1. **Draft**: ``K - 1`` greedy ``model.draft_step``s through the
+       leading ``draft_blocks`` blocks of ``draft_params`` propose tokens;
+       with the current one they form the chunk [B, K] at positions
+       ``index .. index+K-1``. The draft's KV lands in the shared caches.
+    2. **Verify**: ``model.verify_chunk`` runs the K positions through the
+       full model (the chunk-prefill kernels), rewriting every layer's KV
+       there, and returns every row's logits.
+    3. **Accept** (``sampler.spec_accept``): the longest accepted prefix
+       plus one bonus token, capped by the budget, by the tick's room
+       ``cap - e`` and by a first EOS; the verifier's argmaxes are emitted,
+       so the stream is the plain tick's.
+
+    Rejected rows past the accepted ones hold stale KV that nothing reads
+    (a query sees no key past its position) and the next round's verify
+    rewrites first. Draft and verify rows at or past ``max_seq``, and a
+    dead slot's, keep out of the caches (``n_valid``): dropped from a
+    dense cache, zeros into a pool's null page.
+
+    The reference loops while some slot is live with room and none newly
+    finished; here that is the device flag ``go``, and a round taken
+    after it fell is masked: no slot is live, so no carry value changes
+    and every cache write is masked, and the null page, which masked rows
+    sink zeros into, is put back as the round found it. The verify chunk
+    reads the whole cache view (``live_len=None``): a graph holds one
+    shape, and the chunk kernels skip each slot's key blocks past its last
+    row, so the bound changes no bit.
+
+    Buffers: ``tokens`` [B,1], ``index``, ``budget`` [B], ``done`` and its
+    value at the tick's entry, the tick's quota ``cap`` (0-d), the
+    ``page_table`` of a pool; a round writes ``out`` [B, T+1] (column T
+    the drop column of rows that do not emit), ``e`` [B] (tokens emitted
+    this tick), ``hist`` [K+2] (passes by tokens emitted; bucket K+1 the
+    drop bucket of dead slots), ``passes`` [B] and ``rounds`` (rounds where
+    ``go`` held). ``graphs=False`` runs the same round eagerly (the
+    oracle); on the CPU it always runs eagerly."""
+
+    def __init__(self, cfg: ModelConfig, opts: ModelOptions, params,
+                 draft_params, caches, n_slots: int, T: int, K: int,
+                 draft_blocks: int, eos: int, max_seq: int,
+                 pages_per_slot: int = 0, *, device, graphs: bool = True):
+        self.args = (cfg, opts, params, draft_params, caches)
+        self.T, self.K, self.draft_blocks = T, K, draft_blocks
+        self.eos, self.max_seq = eos, max_seq
+        B = n_slots
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.tokens = zeros(B, 1, dtype=torch.long)
+        self.index, self.budget = zeros(B), zeros(B)
+        self.done = zeros(B, dtype=torch.bool)
+        self.entry_done = zeros(B, dtype=torch.bool)
+        self.cap = zeros()
+        self.page_table = zeros(B, pages_per_slot) if pages_per_slot \
+            else None
+        self.out = torch.full((B, T + 1), -1, dtype=torch.long,
+                              device=device)
+        self.e, self.passes = zeros(B), zeros(B)
+        self.hist = zeros(K + 2)
+        self.rounds = zeros()
+        self.kcol = torch.arange(K, dtype=torch.int32, device=device)
+        self.null_pages = ([(leaf, cache_batch_axis(path))
+                            for path, leaf in leaves(caches)
+                            if is_paged_leaf(path)] if pages_per_slot else [])
+        self.graph = StepGraph(self._round, device, eager=not graphs)
+
+    def load(self, tokens, index, budget, done, cap: int, page_table=None):
+        """Start a tick from the carry (host arrays or tensors) and its
+        quota of ``cap`` tokens a slot."""
+        for buf, value in ((self.tokens, tokens), (self.index, index),
+                           (self.budget, budget), (self.done, done),
+                           (self.page_table, page_table)):
+            if value is not None:
+                buf.copy_(torch.as_tensor(value).reshape(buf.shape))
+        self.entry_done.copy_(self.done)
+        self.cap.fill_(cap)
+        self.out.fill_(-1)
+        for buf in (self.e, self.passes, self.hist, self.rounds):
+            buf.zero_()
+
+    def key(self):
+        """Every tensor a round reads or writes, and the configuration."""
+        cfg, opts, params, draft_params, caches = self.args
+        return (cfg, opts, self.K, self.draft_blocks) + tensor_key(
+            params, draft_params, caches, self.tokens, self.index,
+            self.budget, self.done, self.entry_done, self.cap,
+            self.page_table, self.out, self.e, self.hist, self.passes,
+            self.rounds)
+
+    def run(self, rounds: int):
+        """``rounds`` rounds of the loaded tick."""
+        key = self.key()
+        for _ in range(rounds):
+            self.graph.step(key)
+
+    def _round(self):
+        cfg, opts, params, draft_params, caches = self.args
+        K, dev = self.K, self.tokens.device
+        done, e, cap = self.done, self.e, self.cap
+        room = ~done & (e < cap)
+        go = room.any() & ~(done & ~self.entry_done).any()
+        live = room & go
+        held = [leaf.select(axis, 0).clone() for leaf, axis in self.null_pages]
+        # draft: K - 1 truncated steps; the chunk's column 0 is the token
+        # the plain decode feeds next
+        cur, chunk = self.tokens, [self.tokens]
+        for j in range(K - 1):
+            pos = self.index + j
+            nv = (live & (pos < self.max_seq)).int()
+            logits, _ = M.draft_step(cfg, opts, draft_params, cur, caches,
+                                     pos, self.draft_blocks, self.page_table,
+                                     n_valid=nv, device=dev)
+            cur = logits[:, -1].argmax(-1, keepdim=True)
+            chunk.append(cur)
+        chunk = torch.cat(chunk, dim=1)                              # [B,K]
+        # verify: the K positions through the full model in one chunk
+        nv = torch.where(live, (self.max_seq - self.index).clamp(0, K), 0)
+        logits, _ = M.verify_chunk(cfg, opts, params, chunk, caches,
+                                   self.index, n_valid=nv,
+                                   page_table=self.page_table, device=dev)
+        verify = logits.argmax(-1)                                   # [B,K]
+        for (leaf, axis), page in zip(self.null_pages, held):
+            leaf.select(axis, 0).copy_(
+                torch.where(go, leaf.select(axis, 0), page))
+        # accept: the longest prefix and a bonus token, within the quotas
+        n_emit, newly = S.spec_accept(chunk, verify, eos=self.eos,
+                                      budget=self.budget, room=cap - e,
+                                      live=live)
+        emit = live[:, None] & (self.kcol[None] < n_emit[:, None])
+        cols = torch.where(emit, e[:, None] + self.kcol[None], self.T)
+        self.out.scatter_(1, cols.long(), verify)
+        nxt = verify.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])
+        self.tokens.copy_(torch.where(live[:, None], nxt, self.tokens))
+        step = torch.where(live, n_emit, 0)
+        self.index.add_(step)
+        self.budget.sub_(step)
+        e.add_(step)
+        self.hist.index_add_(0, torch.where(live, n_emit, K + 1).long(),
+                             torch.ones_like(n_emit))
+        self.passes.add_(live.int())
+        self.rounds.add_(go.int())
+        done.logical_or_(newly)
+
+
 def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
                 temperature: float, top_k: int, params, tokens, caches,
                 index, budget, done, keys, max_steps: int, page_table=None,
@@ -369,19 +556,26 @@ class ServingEngine:
                  chunked_prefill: bool = False, chunk_size: int = 32,
                  token_budget: int = 64,
                  reserve_pages: Optional[int] = None,
-                 spec_decode: bool = False, slo_hz: float = 0.0, mesh=None,
+                 spec_decode: bool = False, spec_k: int = 4,
+                 draft_layers: Optional[int] = None,
+                 draft_quant: Optional[str] = None,
+                 slo_hz: float = 0.0, mesh=None,
                  *, device="cuda", graphs: bool = True):
         """The reference's engine options, less those of the parts not
-        ported yet: ``spec_decode`` and ``mesh`` are accepted only to be
-        refused, and ``slo_hz`` is refused without chunked prefill, as in
-        the reference. The reference's ``stop_on_finish`` and
-        ``prefix_cache`` are fixed on: a tick stops when a slot finishes,
-        and full prompt pages are always shared. ``reserve_pages`` (paged)
-        is the decode headroom admission never takes: n_slots by default
-        under chunked prefill, else 0. ``graphs`` (the card only): each
-        fused-tick step replays one captured CUDA graph (``DecodeTick``);
-        False runs the same step eagerly, the oracle the graphed engine is
-        held to."""
+        ported yet: ``mesh`` is accepted only to be refused, and ``slo_hz``
+        is refused without chunked prefill, as in the reference. The
+        reference's ``stop_on_finish`` and ``prefix_cache`` are fixed on: a
+        tick stops when a slot finishes, and full prompt pages are always
+        shared. ``reserve_pages`` (paged) is the decode headroom admission
+        never takes: n_slots by default under chunked prefill, else 0.
+        ``spec_decode`` (``spec_k``, ``draft_layers`` a multiple of the
+        stack's period, half the blocks by default, ``draft_quant`` None,
+        "none", "int8" or "fp8") makes each tick speculative rounds
+        (``SpecTick``); a quantized pool then takes token scales, and its
+        default turns to them. ``graphs`` (the card only): each fused-tick
+        step, or speculative round, replays one captured CUDA graph
+        (``DecodeTick``, ``SpecTick``); False runs the same body eagerly,
+        the oracle the graphed engine is held to."""
         if tick_tokens < 1:
             raise ValueError(f"tick_tokens must be >= 1, got {tick_tokens}")
         if mesh is not None:
@@ -409,19 +603,61 @@ class ServingEngine:
                 raise ValueError(f"chunk_size {chunk_size} must divide by "
                                  f"page_size {page_size} so chunk writes "
                                  f"start page-aligned")
+        self.spec_decode, self.spec_k = spec_decode, spec_k
+        self.draft_blocks = self.draft_layers = 0
+        self.draft_quant = draft_quant
         if spec_decode:
-            raise NotImplementedError("spec_decode is ROADMAP item 9")
+            if not fused:
+                raise ValueError("spec_decode requires the fused decode "
+                                 "path (fused=True)")
+            if temperature > 0:
+                raise ValueError("spec_decode is greedy-only: longest-"
+                                 "prefix acceptance re-emits the verifier's "
+                                 "argmax, which only matches the reference "
+                                 "stream at temperature 0")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if cfg.encoder is not None:
+                raise ValueError("spec_decode does not support "
+                                 "encoder-decoder models")
+            if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
+                raise ValueError("spec_decode requires attention-only "
+                                 "decoders (SSM state cannot roll back "
+                                 "rejected drafts by position re-write)")
+            period, nblocks, _ = stack_plan(cfg)
+            if draft_layers is None:
+                self.draft_blocks = max(1, nblocks // 2)
+            else:
+                if draft_layers % period or not (
+                        0 < draft_layers <= nblocks * period):
+                    raise ValueError(
+                        f"draft_layers must be a multiple of the stack "
+                        f"period ({period}) in 1..{nblocks * period}, "
+                        f"got {draft_layers}")
+                self.draft_blocks = draft_layers // period
+            self.draft_layers = self.draft_blocks * period
+            if draft_quant not in (None, "none", "int8", "fp8"):
+                raise ValueError(f"draft_quant must be None/'none'/'int8'/"
+                                 f"'fp8', got {draft_quant!r}")
         quantized = kv_quant.quant_dtype(kv_dtype) is not None
         if scale_granularity is not None and not quantized:
             raise ValueError("scale_granularity applies only to quantized "
                              "pools (kv_dtype int8/fp8)")
         if quantized:
-            scale_granularity = scale_granularity or "head"
+            if scale_granularity is None:
+                scale_granularity = "token" if spec_decode else "head"
             if scale_granularity not in kv_quant.SCALE_GRANULARITIES:
                 raise ValueError(
                     f"scale_granularity must be one of "
                     f"{kv_quant.SCALE_GRANULARITIES}, "
                     f"got {scale_granularity!r}")
+            if spec_decode and scale_granularity == "head":
+                raise ValueError(
+                    "spec_decode on a quantized pool requires "
+                    "scale_granularity='token': shared per-(page, head) "
+                    "scales let a rejected draft row's amax requantize "
+                    "accepted rows on the same page, so speculative streams "
+                    "cannot stay bit-equal to the per-token reference")
         self.device = dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(f"parameters are on {params['embed'].device}, "
@@ -429,6 +665,14 @@ class ServingEngine:
         if paged and dev.type == "cuda" and page_size != PAGE_SIZE:
             raise ValueError(f"on the card the paged kernels take "
                              f"page_size {PAGE_SIZE}, got {page_size}")
+        if spec_decode and paged and dev.type == "cuda" \
+                and page_size != opts.prefill_band:
+            # the verify pass runs the paged chunk kernel, which blocks the
+            # key axis per page; the dense one blocks it per prefill_band
+            raise ValueError(
+                f"spec_decode with paged=True on the card requires "
+                f"page_size ({page_size}) == ModelOptions.prefill_band "
+                f"({opts.prefill_band})")
         if chunked_prefill and dev.type == "cuda":
             if chunk_size % PAGE_SIZE:
                 raise ValueError(f"on the card chunk_size must divide by "
@@ -477,15 +721,26 @@ class ServingEngine:
         else:
             self.caches = M.init_caches(cfg, n_slots, max_seq, torch.float32,
                                         device=dev)
-        # the fused tick's buffers and step, captured once on the card: the
-        # caches keep their storage for the engine's life (every write and
-        # admission scatter is in place)
-        self._tick = DecodeTick(
-            cfg, opts, params, self.caches, n_slots, tick_tokens, eos,
-            temperature, top_k, max_seq // page_size if paged else 0,
-            device=dev, graphs=graphs)
+        # the fused tick's buffers and step (or speculative round),
+        # captured once on the card: the caches keep their storage for the
+        # engine's life (every write and admission scatter is in place)
+        npg = max_seq // page_size if paged else 0
+        if spec_decode:
+            # the weight-quantized draft: a second tree of the same dtypes
+            self.draft_params = (
+                kv_quant.fake_quantize_tree(params, draft_quant)
+                if draft_quant in ("int8", "fp8") else params)
+            self._tick = SpecTick(
+                cfg, opts, params, self.draft_params, self.caches, n_slots,
+                tick_tokens, spec_k, self.draft_blocks, eos, max_seq, npg,
+                device=dev, graphs=graphs)
+        else:
+            self._tick = DecodeTick(
+                cfg, opts, params, self.caches, n_slots, tick_tokens, eos,
+                temperature, top_k, npg, device=dev, graphs=graphs)
         self.stats = EngineStats()
-        self.masked_steps = 0       # fused-tick steps run after go fell
+        self.masked_steps = 0       # fused-tick steps (speculative:
+        #                             rounds) run after go fell
         self.generator = torch.Generator().manual_seed(seed)
         self.chunk_size = chunk_size
         self.scheduler: Optional[ChunkedScheduler] = (
@@ -663,9 +918,12 @@ class ServingEngine:
         self._preempt_slot(min(cands, key=lambda s: self._last_active[s]))
         return True
 
-    def _ensure_pages(self, steps: int):
+    def _ensure_pages(self, steps: int, extra: int = 0):
         """Allocate pages covering every position the next tick may write
-        (index .. index+steps-1 per live slot, never past its budget) and
+        (index .. index+steps-1 per live slot, never past its budget, and
+        ``extra`` more: a speculative tick writes up to ``spec_k - 1``
+        draft and verify rows past its last accepted token; rows past
+        ``max_seq`` sink into the null page instead and need none) and
         copy-on-write any shared page in that range. If growth exhausts the
         pool, the live slot holding the most pages (best-effort first) is
         preempted; a single request the pool cannot hold raises. Pages a
@@ -678,8 +936,8 @@ class ServingEngine:
                 continue
             held_before[s] = set(self.pool.slot_pages[s])
             start = int(self.index[s])
-            end = min(start + min(steps, max(int(self.budget[s]), 1)),
-                      self.max_seq)
+            end = min(start + min(steps, max(int(self.budget[s]), 1))
+                      + extra, self.max_seq)
             while True:
                 try:
                     self.pool.ensure(s, end)
@@ -924,13 +1182,16 @@ class ServingEngine:
             return 0
         cap = min(max_steps, self.tick_tokens)
         if self.paged:
-            self._ensure_pages(cap)
+            self._ensure_pages(cap, extra=self.spec_k - 1
+                               if self.spec_decode else 0)
             self._page_table_device()
             # growth may have preempted a slot under pool pressure
             active = [s for s in range(self.n_slots)
                       if self.slots[s] is not None]
             if not active:
                 return 0
+        if self.spec_decode:
+            return self._decode_tick_spec(cap, active)
         t0 = time.perf_counter()
         done0 = np.asarray([self.slots[s] is None
                             for s in range(self.n_slots)])
@@ -953,6 +1214,14 @@ class ServingEngine:
         self.masked_steps += cap - steps_h
         self.stats.decode_time += now - t0
         self.stats.decode_tick_s.append(now - t0)
+        return self._take_tick(active, now, out_h, n_emit_h, idx_h, bud_h,
+                               done_h, tok_h)
+
+    def _take_tick(self, active: List[int], now: float, out_h, n_emit_h,
+                   idx_h, bud_h, done_h, tok_h) -> int:
+        """Take a decode tick's readback into the host carry: each active
+        slot's ``n_emit_h`` tokens of ``out_h``, its new position, budget
+        and token, and the slots that finished. Returns the tokens."""
         self.index = idx_h.astype(np.int32)
         self.budget = bud_h.astype(np.int32)
         self.tokens = tok_h.astype(np.int32)[:, None]
@@ -968,6 +1237,71 @@ class ServingEngine:
                 self._finish_slot(s, now)
         self.stats.tokens_decoded += emitted
         return emitted
+
+    def _decode_tick_spec(self, cap: int, active: List[int]) -> int:
+        """The speculative decode stage: draft -> verify -> accept rounds
+        (``SpecTick``, one graph replay a round on the card) until no slot
+        has room or one newly finished. Each live slot emits at least one
+        token a round, so the rounds are data-dependent: the tick replays
+        ceil(r / spec_k) rounds for the r tokens the slot with the most
+        room may still emit (``cap`` at first), reads the carry back, and
+        goes on the same way while the reference's loop would: each
+        readback is a decode sync, each round run after ``go`` fell a
+        masked step. The key lanes use the reference's per-slot bounds
+        (each slot's deepest verify row this tick), though the verify
+        chunk reads the whole view."""
+        t0 = time.perf_counter()
+        st, K, tick = self.stats, self.spec_k, self._tick
+        B, T = self.n_slots, self.tick_tokens
+        idx0 = self.index.copy()
+        done0 = np.asarray([self.slots[s] is None for s in range(B)])
+        bounds = {s: band_len(min(int(idx0[s]) + cap + K - 1, self.max_seq),
+                              self.opts.prefill_band, self.max_seq)
+                  for s in active}
+        tick.load(self.tokens, self.index, self.budget, done0, cap)
+        left, run = cap, 0
+        while True:
+            n = -(-left // K)
+            tick.run(n)
+            run += n
+            host = torch.cat([
+                tick.out[:, :T].reshape(-1), tick.e.long(),
+                tick.index.long(), tick.budget.long(), tick.done.long(),
+                tick.tokens[:, 0], tick.passes.long(), tick.hist.long(),
+                tick.rounds.long().reshape(1)]).cpu().numpy()
+            st.decode_syncs += 1
+            out_h = host[:B * T].reshape(B, T)
+            e_h, idx_h, bud_h, done_h, tok_h, passes_h = \
+                host[B * T:B * T + 6 * B].reshape(6, B)
+            hist_h = host[B * T + 6 * B:-1]
+            rounds_h = int(host[-1])
+            # the reference's loop condition, on the carry read back
+            room = (done_h == 0) & (e_h < cap)
+            if not room.any() or ((done_h != 0) & ~done0).any():
+                break
+            left = int((cap - e_h[room]).max())
+        now = time.perf_counter()
+        st.ticks += 1
+        # one round = one full-model verify chunk, the plain tick's step
+        st.device_steps += rounds_h
+        self.masked_steps += run - rounds_h
+        vp = int(passes_h.sum())
+        st.spec_verify_passes += vp
+        st.spec_draft_steps += vp * (K - 1)
+        st.spec_draft_pass_equiv += (vp * (K - 1) * self.draft_layers
+                                     / max(1, self.cfg.num_layers))
+        if len(st.spec_accept_hist) < K + 1:
+            st.spec_accept_hist.extend(
+                [0] * (K + 1 - len(st.spec_accept_hist)))
+        for n, c in enumerate(hist_h[:K + 1]):
+            st.spec_accept_hist[n] += int(c)
+        for s in active:
+            st.spec_key_lanes += int(passes_h[s]) * K * bounds[s]
+            st.spec_key_lanes_full += int(passes_h[s]) * K * self.max_seq
+        st.decode_time += now - t0
+        st.decode_tick_s.append(now - t0)
+        return self._take_tick(active, now, out_h, e_h, idx_h, bud_h,
+                               done_h, tok_h)
 
     # -- chunked prefill ---------------------------------------------------
     def _admit_chunked(self):

@@ -8,7 +8,8 @@ draw depends on nothing but its own key and position, never on how many
 other draws ran before it (masked tick steps, tick sizes, other slots), and
 it is made on the logits' device without a host sync. ``noise`` injects
 ``g`` directly, so a test can hand both frameworks the same draw.
-``spec_accept`` comes with speculative decode (ROADMAP item 9).
+``spec_accept`` is self-speculative decode's acceptance rule, in tensor
+ops with no host read, so a CUDA graph can capture it.
 """
 from __future__ import annotations
 
@@ -74,3 +75,40 @@ def sample_token(logits, temperature: float = 0.0, top_k: int = 0,
     if noise is None:
         noise = gumbel(keys, pos, logits.shape[-1])
     return sample(logits, noise, temperature, top_k)
+
+
+def spec_accept(draft, verify, *, eos: int, budget, room, live):
+    """Greedy longest-prefix acceptance of self-speculative decode.
+
+    ``draft`` [B, K] is the chunk the verifier ran: column 0 the token
+    the plain decode would feed next, columns 1..K-1 the draft's
+    proposals. ``verify`` [B, K] holds the full model's argmax after each
+    column, so proposal ``j`` is right iff it equals ``verify[:, j-1]``,
+    and acceptance stops at the first miss (``a`` proposals accepted).
+    The emitted run is ``verify[:, :a+1]``: the accepted tokens as the
+    verifier made them, plus one bonus token (its correction at the miss,
+    or its extension when all were accepted), so a live slot emits at
+    least one token a pass. ``budget`` and ``room`` [B] (the request's
+    remaining tokens, the tick's) cap the count, and a first EOS inside
+    the run ends it; dead slots (``live`` false) emit 0.
+
+    Returns ``(n_emit [B] int32, done [B] bool)``: ``done`` marks live
+    slots whose last emitted token is EOS or whose budget ran out."""
+    B, K = draft.shape
+    budget = budget.to(torch.int32)
+    room = room.to(torch.int32)
+    if K > 1:
+        ok = torch.cumprod((draft[:, 1:] == verify[:, :-1]).int(), dim=1)
+        a = ok.sum(1, dtype=torch.int32)               # accepted proposals
+    else:
+        a = torch.zeros(B, dtype=torch.int32, device=draft.device)
+    n_emit = torch.minimum(a + 1, torch.minimum(budget, room))
+    iseos = verify == eos
+    # the first EOS column + 1, or K + 1 without one
+    cols = torch.arange(1, K + 1, dtype=torch.int32, device=draft.device)
+    eos_cut = torch.where(iseos, cols, K + 1).amin(1)
+    n_emit = torch.minimum(n_emit, eos_cut)
+    n_emit = torch.where(live, n_emit.clamp(min=1), 0).to(torch.int32)
+    last = verify.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+    done = live & ((last == eos) | (budget - n_emit <= 0))
+    return n_emit, done

@@ -803,13 +803,14 @@ def test_train_step_refuses_moe_and_mamba_on_card(name):
 # decode as replayed CUDA graphs (models.graphs.StepGraph)
 # ---------------------------------------------------------------------------
 
-def _small_model(name="smollm-135m", seed=0):
-    """A reduced config with seeded bf16 weights on the card."""
+def _small_model(name="smollm-135m", seed=0, dtype=torch.bfloat16):
+    """A reduced config with seeded weights (bf16 by default) on the
+    card."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     cfg = get_config(name).reduced()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return cfg, M.init_params(cfg, gen, torch.bfloat16, device="cuda")
+    return cfg, M.init_params(cfg, gen, dtype, device="cuda")
 
 
 def _prefilled(cfg, params, B=4, S=40, max_seq=96, seed=1):
@@ -888,10 +889,10 @@ def test_decode_graph_recaptures_for_other_caches_on_card():
         assert torch.equal(got, want) and _same_tree(c, twin)
 
 
-def _engine_run(name: str, graphs: bool, **kw):
+def _engine_run(name: str, graphs: bool, dtype=torch.bfloat16, **kw):
     from repro_torch.models.layers import ModelOptions
     from repro_torch.serving import Request, ServingEngine
-    cfg, params = _small_model(name)
+    cfg, params = _small_model(name, dtype=dtype)
     eng = ServingEngine(cfg, ModelOptions(), params, n_slots=3, max_seq=128,
                         eos=-999, tick_tokens=4, device="cuda",
                         graphs=graphs, **kw)
@@ -955,3 +956,86 @@ def test_failed_capture_raises_on_card():
         assert runner.graph is None
     torch.cuda.synchronize()
     assert float(x.sum()) == 4.0     # the second body's warm-up step ran
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decode on the card (serving.engine.SpecTick)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    {}, dict(paged=True),
+    dict(paged=True, kv_dtype="int8", scale_granularity="token"),
+    dict(paged=True, chunked_prefill=True, chunk_size=32, token_budget=40)],
+    ids=["dense", "paged", "paged-int8-token", "paged-chunked"])
+def test_graphed_spec_engine_equals_eager_and_fused_on_card(kw):
+    """The speculative engine with one round replayed from its graph
+    against the same round run eagerly: streams, counters (masked rounds,
+    syncs, the accept histogram) and caches bit for bit; it captures once
+    and its streams equal the plain fused engine's on the card (f32
+    weights, so that the verify chunk's and the decode step's GEMMs round
+    alike; the full-depth int8 draft); a replayed round launches the
+    decode kernel once a draft layer a draft step and the verify chunk's
+    kernel once a layer."""
+    _cuda()
+    spec = dict(kw, spec_decode=True, spec_k=4, draft_layers=4,
+                draft_quant="int8")
+    decode = pg.paged_decode_attention if kw.get("paged") \
+        else da.decode_attention
+    verify = pcp.paged_chunk_prefill_attention if kw.get("paged") \
+        else cp.chunk_prefill_attention
+    d0, v0 = decode.launches, verify.launches
+    f32 = dict(dtype=torch.float32)
+    eng, out = _engine_run("smollm-135m", True, **f32, **spec)
+    d1, v1 = decode.launches, verify.launches
+    ref, want = _engine_run("smollm-135m", False, **f32, **spec)
+    fused, plain = _engine_run("smollm-135m", True, **f32, **kw)
+    assert out == want == plain and len(out) == 5
+    for f in ("ticks", "device_steps", "decode_syncs", "spec_accept_hist",
+              "spec_verify_passes", "pages_hwm"):
+        assert getattr(eng.stats, f) == getattr(ref.stats, f), f
+    assert eng.masked_steps == ref.masked_steps
+    assert eng._tick.graph.captures == 1
+    assert _same_tree(eng.caches, ref.caches)
+    rounds = eng.stats.device_steps + eng.masked_steps
+    assert d1 - d0 == rounds * 3 * 4
+    if kw.get("paged"):       # the admission prefill runs the dense kernel
+        assert v1 - v0 >= rounds * 4
+    assert eng.stats.pages_in_use == 0
+
+
+@pytest.mark.gpu
+def test_verify_chunk_band_and_whole_view_same_bits_on_card():
+    """``verify_chunk`` over the whole view (as the graphed tick runs it)
+    and over the live band: the same logits and caches bit for bit, dense
+    and paged, from per-slot starts with rows past the cache."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.models.params import leaves
+    _cuda()
+    cfg, params = _small_model()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (3, 4), generator=gen,
+                         device="cuda")
+    for paged in (False, True):
+        kw = dict(paged=True, num_pages=13, page_size=32) if paged else {}
+        caches = M.init_caches(cfg, 3, 128, torch.float32, device="cuda",
+                               **kw)
+        for _, t in leaves(caches):
+            t.normal_(generator=gen)
+        table = (torch.arange(1, 13, dtype=torch.int32, device="cuda")
+                 .reshape(3, 4) if paged else None)
+        for start, nv, live in (([3, 40, 61], [4, 4, 4], 96),
+                                ([3, 126, 61], [4, 2, 0], 128)):
+            res = []
+            for bound in (None, live):
+                c = _clone_tree(caches)
+                lg, _ = M.verify_chunk(
+                    cfg, ModelOptions(), params, toks, c,
+                    torch.tensor(start, dtype=torch.int32, device="cuda"),
+                    n_valid=torch.tensor(nv, dtype=torch.int32,
+                                         device="cuda"),
+                    page_table=table, live_len=bound, device="cuda")
+                res.append((lg, c))
+            assert torch.equal(res[0][0], res[1][0])
+            assert _same_tree(res[0][1], res[1][1])

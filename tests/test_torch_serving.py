@@ -253,7 +253,6 @@ def test_sampled_streams_do_not_depend_on_masked_steps(layout):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(spec_decode=True), "item 9"),
     (dict(mesh=object()), "item 11")])
 def test_unported_options_name_their_roadmap_item(option, item):
     cfg, params = port_params("smollm-135m")
