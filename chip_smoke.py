@@ -45,7 +45,15 @@ CPU and equal to the card's fused streams, a decode write past a full
 cache (dense, paged, MoE) card vs CPU, phase 5c's full-width speculative
 engines (dense and paged f32) graphed and eager, and the verify chunk's
 kernel times; phase 4 prints the analytical model's phase split of the
-control step on an H100 beside the measured one. Prints
+control step on an H100 beside the measured one. The DiT action head:
+phase 3e, reduced molmoact-7b-dit on card and CPU; phase 4b, the
+full-width molmoact-7b-dit control step, its denoising loop replayed from
+one graph and run eagerly, beside phase 4's discrete split. The fleet
+rim: phase 5d, the asyncio front end over two reduced replicas (each
+captured at the front end's start, then ticked side by side on two
+threads) against a synchronous CPU engine, and the serve driver; phase
+5e, two full-width replicas replaying a robot-fleet trace in real time
+(TTFT, 10 Hz attainment). Prints
 the card, the phase numbers, one JSON line describing each kernel and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails.
@@ -1461,7 +1469,7 @@ def full_width(cfg, params):
         run_steps(1)             # a capture for these caches, untraced
         decode_breakdown(run_steps, phase_ms[mode]["action_decode"] / n_act,
                          label=f"decode step ({mode})")
-    return launches
+    return launches, phase_ms["graphed"]
 
 
 def simulated_split(cfg, measured):
@@ -1655,7 +1663,7 @@ def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
     idle share, device time by part of the step (the grouped-expert
     kernels, attention, the library's GEMMs, the rest: norms, RoPE,
     routing and dispatch, sampling), and the kernels that take the most
-    time."""
+    time. Returns (busy ms, kernels) a step, None when not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1666,7 +1674,7 @@ def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
     if busy_ms == 0:
         print(f"  {label}: device busy time not measured (the profiler "
               "saw no kernels)")
-        return
+        return None
     # the CUDA activity also lists runtime calls (no device time): skip them
     kernels = sum(e.count for e in rows if e.self_device_time_total) / steps
     print(f"  {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
@@ -1692,6 +1700,7 @@ def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
             f"{_short(e.key)} "
             f"{e.self_device_time_total / 1e3 / e.count:.4f} x "
             f"{e.count / steps:g}" for e in ours))
+    return busy_ms, kernels
 
 
 def _short(name: str) -> str:
@@ -3313,6 +3322,480 @@ def flash_timings(inputs, errs, launches):
     return [r for r in rows if r["launches"]]
 
 
+# ---------------------------------------------------------------------------
+# the DiT action head (phases 3e, 4b) and the fleet front end (5d, 5e)
+# ---------------------------------------------------------------------------
+
+DIT_ARCH = "molmoact-7b-dit"
+DIT_TOL = 1e-4       # card vs CPU, f32: sums in other orders
+DIT_BF16_TOL = 1e-2  # bf16 head vs the same head in f32, both on the card
+DIT_ZERO_LEAVES = ("ada", "final_ada", "out_proj")
+
+
+def perturb_head(head, gen):
+    """The DiT head's zero-initialised leaves set to normal x 0.02 drawn
+    from ``gen`` (on the head's device): a head at init returns its input
+    noise, so a check of it would be vacuous."""
+    import torch
+    from repro_torch.models.params import leaves
+    for path, t in leaves(head):
+        if path.split("/")[-1] in DIT_ZERO_LEAVES:
+            t.copy_(0.02 * torch.randn(t.shape, generator=gen,
+                                       device=t.device))
+
+
+def dit_card_vs_cpu():
+    """Phase 3e: reduced molmoact-7b-dit (10 denoising steps, horizon 8,
+    the head perturbed) on the card (kernels, the DiT loop graph-replayed)
+    and on the CPU (plain versions): CoT tokens equal, the trajectory
+    within DIT_TOL x max(1, |CPU|), 10 DiT steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import vla
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    cfg = get_config(DIT_ARCH).reduced()
+    cfg = dataclasses.replace(cfg, n_cot_tokens=5, action=dataclasses.replace(
+        cfg.action, dit_steps=10, horizon=8))
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    perturb_head(p_cpu["action_dit"], torch.Generator().manual_seed(SEED + 1))
+    p_gpu = {}
+    for path, t in leaves(p_cpu):
+        set_leaf(p_gpu, path, t.cuda())
+    rng = np.random.default_rng(SEED + 5)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 6)),
+             "patches": rng.standard_normal(
+                 (2, cfg.vision.num_tokens, cfg.vision.embed_dim),
+                 dtype=np.float32)}
+    noise = rng.standard_normal((2, 8, cfg.action.action_dim),
+                                dtype=np.float32)
+    og = vla.vla_control_step(cfg, M.ModelOptions(), p_gpu, batch,
+                              noise=noise, device="cuda")
+    oc = vla.vla_control_step(cfg, M.ModelOptions(), p_cpu, batch,
+                              noise=noise, device="cpu")
+    if not torch.equal(og.cot_tokens.cpu(), oc.cot_tokens):
+        raise AssertionError(f"reduced {DIT_ARCH}: CoT card "
+                             f"{og.cot_tokens.tolist()} vs CPU "
+                             f"{oc.cot_tokens.tolist()}")
+    err = check(f"reduced {DIT_ARCH} trajectory, card vs CPU",
+                og.trajectory.cpu(), oc.trajectory, DIT_TOL)
+    moved = float((oc.trajectory - torch.from_numpy(noise)).abs().max())
+    if og.phase_tokens["action"] != 10 or og.action_tokens is not None \
+            or moved < 0.05:
+        raise AssertionError(f"reduced {DIT_ARCH}: phase_tokens "
+                             f"{og.phase_tokens}, the head moved the noise "
+                             f"by {moved}")
+    print(f"  reduced {DIT_ARCH}: CoT {oc.cot_tokens.tolist()} equal on card "
+          f"and CPU; trajectory {tuple(og.trajectory.shape)} within "
+          f"{err:.3g}; 10 DiT steps; the head moves the noise by up to "
+          f"{moved:.4f}")
+
+
+def dit_full_width(cfg, params, discrete_ms):
+    """Phase 4b: the full-width molmoact-7b-dit control step (all 28
+    layers, phase 4's backbone weights, a seeded bf16 DiT head with its
+    zero leaves perturbed), B=4, prompt 640, 144 CoT tokens, 10 DiT steps:
+    graphed (``M.DecodeGraph`` + ``M.DiTGraph``, the main path) and eager,
+    the same CoT tokens and the trajectory bit for bit, the same kernels
+    in the same order in the DiT loop and at most MAX_GRAPH_LAUNCHES host
+    launch calls a replayed loop, the bf16 trajectory within
+    DIT_BF16_TOL x max(1, |f32|) of the same head in f32; timed phase by
+    phase (median of PHASE_REPEATS) beside phase 4's discrete split
+    (``discrete_ms``) and ``simulate_vla``'s, with the DiT loop's wall,
+    busy time, idle share and kernels a denoising step, and its byte
+    bound."""
+    import torch
+    from repro_torch.core import vla
+    from repro_torch.models import action as A
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, leaves, set_leaf
+    dev = torch.device("cuda")
+    opts = M.ModelOptions()
+    a = cfg.action
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    head = init_params(A.dit_template(a, cfg.d_model), gen, torch.bfloat16,
+                       device=dev)
+    perturb_head(head, gen)
+    params = dict(params, action_dit=head)
+    head_bytes = sum(t.numel() * t.element_size() for _, t in leaves(head))
+    tokens = torch.randint(0, cfg.vocab_size, (FULL_B, FULL_TEXT),
+                           generator=gen, device=dev)
+    patches = torch.randn((FULL_B, cfg.vision.num_tokens,
+                           cfg.vision.embed_dim), generator=gen,
+                          device=dev).bfloat16()
+    noise = torch.randn((FULL_B, a.horizon, a.action_dim), generator=gen,
+                        device=dev).bfloat16()
+    prompt, n_act, max_seq = vla.control_step_lengths(cfg, FULL_TEXT)
+    prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
+    batch = {"tokens": tokens, "prefix": prefix}
+    graphs = {"graphed": (M.DecodeGraph(dev), M.DiTGraph(dev)),
+              "eager": (M.DecodeGraph(dev, eager=True),
+                        M.DiTGraph(dev, eager=True))}
+    torch.cuda.synchronize()
+    kernels = reset_launches()
+    out = vla.vla_control_step(cfg, opts, params, batch, device=dev,
+                               graph=graphs["graphed"][0],
+                               dit_graph=graphs["graphed"][1], noise=noise)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    want = {"chunk_prefill": cfg.num_layers,
+            "decode_attention": cfg.num_layers * cfg.n_cot_tokens,
+            "paged_decode_attention": 0, "paged_chunk_prefill": 0,
+            "gmm_gated": 0, "gmm_down": 0, "ssd": 0, "flash_attention": 0}
+    print(f"  launches on the DiT control step (decode graph-replayed): "
+          f"{launches} (expected {want}; the DiT loop runs no kernel of "
+          f"the port)")
+    traj = out.trajectory
+    if launches != want or n_act != 0 \
+            or tuple(traj.shape) != (FULL_B, a.horizon, a.action_dim) \
+            or not bool(torch.isfinite(traj).all()) \
+            or out.phase_tokens["action"] != a.dit_steps:
+        raise AssertionError(f"{cfg.name}: launches {launches}, trajectory "
+                             f"{tuple(traj.shape)}, phase_tokens "
+                             f"{out.phase_tokens}")
+    eager = vla.vla_control_step(cfg, opts, params, batch, device=dev,
+                                 graph=graphs["eager"][0],
+                                 dit_graph=graphs["eager"][1], noise=noise)
+    if not (torch.equal(eager.cot_tokens, out.cot_tokens)
+            and torch.equal(eager.trajectory, traj)):
+        raise AssertionError("graphed and eager DiT control steps differ")
+    cond = params["embed"][out.cot_tokens[:, -1]]
+    head32 = {"action_dit": {}, "embed": params["embed"]}
+    for path, t in leaves(head):
+        set_leaf(head32["action_dit"], path, t.float())
+    traj32 = M.generate_actions_dit(cfg, head32, cond.float(),
+                                    noise=noise.float(), device=dev,
+                                    graph=M.DiTGraph(dev, eager=True))
+    err = check("bf16 DiT trajectory vs the same head in f32", traj, traj32,
+                DIT_BF16_TOL)
+    print(f"  graphed and eager DiT control steps: the same "
+          f"{cfg.n_cot_tokens} CoT tokens and trajectory bit for bit; the "
+          f"head moves the noise by up to "
+          f"{float((traj - noise.float()).abs().max()):.4f}; bf16 vs f32 "
+          f"{err:.3g}")
+
+    names = ("vision", "prefill", "cot_decode", "action_decode")
+    runs = {mode: [] for mode in graphs}
+    for rep in range(PHASE_REPEATS):
+        for mode, (graph, dit) in graphs.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
+            ev[1].record()
+            logits, caches = M.prefill(cfg, opts, params,
+                                       {"tokens": tokens, "prefix": prefix},
+                                       max_seq, device=dev)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            ev[2].record()
+            cot, tok, caches = vla.decode_tokens(
+                cfg, opts, params, tok, caches, prompt, cfg.n_cot_tokens,
+                device=dev, graph=graph)
+            ev[3].record()
+            tr = M.generate_actions_dit(cfg, params,
+                                        params["embed"][tok[:, 0]],
+                                        noise=noise, device=dev, graph=dit)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if not (torch.equal(cot, out.cot_tokens)
+                    and torch.equal(tr, traj)):
+                raise AssertionError(f"the phase-by-phase DiT run ({mode}) "
+                                     f"disagrees with vla_control_step")
+            runs[mode].append({n: ev[i].elapsed_time(ev[i + 1])
+                               for i, n in enumerate(names)})
+            print(f"  DiT run {rep} ({mode}): phases (ms) " + ", ".join(
+                f"{n}={t:.2f}" for n, t in runs[mode][-1].items())
+                + f", step {sum(runs[mode][-1].values()):.2f}")
+    phase_ms = {}
+    for mode, rs in runs.items():
+        phase_ms[mode] = {n: float(np.median([r[n] for r in rs]))
+                          for n in names}
+        total = float(np.median([sum(r.values()) for r in rs]))
+        share = np.median([r["action_decode"] / sum(r.values()) for r in rs])
+        print(f"  {cfg.name} {mode}, median of {PHASE_REPEATS}: control "
+              f"step {total:.2f} ms (" + ", ".join(
+                  f"{n} {t:.2f}" for n, t in phase_ms[mode].items())
+              + f"); action (DiT) share {share:.4f}")
+    print("  DiT vs discrete (graphed, medians, this call): " + ", ".join(
+        f"{n} {phase_ms['graphed'][n]:.2f} vs {discrete_ms[n]:.2f} ms"
+        for n in names) + f"; step "
+        f"{sum(phase_ms['graphed'].values()):.2f} vs "
+        f"{sum(discrete_ms.values()):.2f} ms")
+    simulated_split(cfg, phase_ms["graphed"])
+    dit = graphs["graphed"][1]
+    runner = dit.runner
+    bound_ms = head_bytes * a.dit_steps / HBM_BYTES_PER_S * 1e3
+    print(f"  DiT loop: {a.dit_steps} steps over {head_bytes / 1e6:.1f} MB "
+          f"of bf16 weights, byte bound {bound_ms:.4f} ms vs measured "
+          f"{phase_ms['graphed']['action_decode']:.3f} ms graphed, "
+          f"{phase_ms['eager']['action_decode']:.3f} ms eager; captures "
+          f"{runner.captures}, {runner.capture_s / runner.captures * 1e3:.1f}"
+          f" ms a capture")
+    graph_step_checks("DiT loop", runner, reset=lambda: None)
+
+    def run_loops(n):
+        for _ in range(n):
+            runner.step(runner.key)
+    res = decode_breakdown(run_loops, phase_ms["graphed"]["action_decode"],
+                           label="DiT loop (graphed)")
+    if res is not None:
+        print(f"  DiT loop: {res[1] / a.dit_steps:.1f} kernels a denoising "
+              f"step")
+
+
+def frontend_card_vs_cpu(cfg_full):
+    """Phase 5d: the front end over two replicas of reduced molmoact-7b
+    (paged f32, chunked, ticks offloaded to two threads) on the card. The
+    front end's start captures each replica's tick graph, one after the
+    other; then six observations go in at once, so that both replicas
+    tick side by side on two threads; their twins follow once they
+    finished (prefix routing); then a request cancelled mid-decode.
+    Gates: every stream equals the same request's on one synchronous CPU
+    engine of the port; each replica captured once, before its driver
+    started, with only its own step's launches recorded, and nothing
+    raises; some ticks of the two replicas overlapped in time on two
+    threads; each wrapper's launches equal the capture steps' and prefill
+    chunks' eager launches plus replays x recorded; routed_prefix >= 1;
+    the cancel returns the pool to its baseline. Then the serve driver
+    once, front-end mode, its default arch (qwen1.5-0.5b) reduced."""
+    import asyncio
+    import threading
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    from repro_torch.serving import AsyncFrontend, Request, ServingEngine
+    cfg = cfg_full.reduced()
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED + 7),
+                          torch.float32, device="cpu")
+    p_gpu = {}
+    for path, t in leaves(p_cpu):
+        set_leaf(p_gpu, path, t.cuda())
+    kw = dict(n_slots=2, max_seq=128, eos=-1, tick_tokens=4, paged=True,
+              page_size=PAGE, chunked_prefill=True, chunk_size=PAGE,
+              token_budget=64)
+    rng = np.random.default_rng(SEED + 8)
+    obs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+            rng.standard_normal((cfg.vision.num_tokens,
+                                 cfg.vision.embed_dim), dtype=np.float32))
+           for n, m in ((40, 9), (52, 6), (30, 12), (45, 7), (36, 10),
+                        (60, 5))]
+    reqs = obs + obs
+    long_req = (rng.integers(0, cfg.vocab_size, 30, dtype=np.int32), 60,
+                rng.standard_normal((cfg.vision.num_tokens,
+                                     cfg.vision.embed_dim),
+                                    dtype=np.float32))
+    sync = ServingEngine(cfg, M.ModelOptions(), p_cpu, device="cpu", **kw)
+    for i, (p, m, px) in enumerate(reqs):
+        sync.submit(Request(uid=i, prompt=p, max_tokens=m, patches=px))
+    want = {r.uid: r.out_tokens for r in sync.run()}
+    kernels = reset_launches()
+    ticks = []          # (replica, thread, start, end) of offloaded ticks
+
+    def traced(i, tick):
+        def step_fused():
+            t0 = time.perf_counter()
+            try:
+                return tick()
+            finally:
+                ticks.append((i, threading.get_ident(), t0,
+                              time.perf_counter()))
+        return step_fused
+
+    async def go():
+        engines = [ServingEngine(cfg, M.ModelOptions(), p_gpu,
+                                 device="cuda", **kw) for _ in range(2)]
+        for i, e in enumerate(engines):
+            e.step_fused = traced(i, e.step_fused)
+        async with AsyncFrontend(engines, offload_ticks=True) as fe:
+            at_start = [e._tick.graph.captures for e in engines]
+            outs = []
+            for wave in (reqs[:6], reqs[6:]):
+                streams = [await fe.submit(p, m, patches=px)
+                           for p, m, px in wave]
+                outs += [await s.tokens() for s in streams]
+            base = [e.pool.pages_in_use for e in engines]
+            stream = await fe.submit(*long_req[:2], patches=long_req[2])
+            got = []
+            async for t in stream:
+                got.append(t)
+                if len(got) == 3:
+                    stream.cancel()
+            await fe.drain()
+            after = [e.pool.pages_in_use for e in engines]
+        return engines, fe, at_start, outs, stream, got, base, after
+
+    engines, fe, at_start, outs, stream, got, base, after = asyncio.run(go())
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n_attn = cfg.num_layers
+    steps = [e.stats.device_steps + e.masked_steps for e in engines]
+    runs = [e.stats.prefill_key_lanes_full // (PAGE * 128) for e in engines]
+    runners = [e._tick.graph for e in engines]
+    decode = kernels["paged_decode_attention"]
+    eager_decode = sum(r.captures * n_attn for r in runners)
+    # pairs of ticks of the two replicas that overlapped in time (on two
+    # threads: one thread runs one tick at a time), and for how long
+    overlaps = [min(a[3], b[3]) - max(a[2], b[2])
+                for a in ticks if a[0] == 0 for b in ticks if b[0] == 1
+                if a[1] != b[1] and min(a[3], b[3]) > max(a[2], b[2])]
+    rep = fe.stats.report()
+    gates = {
+        "every stream equals the synchronous CPU engine's":
+            outs == [want[i] for i in range(len(reqs))],
+        "each replica captured once, before its driver started":
+            at_start == [1, 1]
+            and [r.captures for r in runners] == [1, 1],
+        "each capture recorded only its own step's launches":
+            all(r.recorded == {decode: n_attn} for r in runners),
+        "ticks of the two replicas overlapped on two threads":
+            len(overlaps) >= 1,
+        "paged_decode_attention launches == warm-ups + replays x recorded"
+        " == layers x tick steps":
+            launches["paged_decode_attention"] == eager_decode + sum(
+                r.replays * r.recorded.get(decode, 0) for r in runners)
+            == n_attn * sum(steps),
+        "paged_chunk_prefill launches == layers x chunk runs":
+            launches["paged_chunk_prefill"] == n_attn * sum(runs),
+        "no other kernel launched": not any(
+            v for k, v in launches.items()
+            if k not in ("paged_decode_attention", "paged_chunk_prefill")),
+        "routed_prefix >= 1": rep["routed_prefix"] >= 1,
+        "a cancel mid-decode returns the pool to its baseline":
+            stream.cancelled and 3 <= len(got) < 60 and after == base
+            and all(e.pending == 0 for e in engines),
+    }
+    print(f"  front end, 2 replicas (reduced, paged f32 chunked, ticks "
+          f"offloaded): {rep['completed']} completed, {rep['cancelled']} "
+          f"cancelled; routed prefix {rep['routed_prefix']} / load "
+          f"{rep['routed_load']} / rejected {rep['rejected']}; captures "
+          f"{[r.captures for r in runners]} (at start "
+          f"{at_start}, "
+          f"{[round(r.capture_s * 1e3, 1) for r in runners]} ms), replays "
+          f"{[r.replays for r in runners]}; ticks "
+          f"{[sum(t[0] == i for t in ticks) for i in range(2)]} on "
+          f"{len({t[1] for t in ticks})} threads, {len(overlaps)} pairs of "
+          f"the two replicas' ticks overlapped for "
+          f"{sum(overlaps) * 1e3:.1f} ms in all; launches {launches}; pages "
+          f"{base} -> {after}")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"front end (reduced): {failed}")
+    streams = serve.main(["--reduced", "--frontend", "--replicas", "2",
+                          "--paged", "--chunked-prefill", "--requests", "6",
+                          "--max-tokens", "8", "--prompt-len", "40"])
+    if len(streams) != 6 or any(len(s.request.out_tokens) != 8
+                                for s in streams):
+        raise AssertionError("the serve driver's streams are short")
+
+
+FLEET = dict(n_robots=8, steps_per_robot=4, control_hz=10.0,
+             arrival_rate=4.0, action_tokens=48, seed=0)
+FLEET_TIMEOUT_S = 240      # the replay's trace spans ~2.5 s
+
+
+def fleet_full(cfg, params):
+    """Phase 5e: two full-width replicas of molmoact-7b's backbone
+    (SERVE_LAYERS layers, one set of weights; the trace's prompts are
+    tokens only) behind the front end, paged f32 chunked
+    (chunk 128, budget 256, pages of 32), 8 slots, max_seq 864, slo_hz 10,
+    graphed, ticks offloaded, replaying ``fleet_trace`` in real time.
+    Gates: every accepted request finishes with its tokens, within the
+    vocabulary; each replica captures once; the kernels' launches follow
+    from the replicas' steps and chunk runs. Reported: client TTFT and
+    latency, 10 Hz SLO attainment, routing, tokens/s, each replica's
+    decode-tick percentiles, and the share of tokens equal to the same
+    requests served by one synchronous engine (near ties flip in bf16, so
+    not a gate)."""
+    import asyncio
+    import torch
+    from repro_torch.core.workload import fleet_trace
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import AsyncFrontend, Request, ServingEngine
+    t_phase = time.perf_counter()
+    cfg, params = first_layers(cfg, params, SERVE_LAYERS)
+    # the trace's context tokens stand for the robot's camera frame and
+    # instruction (``fleet_trace``), so the replicas serve the backbone
+    # alone: no request carries patches for the tower
+    cfg = dataclasses.replace(cfg, vision=None)
+    kw = dict(n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos=-1,
+              tick_tokens=SERVE_TICK, paged=True, slo_hz=10.0,
+              device="cuda", **CHUNKED)
+    trace = fleet_trace(ctx_max=SERVE_MAX_SEQ - FLEET["action_tokens"] - 8,
+                        vocab_size=cfg.vocab_size, **FLEET)
+    kernels = reset_launches()
+
+    async def go():
+        engines = [ServingEngine(cfg, M.ModelOptions(), params, **kw)
+                   for _ in range(2)]
+        async with AsyncFrontend(engines, offload_ticks=True) as fe:
+            served, wall = await asyncio.wait_for(
+                serve.replay_fleet(fe, trace), FLEET_TIMEOUT_S)
+        return engines, fe, served, wall
+
+    engines, fe, served, wall = asyncio.run(go())
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    rep = fe.stats.report()
+    met, ctrl_met = serve.fleet_slo(served)
+    n_ctrl = sum(e.kind == "control" for e, _ in served)
+    toks = sum(len(s.request.out_tokens) for _, s in served)
+    steps = sum(e.stats.device_steps + e.masked_steps for e in engines)
+    runs = sum(e.stats.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
+               for e in engines)
+    print(f"  fleet replay ({len(trace)} requests of {FLEET['n_robots']} "
+          f"robots at {FLEET['control_hz']:g} Hz, 2 replicas of "
+          f"{SERVE_LAYERS} layers): {len(served)} accepted, "
+          f"{rep['rejected']} rejected; {toks} tokens in {wall:.3f} s "
+          f"({toks / wall:.2f} tokens/s); client TTFT p50/p99 "
+          f"{rep['ttft_p50_s'] * 1e3:.2f}/{rep['ttft_p99_s'] * 1e3:.2f} ms, "
+          f"latency p50/p99 {rep['latency_p50_s'] * 1e3:.2f}/"
+          f"{rep['latency_p99_s'] * 1e3:.2f} ms; in deadline "
+          f"{met}/{len(served)}, control steps {ctrl_met}/{n_ctrl} at "
+          f"{FLEET['control_hz']:g} Hz ({ctrl_met / max(n_ctrl, 1):.4f}); "
+          f"routed prefix {rep['routed_prefix']} / load "
+          f"{rep['routed_load']}")
+    for i, e in enumerate(engines):
+        ph = e.stats.phase_report()
+        print(f"  replica {i}: captures {e._tick.graph.captures} "
+              f"({e._tick.graph.capture_s * 1e3:.1f} ms), ticks "
+              f"{e.stats.ticks}, decode tick p50/p99 "
+              f"{ph['decode_tick_p50'] * 1e3:.2f}/"
+              f"{ph['decode_tick_p99'] * 1e3:.2f} ms, tokens "
+              f"{e.stats.tokens_decoded}, prefill_tokens "
+              f"{e.stats.prefill_tokens}, skipped {e.stats.prefill_skipped}, "
+              f"prefix_hits {e.stats.prefix_hits}; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ph.items()
+                  if k.startswith(("deadline_attainment", "preemptions"))))
+    gates = {
+        "every accepted request finishes with its tokens": all(
+            not s.cancelled and len(s.request.out_tokens) == e.max_tokens
+            and all(0 <= t < cfg.vocab_size for t in s.request.out_tokens)
+            for e, s in served) and rep["completed"] == len(served),
+        "each replica captures once":
+            [e._tick.graph.captures for e in engines] == [1, 1],
+        "paged_decode_attention launches == layers x tick steps":
+            launches["paged_decode_attention"] == SERVE_LAYERS * steps,
+        "paged_chunk_prefill launches == layers x chunk runs":
+            launches["paged_chunk_prefill"] == SERVE_LAYERS * runs,
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet replay: {failed}")
+    del engines
+    torch.cuda.empty_cache()
+    sync = ServingEngine(cfg, M.ModelOptions(), params, **kw)
+    for i, (e, _) in enumerate(served):
+        sync.submit(Request(uid=i, prompt=e.prompt, max_tokens=e.max_tokens,
+                            priority=e.priority))
+    ref = {r.uid: r.out_tokens for r in sync.run()}
+    out = {i: s.request.out_tokens for i, (_, s) in enumerate(served)}
+    print(f"  fleet replay: share of tokens equal to one synchronous "
+          f"engine's streams {stream_share(out, ref):.4f} (reported, not a "
+          f"gate); phase 5e took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,15 +3830,23 @@ def main() -> int:
     print(f"phase 3d: reduced {TRAIN_ARCH} and molmoact-7b training, card "
           f"vs CPU")
     train_card_vs_cpu()
+    print(f"phase 3e: reduced {DIT_ARCH}, card vs CPU")
+    dit_card_vs_cpu()
     params = full_params(cfg)
     print("phase 4: full-width control step")
-    launches = full_width(cfg, params)
+    launches, discrete_ms = full_width(cfg, params)
+    print(f"phase 4b: full-width {DIT_ARCH} control step")
+    dit_full_width(get_config(DIT_ARCH), params, discrete_ms)
     print("phase 5: full-width serving engine")
     serving, fused_streams = serving_full(cfg, params)
     prefill_consistency(cfg, params)
     print("phase 5c: full-width self-speculative serving engine")
     spec_serving = spec_serving_full(cfg, params, fused_streams)
     del fused_streams
+    print("phase 5d: the front end over two reduced replicas, card vs CPU")
+    frontend_card_vs_cpu(cfg)
+    print("phase 5e: full-width fleet replay through the front end")
+    fleet_full(cfg, params)
     del params
     torch.cuda.empty_cache()
     print(f"phase 7: full-width {MOE_ARCH} serving engine")

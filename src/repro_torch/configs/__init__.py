@@ -1,7 +1,8 @@
 """Architecture registry of the port: the attention decoders (dense MLP or
 mixture-of-experts FFN), the attention-free Mamba2 stack and the
 attention / Mamba2 / MoE hybrid, whose decode and serving paths this
-package runs."""
+package runs, and ``molmoact-7b-dit``, molmoact-7b with the DiT action
+head."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +22,9 @@ _MODULES = {
 
 
 def get_config(name: str) -> ModelConfig:
+    if name == "molmoact-7b-dit":
+        return importlib.import_module(
+            "repro_torch.configs.molmoact_7b").CONFIG_DIT
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choices: {sorted(_MODULES)} "
                        "(the other configs come with ROADMAP item 12)")

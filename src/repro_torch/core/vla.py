@@ -1,7 +1,8 @@
 """The VLA control step of the port: vision encode -> generation prefill ->
-CoT decode -> discrete action-token decode (``repro.core.vla`` in
-PyTorch). The phases are the public functions of ``models.model``, so a
-caller can time each one on its own."""
+CoT decode -> action generation, discrete action-token decode or the DiT
+head's denoising loop (``repro.core.vla`` in PyTorch). The phases are the
+public functions of ``models.model``, so a caller can time each one on its
+own."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -45,20 +46,28 @@ def control_step_lengths(cfg: ModelConfig, n_text: int):
 
 def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
                      max_seq: Optional[int] = None, *, device="cuda",
-                     graph: Optional[M.DecodeGraph] = None) -> VLAOutput:
+                     graph: Optional[M.DecodeGraph] = None,
+                     dit_graph: Optional[M.DiTGraph] = None,
+                     noise=None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> VLAOutput:
     """One full control step for a VLA observation batch.
 
     batch: {'tokens': [B, n_prompt] instruction, and 'patches': [B,T,e]
     image or 'prefix': [B,T,d_model] from ``M.encode_vision``}. The CoT
     and action loops share one ``M.DecodeGraph``: ``graph``, which a
     caller may keep across control steps (it captures again only when the
-    new step's caches lie elsewhere), else a new one.
+    new step's caches lie elsewhere), else a new one. A DiT head
+    (``cfg.action.mode == 'dit'``) is conditioned on the embedding of the
+    last CoT token and denoises ``noise`` [B, horizon, action_dim], else a
+    draw of ``generator`` (a seed-0 generator when neither is given: the
+    counterpart of the reference's ``key``), its loop one replay of
+    ``dit_graph`` (kept across control steps like ``graph``; a new one
+    when None).
     """
     dev = resolve_device(device)
     graph = graph if graph is not None else M.DecodeGraph(dev)
     a = cfg.action
-    if a is not None and a.mode != "discrete":
-        raise NotImplementedError("the DiT action head is ROADMAP item 4")
     prompt, n_act, total = control_step_lengths(cfg, len(batch["tokens"][0]))
     logits, caches = M.prefill(cfg, opts, params, batch, max_seq or total,
                                device=dev)
@@ -66,11 +75,19 @@ def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
     cot, tok, caches = decode_tokens(cfg, opts, params, tok, caches, prompt,
                                      cfg.n_cot_tokens, device=dev,
                                      graph=graph)
-    action_tokens, _, caches = decode_tokens(
-        cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
-        n_act or 24, device=dev, graph=graph)
+    action_tokens = trajectory = None
+    if a is None or a.mode == "discrete":
+        action_tokens, _, caches = decode_tokens(
+            cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
+            n_act or 24, device=dev, graph=graph)
+    else:
+        cond = params["embed"][tok[:, 0]]
+        trajectory = M.generate_actions_dit(cfg, params, cond, noise=noise,
+                                            generator=generator, device=dev,
+                                            graph=dit_graph)
     n_vis = cfg.vision.num_tokens if cfg.vision else 0
     return VLAOutput(
-        cot_tokens=cot, action_tokens=action_tokens, trajectory=None,
+        cot_tokens=cot, action_tokens=action_tokens, trajectory=trajectory,
         phase_tokens={"vision": n_vis, "prompt": prompt,
-                      "cot": cfg.n_cot_tokens, "action": n_act})
+                      "cot": cfg.n_cot_tokens,
+                      "action": n_act or (a.dit_steps if a else 0)})

@@ -14,7 +14,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, KV_CODES,
                                                       kv_batch_stride,
                                                       slot_index)
@@ -97,7 +97,7 @@ def chunk_prefill_attention(q, k_cache, v_cache, index, *,
                   B, S, L, N, K, h, bk,
                   kv_batch_stride(k_cache, v_cache), int(window),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    chunk_prefill_attention.launches += 1
+    count_launches(chunk_prefill_attention)
     return out
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_ref
 from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.kernels.decode_attention.ops import slot_index
@@ -73,7 +73,7 @@ def paged_chunk_prefill_attention(q, k_pages, v_pages, page_table, index, *,
                   pg.PAGE_CODES[k_pages.dtype], scale_mode, B, S, N, K, h,
                   ps, pt.shape[1], int(window),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    paged_chunk_prefill_attention.launches += 1
+    count_launches(paged_chunk_prefill_attention)
     return out
 
 

@@ -16,7 +16,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 32          # query heads per KV head the kernel holds
@@ -177,7 +177,7 @@ def decode_attention(q, k_cache, v_cache, index, *,
                   int(q.dtype == torch.bfloat16), KV_CODES[k_cache.dtype], B,
                   S, N, K, h, kv_batch_stride(k_cache, v_cache), int(window),
                   cuda_stream(dev))
-    decode_attention.launches += 1
+    count_launches(decode_attention)
     return out
 
 

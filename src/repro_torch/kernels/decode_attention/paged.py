@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, MAX_GROUP,
                                                       decode_attention_ref,
                                                       cuda_stream,
@@ -172,7 +172,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, index, *,
                   out.data_ptr(), int(q.dtype == torch.bfloat16),
                   PAGE_CODES[k_pages.dtype], scale_mode, B, N, K, h, ps,
                   pt.shape[1], int(window), cuda_stream(dev))
-    paged_decode_attention.launches += 1
+    count_launches(paged_decode_attention)
     return out
 
 

@@ -22,7 +22,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 
 BLOCK = 128                     # the TPU kernel's block: the length rule
 HEAD_DIMS = (16, 64, 128)       # head widths the kernel is built for
@@ -121,7 +121,7 @@ def _launch(q, k, v, window: int, causal: bool):
                   int(q.dtype == torch.bfloat16), B, S, Sk, N, K, h,
                   int(window), int(causal),
                   torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
+    count_launches(flash_attention)
     return out, lse
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 
 ACTS = {"silu": 0, "gelu": 1, "gelu_plain": 2}   # the kernels' act codes
 DTYPES = (torch.float32, torch.bfloat16)
@@ -110,7 +110,7 @@ def gmm_gated(x, wi, wg, *, act: str = "silu"):
                       int(x.dtype == torch.bfloat16), ACTS[act], E, C, D, F,
                       gated_rows(C),
                       torch.cuda.current_stream(x.device).cuda_stream)
-        gmm_gated.launches += 1
+        count_launches(gmm_gated)
     return out
 
 
@@ -127,7 +127,7 @@ def gmm_down(h, wo):
         _build.launch("gmm_down_launch", h.data_ptr(), wo.data_ptr(),
                       out.data_ptr(), int(h.dtype == torch.bfloat16), E, C,
                       F, D, torch.cuda.current_stream(h.device).cuda_stream)
-        gmm_down.launches += 1
+        count_launches(gmm_down)
     return out
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launches
 
 DTYPES = (torch.float32, torch.bfloat16)
 Q_MAX = 128        # the kernel's largest chunk
@@ -149,7 +149,7 @@ def _launch(xs, dt, A_log, B_, C_, Q: int):
                   y.data_ptr(), state.data_ptr(),
                   int(x.dtype == torch.bfloat16), Bsz, S, H, P, N, Q,
                   torch.cuda.current_stream(x.device).cuda_stream)
-    ssd.launches += 1
+    count_launches(ssd)
     return y, state, scratch
 
 

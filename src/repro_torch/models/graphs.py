@@ -27,6 +27,13 @@ A replay calls no kernel wrapper, so each wrapper's ``launches`` count is
 kept by the runner: the launches the captured body made are taken back
 after the capture (a capture runs nothing) and added again on each
 replay, so the counts stay the kernels' launches on the device.
+
+Threads: the warm-up's sync check, the collector and the launch counts
+are process-wide, and a capture forbids some CUDA calls on every thread
+while it runs, so a capture must not run beside another thread's CUDA
+work. A caller that steps replicas on threads captures each one first,
+one after another (``ServingEngine.capture_tick``, which the serving
+front end calls for every replica before its drivers start).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.kernels import count_launches
 from repro_torch.models.params import leaves
 
 
@@ -76,8 +84,9 @@ def tensor_key(*items) -> tuple:
 class StepGraph:
     """One step ``body``, captured in a CUDA graph on the card and replayed
     (see the module docstring). ``captures`` and ``capture_s`` count the
-    captures and the host seconds they took (the warm-up step excluded);
-    ``recorded`` maps each kernel wrapper to its launches per replay."""
+    captures and the host seconds they took (the warm-up step excluded),
+    ``replays`` the replays; ``recorded`` maps each kernel wrapper to its
+    launches per replay."""
 
     def __init__(self, body: Callable[[], None], device, *,
                  eager: bool = False):
@@ -90,6 +99,7 @@ class StepGraph:
         self.recorded: Dict = {}
         self.captures = 0
         self.capture_s = 0.0
+        self.replays = 0
 
     def step(self, key=None) -> None:
         """Run the body once (see the module docstring)."""
@@ -99,8 +109,9 @@ class StepGraph:
             self._capture(key)
         else:
             self.graph.replay()
+            self.replays += 1
             for fn, n in self.recorded.items():
-                fn.launches += n
+                count_launches(fn, n)
 
     def _capture(self, key) -> None:
         """A warm-up step (eager, on a side stream, no host sync allowed),
@@ -136,7 +147,7 @@ class StepGraph:
         self.recorded = {fn: fn.launches - before[fn] for fn in wrappers
                          if fn.launches != before[fn]}
         for fn, n in self.recorded.items():
-            fn.launches -= n                  # the capture launched nothing
+            count_launches(fn, -n)            # the capture launched nothing
         self.graph, self.key = graph, key
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

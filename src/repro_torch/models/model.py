@@ -16,6 +16,7 @@
                                   n_valid=nv)          # logits [B, K, V]
     toks, last, caches = decode_loop(cfg, opts, params, tok, caches,
                                      index, n_steps)   # one graph a step
+    traj = generate_actions_dit(cfg, params, cond, noise=noise)  # DiT head
 
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
 tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import action as A
 from repro_torch.models import params as P
 from repro_torch.models import stacks
 from repro_torch.models.graphs import StepGraph, tensor_key
@@ -41,8 +43,8 @@ from repro_torch.models.stacks import init_caches  # re-export
 
 __all__ = ["model_template", "forward", "prefill", "embed_prompt",
            "prefill_chunk", "decode_step", "draft_step", "verify_chunk",
-           "decode_loop", "DecodeGraph",
-           "encode_vision",
+           "decode_loop", "DecodeGraph", "generate_actions_dit",
+           "DiTGraph", "encode_vision",
            "init_params", "init_caches", "ModelOptions"]
 
 
@@ -52,8 +54,6 @@ def model_template(cfg: ModelConfig) -> Dict:
         raise NotImplementedError(f"{cfg.name}: absolute positions and "
                                   "encoder-decoder models are ROADMAP "
                                   "item 12")
-    if cfg.action is not None and cfg.action.mode == "dit":
-        raise NotImplementedError("the DiT action head is ROADMAP item 4")
     t: Dict = {
         "embed": P.PSpec((cfg.vocab_size, d), fan_in=d),
         "decoder": stacks.decoder_template(cfg),
@@ -63,6 +63,8 @@ def model_template(cfg: ModelConfig) -> Dict:
         t["lm_head"] = P.PSpec((cfg.vocab_size, d), fan_in=d)
     if cfg.vision is not None:
         t["vision"] = stacks.tower_template(cfg.vision, d)
+    if cfg.action is not None and cfg.action.mode == "dit":
+        t["action_dit"] = A.dit_template(cfg.action, d)
     return t
 
 
@@ -412,3 +414,83 @@ def decode_loop(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
         raise ValueError(f"the decode graph is on {graph.device}, the call "
                          f"asked for {device}")
     return graph.run(cfg, opts, params, token, caches, index, n_steps)
+
+
+class DiTGraph:
+    """The DiT head's whole denoising loop (``dit_steps`` denoiser steps)
+    as one body, captured in a CUDA graph on the card and replayed once a
+    control step (``graphs.StepGraph``): the counterpart of the
+    reference's one-dispatch ``lax.scan`` over the steps. Its static
+    buffers are the noise, the condition, the timesteps and the
+    trajectory; the graph is keyed on them and on the head's parameters,
+    so a control step keeps one across calls and replays it while the
+    batch, the type and the parameters stay. ``eager=True`` runs the same
+    loop without a graph: the oracle the graphed loop is held to. On the
+    CPU the loop always runs eagerly, on the same buffers."""
+
+    def __init__(self, device="cuda", *, eager: bool = False):
+        self.device = resolve_device(device)
+        self.runner = StepGraph(self._loop, self.device, eager=eager)
+        self.noise = self.cond = self.ts = self.traj = None
+        self._args = None
+
+    def _buffers(self, a, cond):
+        shape = (cond.shape[0], a.horizon, a.action_dim)
+        if self.noise is None or tuple(self.noise.shape) != shape \
+                or self.cond.shape != cond.shape \
+                or self.cond.dtype != cond.dtype \
+                or self.ts.shape[0] != a.dit_steps:
+            dev = self.device
+            self.noise = torch.zeros(shape, dtype=cond.dtype, device=dev)
+            self.cond = torch.zeros_like(cond, device=dev)
+            self.traj = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self.ts = A.timesteps(a, dev)
+
+    def _loop(self):
+        a, p = self._args
+        self.traj.copy_(A.denoise_loop(p, self.noise, self.cond, a, self.ts))
+
+    def run(self, cfg: ModelConfig, params, cond, noise):
+        """The trajectory [B, horizon, action_dim] f32 from ``noise`` under
+        ``cond`` [B, d_model] (``generate_actions_dit``'s arguments)."""
+        _check_params(params, self.device)
+        a = cfg.action
+        cond = _on(cond, self.device)
+        self._buffers(a, cond)
+        self.cond.copy_(cond)
+        self.noise.copy_(_on(noise, self.device))
+        self._args = (a, params["action_dit"])
+        self.runner.step(self.key())
+        return self.traj.clone()
+
+    def key(self):
+        """The captured loop's key: the head's configuration, its
+        parameters and the buffers."""
+        a, p = self._args
+        return (a,) + tensor_key(p, self.noise, self.cond, self.ts,
+                                 self.traj)
+
+
+def generate_actions_dit(cfg: ModelConfig, params, cond, *, noise=None,
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda", graph: Optional[DiTGraph] = None):
+    """Continuous trajectory [B, horizon, action_dim] (f32) via the DiT head
+    (``cfg.action.mode == 'dit'``) under ``cond`` [B, d_model], from
+    ``noise`` [B, horizon, action_dim], else a standard normal draw of
+    ``generator`` (a seed-0 generator on ``device`` when neither is
+    given: the counterpart of the reference's default key). On the card
+    the loop is one replay of ``graph`` (a ``DiTGraph``; a new one when
+    None)."""
+    if cfg.action is None or cfg.action.mode != "dit":
+        raise ValueError(f"{cfg.name} has no DiT action head")
+    dev = resolve_device(device)
+    graph = graph if graph is not None else DiTGraph(dev)
+    if graph.device != dev:
+        raise ValueError(f"the DiT graph is on {graph.device}, the call "
+                         f"asked for {device}")
+    cond = _on(cond, dev)
+    if noise is None:
+        noise = A.draw_noise(cfg.action, cond, generator if generator
+                             is not None else
+                             torch.Generator(device=dev).manual_seed(0))
+    return graph.run(cfg, params, cond, noise)

@@ -808,6 +808,33 @@ class ServingEngine:
             n += self.scheduler.pending
         return n
 
+    def capture_tick(self) -> None:
+        """Capture the fused tick's CUDA graph now instead of at the first
+        decode tick: one masked step (or speculative round) through the
+        tick's ``StepGraph``, with every slot counted done and every page
+        null. No carry or pool state changes, and a cache write lands
+        where any tick's does for a free slot (a dense cache's row at the
+        slot's position, which an admission's prefill rewrites before it
+        is read; a pool's null page, put back). Nothing to do
+        on the CPU, with ``graphs=False`` or once captured. The graph's key
+        never changes afterwards (the caches and the tick's buffers keep
+        their storage for the engine's life), so an engine captured here
+        never captures again: ``AsyncFrontend`` calls this for each replica,
+        one after another, before its threads tick them
+        (``models.graphs``)."""
+        tick = self._tick
+        if tick.graph.eager or tick.graph.graph is not None:
+            return
+        done = np.ones(self.n_slots, bool)
+        if self.spec_decode:
+            tick.load(self.tokens, self.index, self.budget, done, 1)
+        else:
+            tick.load(self.tokens, self.index, self.budget, done, self.keys)
+        if tick.page_table is not None:
+            tick.page_table.zero_()
+        tick.run(1)
+        self.masked_steps += 1
+
     def cancel(self, uid: int) -> bool:
         """Abort request ``uid`` between ticks, queued, mid-prefill
         (chunked engines: the task is dropped without requeue) or

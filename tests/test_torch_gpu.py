@@ -1039,3 +1039,127 @@ def test_verify_chunk_band_and_whole_view_same_bits_on_card():
                 res.append((lg, c))
             assert torch.equal(res[0][0], res[1][0])
             assert _same_tree(res[0][1], res[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the DiT action head (model.DiTGraph) and replicas on threads
+# ---------------------------------------------------------------------------
+
+def _dit_model(dtype=torch.float32):
+    """Reduced molmoact-7b-dit (10 denoising steps, horizon 8) with seeded
+    weights on the card; the head's zero-initialised leaves (``ada``,
+    ``final_ada``, ``out_proj``) set to normal x 0.02, so that the head
+    changes its noise."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    cfg = get_config("molmoact-7b-dit").reduced()
+    cfg = dataclasses.replace(cfg, n_cot_tokens=5, action=dataclasses.replace(
+        cfg.action, dit_steps=10, horizon=8))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = M.init_params(cfg, gen, dtype, device="cuda")
+    for path, t in leaves(params["action_dit"]):
+        if path.split("/")[-1] in ("ada", "final_ada", "out_proj"):
+            t.normal_(generator=gen).mul_(0.02)
+    return cfg, params
+
+
+@pytest.mark.gpu
+def test_dit_graph_equals_eager_on_card():
+    """Two control steps of reduced molmoact-7b-dit through one DiTGraph
+    (and one DecodeGraph): the DiT loop captures once and replays on the
+    same buffers for the second step, and each trajectory equals the same
+    loop run eagerly bit for bit; the head moves the noise."""
+    from repro_torch.core import vla
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    _cuda()
+    cfg, params = _dit_model()
+    a = cfg.action
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    graph, dit = M.DecodeGraph("cuda"), M.DiTGraph("cuda")
+    eager = M.DiTGraph("cuda", eager=True)
+    for step in range(2):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, 6),
+                                         generator=gen, device="cuda"),
+                 "patches": torch.randn((3, cfg.vision.num_tokens,
+                                         cfg.vision.embed_dim),
+                                        generator=gen, device="cuda")}
+        noise = torch.randn((3, a.horizon, a.action_dim), generator=gen,
+                            device="cuda")
+        out = vla.vla_control_step(cfg, ModelOptions(), params, batch,
+                                   device="cuda", graph=graph, dit_graph=dit,
+                                   noise=noise)
+        ref = vla.vla_control_step(cfg, ModelOptions(), params, batch,
+                                   device="cuda", dit_graph=eager,
+                                   noise=noise)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cot_tokens, ref.cot_tokens)
+        assert torch.equal(out.trajectory, ref.trajectory)
+        assert float((out.trajectory - noise).abs().max()) > 0.05
+        assert dit.runner.captures == 1 and dit.runner.replays == step
+        assert out.phase_tokens["action"] == a.dit_steps
+
+
+@pytest.mark.gpu
+def test_engines_ticked_from_two_threads_equal_serial_on_card():
+    """Two engines behind the front end with offloaded ticks: the front
+    end's start captures both tick graphs, one after the other, and the
+    replicas then tick side by side on two threads with nothing raised;
+    each captures once and records only its own step's launches; their
+    streams and the kernels' launch counts equal the same requests ticked
+    serially, one engine after the other, each captured first as the
+    front end does (the eager oracle beside, which captures nothing and
+    so runs one masked step fewer an engine)."""
+    import asyncio
+    from repro_torch.kernels.chunk_prefill.paged import (
+        paged_chunk_prefill_attention as chunk)
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serving import AsyncFrontend, Request, ServingEngine
+    _cuda()
+    cfg, params = _small_model(dtype=torch.float32)
+    kw = dict(n_slots=3, max_seq=128, eos=-999, tick_tokens=4, paged=True,
+              chunked_prefill=True, chunk_size=32, token_budget=64,
+              device="cuda")
+    gen = torch.Generator().manual_seed(8)
+    reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy(),
+             m) for n, m in [(40, 12), (70, 9), (20, 14), (33, 10)]]
+    decode = pg.paged_decode_attention
+
+    def serial(graphs):
+        out, counts = [], (decode.launches, chunk.launches)
+        for half in (reqs[0::2], reqs[1::2]):
+            eng = ServingEngine(cfg, ModelOptions(), params, graphs=graphs,
+                                **kw)
+            eng.capture_tick()
+            for i, (p, m) in enumerate(half):
+                eng.submit(Request(uid=i, prompt=p, max_tokens=m))
+            out.append({r.uid: r.out_tokens for r in eng.run()})
+        torch.cuda.synchronize()
+        return out, (decode.launches - counts[0], chunk.launches - counts[1])
+
+    async def threaded():
+        engines = [ServingEngine(cfg, ModelOptions(), params, **kw)
+                   for _ in range(2)]
+        async with AsyncFrontend(engines, offload_ticks=True) as fe:
+            assert [e._tick.graph.captures for e in engines] == [1, 1]
+            streams = [await fe.submit(p, m) for p, m in reqs]
+            outs = [await s.tokens() for s in streams]
+            await fe.drain()
+        return engines, streams, outs
+
+    want, want_n = serial(graphs=True)
+    eager, eager_n = serial(graphs=False)
+    assert want == eager
+    assert want_n == (eager_n[0] + 2 * cfg.num_layers, eager_n[1])
+    counts = (decode.launches, chunk.launches)
+    engines, streams, outs = asyncio.run(threaded())
+    torch.cuda.synchronize()
+    got_n = (decode.launches - counts[0], chunk.launches - counts[1])
+    assert [s.replica for s in streams] == [0, 1, 0, 1]
+    assert outs == [want[i % 2][i // 2] for i in range(4)]
+    assert got_n == want_n
+    for eng in engines:
+        assert eng._tick.graph.captures == 1
+        assert eng._tick.graph.recorded == {decode: cfg.num_layers}

@@ -89,10 +89,24 @@ def test_prefill_logits_and_vision_prefix(setup):
 
 
 def test_dit_head_is_not_ported_yet():
+    """The name is kept from when the port refused the DiT head. Reduced
+    molmoact-7b with its head switched to "dit" now runs: the control step
+    returns a trajectory [B, horizon, action_dim] and no action tokens
+    (``tests/test_torch_dit.py`` holds it to the reference)."""
     cfg = dataclasses.replace(
         get_config("molmoact-7b").reduced(),
-        action=dataclasses.replace(get_config("molmoact-7b").action,
-                                   mode="dit"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvla.vla_control_step(cfg, ModelOptions(), {}, {"tokens": [[0]]},
-                              device="cpu")
+        action=get_config("molmoact-7b-dit").reduced().action)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, N_TEXT)),
+             "patches": rng.standard_normal(
+                 (B, cfg.vision.num_tokens, cfg.vision.embed_dim),
+                 dtype=np.float32)}
+    out = tvla.vla_control_step(cfg, ModelOptions(), params, batch,
+                                device="cpu")
+    a = cfg.action
+    assert out.action_tokens is None
+    assert out.trajectory.shape == (B, a.horizon, a.action_dim)
+    assert bool(torch.isfinite(out.trajectory).all())
+    assert out.phase_tokens["action"] == a.dit_steps
