@@ -21,7 +21,7 @@ weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
 16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
 pools) and chunked under the token-budget scheduler (dense; paged f32,
-int8 and fp8 pools; the serving engines on molmoact's first 14 layers).
+int8 and fp8 pools; the serving engines on molmoact's first 12 layers).
 The MoE family follows: the grouped-expert kernels
 against their plain versions at granite-moe-3b-a800m's width, the reduced
 granite engine on card and CPU, and the full-width granite-moe-3b-a800m
@@ -53,10 +53,22 @@ rim: phase 5d, the asyncio front end over two reduced replicas (each
 captured at the front end's start, then ticked side by side on two
 threads) against a synchronous CPU engine, and the serve driver; phase
 5e, two full-width replicas replaying a robot-fleet trace in real time
-(TTFT, 10 Hz attainment). Prints
-the card, the phase numbers, one JSON line describing each kernel and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero, without that
-line, when there is no CUDA device or any phase fails.
+(TTFT, 10 Hz attainment). The reference's other architectures: phase 2e,
+the decode kernel as ring decode (gemma3-27b's heads over a ring of its
+1024-row window) and as cross decode (whisper-small's 1500 frames), and
+the flash kernel at S = W = 1024, against their plain versions; phase
+3f, reduced granite-3-2b, internvl2-1b, gemma3-27b (6 layers, ring and
+full caches) and whisper-small on card and CPU; phase 10, full-width
+granite-3-2b (40 layers; admit-stall and chunked paged f32 engines),
+internvl2-1b (24 + 24 layers; dense engine with 256 patches a request),
+gemma3-27b's first 6 layers (model level with ring and full caches, a
+1024-token prefill and 256 steps past the wrap; a ring-cache engine) and
+whisper-small (12 + 12 layers; B=4 over 1500 frames, 220 steps), each
+decode path graph-replayed and eager under phase 5's gates. Prints each
+phase's seconds, the card, the phase numbers, one JSON line describing
+each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
+non-zero, without that line, when there is no CUDA device or any phase
+fails.
 """
 from __future__ import annotations
 
@@ -98,11 +110,11 @@ PHASE_REPEATS = 3                  # timed control steps after the first
 # twice), 144 CoT + 48 action tokens + the prefill token per request
 SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
 SERVE_MAX_SEQ, SERVE_TICK = 864, 8
-# molmoact-7b's serving engines run its first 14 of 28 layers (full
+# molmoact-7b's serving engines run its first 12 of 28 layers (full
 # width; every engine and gate kept), so that the script, with the MoE
-# phases, stays near half its time limit; the control step and the f32
-# prefill check keep every layer
-SERVE_LAYERS = 14
+# phases and phase 10, stays well inside its time limit; the control
+# step and the f32 prefill check keep every layer
+SERVE_LAYERS = 12
 PAGE = 32
 SPEC_K = 4           # the speculative engines' chunk: 3 drafts + 1
 # phase 5c: (name, engine options, phase 5's engine whose streams it is
@@ -3796,6 +3808,619 @@ def fleet_full(cfg, params):
           f"gate); phase 5e took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the reference's other architectures (phases 2e, 3f and 10): granite-3-2b
+# (GQA 32/8, tied embeddings), internvl2-1b (a 24-layer ViT tower, qkv
+# bias), gemma3-27b (5:1 local:global; ring caches under window_cache) and
+# whisper-small (encoder-decoder: absolute positions, layer norm, cross
+# attention). No kernel is new: ring decode and cross decode are the
+# split-key decode kernel (row 1) at another index, and a ring prefill of
+# the whole window runs the flash kernel (row 5).
+# ---------------------------------------------------------------------------
+
+GRANITE, INTERNVL, GEMMA, WHISPER = ("granite-3-2b", "internvl2-1b",
+                                     "gemma3-27b", "whisper-small")
+GEMMA_LAYERS = 6     # gemma3-27b cut to one 5:1 period: 5 local, 1 global
+ARCH_SLOTS, ARCH_NEW = 8, 64       # the engines' slots; tokens a request
+GRANITE_PROMPT, INTERNVL_TEXT = 256, 64   # internvl2: after 256 patches
+GRANITE_ENGINES = [("granite-paged-f32", dict(paged=True)),
+                   ("granite-paged-f32-chunked", dict(CHUNKED, paged=True))]
+# gemma3-27b, model level: B=2, a prefill of its window (1024 tokens), then
+# 256 decode steps (the ring wraps at the first); engine level: 8 requests
+# with prompts of 256-1024, each decoding to position GEMMA_END - 2, past
+# the ring's 1024 rows
+GEMMA_B, GEMMA_PREFILL, GEMMA_STEPS, GEMMA_FORCED = 2, 1024, 256, 32
+GEMMA_PROMPTS = (256, 384, 512, 640, 768, 896, 1000, 1024)
+GEMMA_END, GEMMA_MAX_SEQ = 1100, 1120
+# whisper-small: B=4 over 1500 frames, a 4-token prompt, 220 decode steps
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 220
+
+
+def gemma_cut(cfg):
+    return dataclasses.replace(cfg, num_layers=GEMMA_LAYERS)
+
+
+def hold(label: str, gates) -> None:
+    """Raise unless every gate of ``gates`` ({description: bool}) held."""
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"{label}: {failed}")
+    print(f"  {label}: all {len(gates)} gates held")
+
+
+def timed_route(label: str, fn, plain, nbytes: float, ops: float, dtype):
+    """A route's device ms a call (CUDA events, its inputs reused) beside
+    its plain version's and the bound of its bytes and operations."""
+    ms, plain_ms = time_ms(fn, 50), time_ms(plain, 5, warmup=1)
+    least, by = bound(nbytes, ops, dtype)
+    print(f"  {label}: {ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
+          f"{least:.4f} ms ({by}), {ms / least:.1f}x the bound")
+
+
+def arch_kernel_checks():
+    """Phase 2e: the new paths' routes through rows 1 and 5 against their
+    plain versions at the full widths' shapes. Ring decode
+    (``decode_ring``: the split-key kernel at min(index, W - 1), no
+    window): gemma3-27b's heads (G = 2 at h = 128) over a ring of W = 1024
+    rows (the kernel's S == W), per-slot indices before, at and past the
+    wrap, against ``attention_decode_ring``. Cross decode
+    (``decode_cross``: the kernel at the last context row): whisper-small's
+    12 heads at h = 64 over its 1500 frames (not a multiple of the
+    128-key split), against the reference's non-causal dense core. Both in
+    bf16 and f32 storage. The flash kernel at gemma3's ring prefill: S = W
+    = 1024 with the window 1024, bf16. Each also timed beside its plain
+    version and its bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    opts = L.ModelOptions()
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    gcfg, wcfg = get_config(GEMMA), get_config(WHISPER)
+    N, K, h = gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim
+    W = gcfg.window_pattern[0]
+    idx = torch.tensor((0, 500, W - 1, W, W + 76, 2 * W - 1, 3 * W,
+                        4 * W + 5), dtype=torch.int32, device=dev)
+    B = len(idx)
+    wN, wK, wh = wcfg.num_heads, wcfg.num_kv_heads, wcfg.head_dim
+    T = wcfg.encoder.num_tokens
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        q = rand(B, 1, N, h, dtype=dtype)
+        kc, vc = rand(B, W, K, h, dtype=dtype), rand(B, W, K, h, dtype=dtype)
+
+        def ring(q=q, kc=kc, vc=vc):
+            return L.run_attention_core("decode_ring", q, kc, vc, opts=opts,
+                                        window=W, index=idx)
+
+        def ring_plain(q=q, kc=kc, vc=vc):
+            return L.attention_decode_ring(q.float(), kc.float(),
+                                           vc.float(), idx)
+        check(f"ring decode ({GEMMA} heads {N}/{K}, h={h}, W={W}, B={B}, "
+              f"indices {idx.tolist()}, {dt})", ring(), ring_plain(),
+              KERNEL_TOL)
+        timed_route(f"ring decode {dt}", ring, ring_plain,
+                    2 * kc.numel() * kc.element_size()
+                    + 2 * q.numel() * q.element_size(), 4 * B * N * W * h,
+                    dtype)
+        q = rand(WHISPER_B, 1, wN, wh, dtype=dtype)
+        xk = rand(WHISPER_B, T, wK, wh, dtype=dtype)
+        xv = rand(WHISPER_B, T, wK, wh, dtype=dtype)
+
+        def cross(q=q, xk=xk, xv=xv):
+            return L.run_attention_core("decode_cross", q, xk, xv,
+                                        opts=opts, window=0, causal=False)
+
+        def cross_plain(q=q, xk=xk, xv=xv):
+            return L.attention_dense(q.float(), xk.float(), xv.float(),
+                                     torch.arange(1, device=dev),
+                                     torch.arange(T, device=dev), 0,
+                                     causal=False)
+        check(f"cross decode ({WHISPER} heads {wN}/{wK}, h={wh}, T={T}, "
+              f"B={WHISPER_B}, {dt})", cross(), cross_plain(), KERNEL_TOL)
+        timed_route(f"cross decode {dt}", cross, cross_plain,
+                    2 * xk.numel() * xk.element_size()
+                    + 2 * q.numel() * q.element_size(),
+                    4 * WHISPER_B * wN * T * wh, dtype)
+    S = GEMMA_PREFILL
+    q = rand(GEMMA_B, S, N, h, dtype=torch.bfloat16)
+    k, v = (rand(GEMMA_B, S, K, h, dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, device=dev)
+
+    def flash():
+        return L.run_attention_core("fresh_flash", q, k, v, opts=opts,
+                                    window=W, causal=True, q_pos=pos,
+                                    k_pos=pos)
+
+    def flash_plain():
+        return L.attention_dense(q.float(), k.float(), v.float(), pos, pos,
+                                 W)
+    check(f"flash attention, the ring prefill ({GEMMA} heads, B={GEMMA_B}, "
+          f"S = W = {S}, bf16)", flash(), flash_plain(), KERNEL_TOL)
+    timed_route(f"flash attention S = W = {S} bf16", flash, flash_plain,
+                2 * (q.numel() + k.numel() + v.numel()),
+                2 * GEMMA_B * N * S * S * h, torch.bfloat16)
+
+
+def arch_card_vs_cpu():
+    """Phase 3f: the reduced forms on the card (kernels) and on the CPU
+    (plain versions), with f32 weights: the engines' greedy streams equal
+    (``engines_card_vs_cpu``: granite-3-2b and internvl2-1b, the latter
+    with patches, dense and paged f32; gemma3-27b in 6 layers, with ring
+    caches and with full ones, budgets past the ring's 32 rows); and
+    whisper-small's prefill logits within CPU_LOGIT_TOL and its greedy
+    ``decode_loop`` streams equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+
+    def params_pair(cfg):
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              torch.float32, device="cpu")
+        p_gpu = {}
+        for path, t in leaves(p_cpu):
+            set_leaf(p_gpu, path, t.cuda())
+        return p_cpu, p_gpu
+    rng = np.random.default_rng(SEED + 12)
+    for name in (GRANITE, INTERNVL, GEMMA):
+        cfg = get_config(name).reduced()
+        shape = ((6, 9), (9, 4), (4, 14), (7, 6), (5, 11))
+        if name == GEMMA:
+            cfg = gemma_cut(cfg)
+            shape = ((6, 30), (9, 5), (20, 18), (3, 12))
+        p_cpu, p_gpu = params_pair(cfg)
+        reqs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), m,
+                 None if cfg.vision is None else rng.standard_normal(
+                     (cfg.vision.num_tokens, cfg.vision.embed_dim),
+                     dtype=np.float32)) for n, m in shape]
+        if name == GEMMA:
+            for ring in (True, False):
+                engines_card_vs_cpu(
+                    cfg, p_cpu, p_gpu,
+                    [(f"{cfg.name}, {'ring' if ring else 'full'} caches",
+                      {}, reqs, 64)], n_slots=2,
+                    opts=M.ModelOptions(window_cache=ring))
+        else:
+            engines_card_vs_cpu(cfg, p_cpu, p_gpu,
+                                [(f"{cfg.name}, dense", {}, reqs, 64),
+                                 (f"{cfg.name}, paged-f32",
+                                  dict(paged=True), reqs, 64)], n_slots=2)
+    cfg = get_config(WHISPER).reduced()
+    p_cpu, p_gpu = params_pair(cfg)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 4)),
+             "frames": rng.standard_normal(
+                 (2, cfg.encoder.num_tokens, cfg.encoder.embed_dim),
+                 dtype=np.float32)}
+    out = {}
+    for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        opts = M.ModelOptions()
+        logits, caches = M.prefill(cfg, opts, params, batch, 32, device=dev)
+        toks, _, _ = M.decode_loop(cfg, opts, params,
+                                   logits[:, -1].argmax(-1, keepdim=True),
+                                   caches, 4, 20, device=dev)
+        out[dev] = (logits.cpu(), toks.cpu())
+    check(f"{cfg.name} prefill logits, card vs CPU", out["cuda"][0],
+          out["cpu"][0], CPU_LOGIT_TOL)
+    if not torch.equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError(f"{cfg.name} decode_loop: card "
+                             f"{out['cuda'][1].tolist()} vs CPU "
+                             f"{out['cpu'][1].tolist()}")
+    print(f"  {cfg.name}: decode_loop streams equal on card and CPU "
+          f"({out['cpu'][1].numel()} tokens)")
+
+
+def arch_engine(cfg, opts, params, name: str, kw, reqs, max_seq: int,
+                expected, graphs: bool = True):
+    """``reqs`` ([(prompt, max_tokens, patches)]) through one full-width
+    engine on the card, its tick step replayed from a CUDA graph or
+    (``graphs=False``) run eagerly; prints its serving row and returns
+    (engine, {uid: tokens}, launches, gates). ``expected(engine)`` gives
+    the kernels' launches the run must show (others: none). Gates: every
+    request ends with its budget (eos never fires); the launches; one
+    readback a decode tick and one a request's first token; a paged pool
+    drains."""
+    import torch
+    from repro_torch.serving import Request, ServingEngine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    eng = ServingEngine(cfg, opts, params, n_slots=ARCH_SLOTS,
+                        max_seq=max_seq, eos=-1, tick_tokens=SERVE_TICK,
+                        device="cuda", graphs=graphs, **kw)
+    for i, (prompt, m, px) in enumerate(reqs):
+        eng.submit(Request(uid=i, prompt=prompt, max_tokens=m, patches=px))
+    t0 = time.perf_counter()
+    out = {r.uid: r.out_tokens for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    want = expected(eng)
+    want = {k: want.get(k, 0) for k in launches}
+    st, rep = eng.stats, eng.stats.phase_report()
+    n_tok = sum(map(len, out.values()))
+    print(f"  {name} ({'graphed' if graphs else 'eager'}): {len(out)} "
+          f"requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} "
+          f"tokens/s); ticks {st.ticks}, device steps {st.device_steps}, "
+          f"masked steps {eng.masked_steps}; TTFT p50/p99 "
+          f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
+          f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
+          f"{rep['decode_tick_p99'] * 1e3:.2f} ms; phases vision "
+          f"{st.vision_time:.3f} s prefill {st.prefill_time:.3f} s decode "
+          f"{st.decode_time:.3f} s; pages_hwm {st.pages_hwm}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{launches}")
+    gates = {
+        "every request ends with its budget":
+            len(out) == len(reqs) and all(
+                len(out[i]) == m for i, (_, m, _) in enumerate(reqs)),
+        f"launches == {want}": launches == want,
+        "one readback per decode tick":
+            st.decode_syncs == len(st.decode_tick_s) <= st.ticks,
+        "one first-token readback per request":
+            st.prefill_syncs == len(reqs),
+    }
+    if eng.paged:
+        gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
+    return eng, out, launches, gates
+
+
+def arch_serve_both(cfg, opts, params, name: str, kw, reqs, max_seq: int,
+                    expected, breakdown: bool = True):
+    """``arch_engine`` graph-replayed (the main path), then eagerly (the
+    oracle): both runs' gates, the same streams and launches, a replayed
+    tick step running the eager step's kernels in order with at most
+    MAX_GRAPH_LAUNCHES host launch calls (``graph_step_checks``), and
+    (``breakdown``) the tick step's wall, device-busy time, idle share
+    and kernels a step in both modes (``tick_breakdown``). Returns the
+    graphed run's (launches, streams)."""
+    eng, out, launches, gates = arch_engine(cfg, opts, params, name, kw,
+                                            reqs, max_seq, expected)
+    tick = eng._tick
+    graph_step_checks(f"{name} tick step", tick.graph,
+                      reset=tick.counter.zero_)
+    eager, out_e, launches_e, gates_e = arch_engine(
+        cfg, opts, params, name, kw, reqs, max_seq, expected, graphs=False)
+    gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
+    gates["graphed streams equal eager streams"] = out == out_e
+    gates["graphed launches equal eager launches"] = launches == launches_e
+    hold(f"{name}, graphed and eager", gates)
+    g, e = eng.stats, eager.stats
+    print(f"  {name}, graphed vs eager: wall decode {g.decode_time:.3f} vs "
+          f"{e.decode_time:.3f} s; decode tick p50 "
+          f"{np.percentile(g.decode_tick_s, 50) * 1e3:.2f} vs "
+          f"{np.percentile(e.decode_tick_s, 50) * 1e3:.2f} ms; one capture "
+          f"{tick.graph.capture_s * 1e3:.1f} ms")
+    del eager
+    if breakdown:
+        tick_breakdown(eng, name)
+    return launches, out
+
+
+def seeded_prompts(vocab: int, lengths, seed: int):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+            .cpu().numpy().astype(np.int32) for n in lengths]
+
+
+def granite_full(cfg, params):
+    """granite-3-2b at full width and depth (40 layers, bf16): 8 requests
+    of GRANITE_PROMPT tokens, ARCH_NEW new tokens each, on 8 slots,
+    through admit-stall paged f32 and chunked paged f32 (chunks of
+    CHUNK_SIZE, TOKEN_BUDGET a tick). Launches: the paged decode kernel
+    once a layer a tick step; admit-stall, the dense chunk kernel once a
+    layer a request (its batch-1 prefill); chunked, the paged chunk
+    kernel once a layer a chunk run."""
+    from repro_torch.models import model as M
+    L = cfg.num_layers
+    reqs = [(p, ARCH_NEW, None) for p in seeded_prompts(
+        cfg.vocab_size, [GRANITE_PROMPT] * ARCH_SLOTS, SEED + 14)]
+    max_seq = GRANITE_PROMPT + ARCH_NEW
+    out = {}
+    for name, kw in GRANITE_ENGINES:
+        def expected(eng):
+            steps = eng.stats.device_steps + eng.masked_steps
+            if eng.scheduler is None:
+                return {"paged_decode_attention": L * steps,
+                        "chunk_prefill": L * len(reqs)}
+            runs = eng.stats.prefill_key_lanes_full // (CHUNK_SIZE
+                                                        * max_seq)
+            return {"paged_decode_attention": L * steps,
+                    "paged_chunk_prefill": L * runs}
+        # the chunked engine's tick step is the admit-stall one's
+        out[name] = arch_serve_both(cfg, M.ModelOptions(), params, name, kw,
+                                    reqs, max_seq, expected,
+                                    breakdown=not kw.get("chunked_prefill"))[0]
+    return out
+
+
+def internvl_full(cfg, params):
+    """internvl2-1b at full width and depth (24 LM layers, the 24-layer
+    ViT tower over 256 patches, bf16): 8 requests of 256 patches and
+    INTERNVL_TEXT text tokens, ARCH_NEW new tokens each, admit-stall on
+    the dense layout; the vision stage's time is the row's ``vision``."""
+    import torch
+    from repro_torch.models import model as M
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    reqs = [(p, ARCH_NEW, torch.randn(
+        (cfg.vision.num_tokens, cfg.vision.embed_dim), generator=gen,
+        device="cuda").cpu().numpy()) for p in seeded_prompts(
+            cfg.vocab_size, [INTERNVL_TEXT] * ARCH_SLOTS, SEED + 16)]
+    max_seq = cfg.vision.num_tokens + INTERNVL_TEXT + ARCH_NEW
+
+    def expected(eng):
+        steps = eng.stats.device_steps + eng.masked_steps
+        return {"decode_attention": L * steps, "chunk_prefill": L * len(reqs)}
+    return {"internvl-dense": arch_serve_both(
+        cfg, M.ModelOptions(), params, "internvl-dense", {}, reqs, max_seq,
+        expected)[0]}
+
+
+def loop_runs(cfg, opts, params, prefill, start: int, n: int, label: str,
+              expected):
+    """A model-level path, graphed and eager: ``prefill()`` -> (logits,
+    caches), then ``n`` greedy steps of ``decode_loop`` from ``start``
+    through a ``DecodeGraph``, the launches counted from the prefill on.
+    Gates: the same tokens in both modes, finite prefill logits,
+    ``expected`` launches, one capture, graphed = eager kernels a step and
+    host launch calls (``graph_step_checks``). Prints prefill ms, ms a
+    token (by host clock, the graph's capture taken out) and the graphed
+    step's busy time, idle share and kernels (``decode_breakdown``, over
+    steps that rewrite the loop's first positions). Returns (graphed
+    tokens, the graphed run's caches, busy ms a step or None, ms a token,
+    the graphed run's launches)."""
+    import torch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    runs = {}
+    for mode in ("graphed", "eager"):
+        graph = M.DecodeGraph(dev, eager=mode == "eager")
+        kernels = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, _, _ = M.decode_loop(cfg, opts, params, tok, caches, start, n,
+                                   device=dev, graph=graph)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        capture_s = graph.runner.capture_s
+        runs[mode] = dict(toks=toks, launches=read_launches(kernels),
+                          logits=logits, caches=caches, graph=graph,
+                          tok=tok, prefill_ms=(t1 - t0) * 1e3,
+                          token_ms=(t2 - t1 - capture_s) * 1e3 / n)
+        print(f"  {label} ({mode}): prefill {runs[mode]['prefill_ms']:.2f} "
+              f"ms; decode {runs[mode]['token_ms']:.3f} ms a token over "
+              f"{n} steps (capture {capture_s * 1e3:.1f} ms apart); "
+              f"launches {runs[mode]['launches']}")
+    g, e = runs["graphed"], runs["eager"]
+    want = {k: expected.get(k, 0) for k in g["launches"]}
+    hold(f"{label}, graphed and eager", {
+        "graphed tokens equal eager tokens": torch.equal(g["toks"],
+                                                         e["toks"]),
+        "finite prefill logits": bool(torch.isfinite(g["logits"]).all()),
+        "tokens in the vocabulary": 0 <= int(g["toks"].min())
+            and int(g["toks"].max()) < cfg.vocab_size,
+        f"launches == {want}": g["launches"] == want == e["launches"],
+        "one capture a call's caches": g["graph"].runner.captures == 1})
+    graph = g["graph"]
+
+    def reset():
+        # the traced steps (up to 4 in a row) decode the loop's last
+        # positions again: the caches hold no position past the loop
+        graph.counter.zero_()
+        graph.idx.fill_(start + n - 8)
+    graph_step_checks(f"{label} decode step", graph.runner, reset)
+
+    def run_steps(k):
+        M.decode_loop(cfg, opts, params, g["tok"], g["caches"], start, k,
+                      device=dev, graph=graph)
+    res = decode_breakdown(run_steps, g["token_ms"],
+                           label=f"{label} decode step (graphed)")
+    return (g["toks"], g["caches"], res and res[0], g["token_ms"],
+            g["launches"])
+
+
+def gemma_full(cfg, params):
+    """gemma3-27b at full width, its first GEMMA_LAYERS layers (5 local of
+    window 1024, 1 global; bf16; the tied 262,144-row embedding). Model
+    level (``loop_runs``): B = GEMMA_B, a prefill of GEMMA_PREFILL tokens,
+    GEMMA_STEPS decode steps, with ring caches (window_cache: the local
+    layers' prefill is the flash kernel at S = W, their decode the ring
+    route) and with full ones (the chunk kernel with the window). Gated:
+    the two modes' prefill logits, and their logits over GEMMA_FORCED
+    teacher-forced steps past the wrap, within KERNEL_TOL x max(1, |x|);
+    reported: the share of equal greedy tokens. The logits are compared
+    on the same weights in f32 (f32 caches: the 3xTF32 flash and chunk
+    bodies, the f32 decode): in bf16 the two layouts' rounding between
+    layers alone moves some of the 262,144 logits by more than 1e-2
+    from the second step past the wrap on, so the bf16 runs are held by
+    their tokens (graphed = eager) and their share of equal tokens is
+    reported. Engine level: ring
+    caches, 8 requests with prompts GEMMA_PROMPTS, each decoding past
+    position 1024 (``arch_serve_both``)."""
+    import torch
+    from repro_torch.configs import GLOBAL_WINDOW
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, set_leaf
+    dev = torch.device("cuda")
+    L = cfg.num_layers
+    n_local = sum(cfg.layer_window(i) != GLOBAL_WINDOW for i in range(L))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tokens = torch.randint(0, cfg.vocab_size, (GEMMA_B, GEMMA_PREFILL),
+                           generator=gen, device=dev)
+    max_seq = GEMMA_PREFILL + GEMMA_STEPS
+    res = {}
+    for ring in (True, False):
+        opts = M.ModelOptions(window_cache=ring)
+        label = f"{cfg.name} ({L} layers), {'ring' if ring else 'full'} " \
+                f"caches"
+        expected = {"decode_attention": L * GEMMA_STEPS,
+                    "flash_attention": n_local if ring else 0,
+                    "chunk_prefill": L - n_local if ring else L}
+        res[ring] = loop_runs(
+            cfg, opts, params,
+            lambda opts=opts: M.prefill(cfg, opts, params,
+                                        {"tokens": tokens}, max_seq,
+                                        device=dev),
+            GEMMA_PREFILL, GEMMA_STEPS, label, expected)
+        if ring:
+            k = res[ring][1]["blocks"]["sub0"]["k"]
+            print(f"  ring cache leaf {tuple(k.shape)} (layers, B, W, K, "
+                  f"h) against the full cache's {max_seq} rows")
+    # the two cache layouts sum the same keys in another order: compared
+    # on the same weights in f32, so that the bf16 model's rounding
+    # between layers does not hide what the layouts do
+    p32 = {}
+    for path, t in leaves(params):
+        set_leaf(p32, path, t.float())
+    logits, caches = {}, {}
+    for ring in (True, False):
+        logits[ring], caches[ring] = M.prefill(
+            cfg, M.ModelOptions(window_cache=ring), p32, {"tokens": tokens},
+            max_seq, cache_dtype=torch.float32, device=dev)
+    errs = [check("f32 prefill logits, ring vs full caches", logits[True],
+                  logits[False], KERNEL_TOL)]
+    forced = res[False][0][:, :GEMMA_FORCED]
+    tok = logits[False][:, -1].argmax(-1, keepdim=True)
+    for i in range(GEMMA_FORCED):
+        for ring in (True, False):
+            logits[ring], _ = M.decode_step(
+                cfg, M.ModelOptions(window_cache=ring), p32, tok,
+                caches[ring], GEMMA_PREFILL + i, device=dev)
+        errs.append(check(f"f32 decode logits at {GEMMA_PREFILL + i}, ring "
+                          f"vs full", logits[True], logits[False],
+                          KERNEL_TOL, quiet=True))
+        tok = forced[:, i:i + 1]
+    del p32
+    print(f"  ring vs full caches, f32 weights: logits of the prefill and "
+          f"of {GEMMA_FORCED} teacher-forced steps past the wrap within "
+          f"{KERNEL_TOL} x max(1, |x|), largest error {max(errs):.3g}; "
+          f"bf16 weights: "
+          f"share of equal greedy tokens over {GEMMA_STEPS} steps "
+          f"{float((res[True][0] == res[False][0]).float().mean()):.4f} "
+          f"(reported, not a gate)")
+    out = {f"gemma-{'ring' if ring else 'full'}-model": r[4]
+           for ring, r in res.items()}
+    del caches, logits, res
+    reqs = [(p, GEMMA_END - len(p), None) for p in seeded_prompts(
+        cfg.vocab_size, GEMMA_PROMPTS, SEED + 18)]
+    n_flash = sum(len(p) % 128 == 0 for p, _, _ in reqs)
+
+    def expected(eng):
+        steps = eng.stats.device_steps + eng.masked_steps
+        return {"decode_attention": L * steps,
+                "flash_attention": n_local * n_flash,
+                "chunk_prefill": (L - n_local) * len(reqs)}
+    out["gemma-ring"] = arch_serve_both(
+        cfg, M.ModelOptions(window_cache=True), params, "gemma-ring", {},
+        reqs, GEMMA_MAX_SEQ, expected)[0]
+    return out
+
+
+def whisper_full(cfg, params):
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, bf16): B = WHISPER_B over 1500 seeded frames, a
+    WHISPER_PROMPT-token prompt, WHISPER_STEPS greedy steps through
+    ``DecodeGraph`` (``loop_runs``). Launches: the chunk kernel once a
+    decoder layer (the prompt's prefill), the decode kernel twice a layer
+    a step (self attention; cross attention over the cached 1500-row
+    context). Prints the encoder's ms (alone, median of 3), and the cross
+    attention's share of the decode step's device time: its 12 calls
+    timed alone (graph-replayed, on the caches' own context rows) over
+    the step's busy time."""
+    import torch
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.models import stacks
+    dev = torch.device("cuda")
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    frames = torch.randn((WHISPER_B, cfg.encoder.num_tokens,
+                          cfg.encoder.embed_dim), generator=gen,
+                         device=dev).to(params["embed"].dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT),
+                           generator=gen, device=dev)
+    enc = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        stacks.apply_tower(params["encoder"], frames, cfg.encoder)
+        ev[1].record()
+        torch.cuda.synchronize()
+        enc.append(ev[0].elapsed_time(ev[1]))
+    print(f"  {cfg.name} encoder ({cfg.encoder.num_layers} layers over "
+          f"{cfg.encoder.num_tokens} frames, B={WHISPER_B}): "
+          f"{float(np.median(enc)):.2f} ms (median of 3)")
+    opts = M.ModelOptions()
+    toks, caches, busy_ms, token_ms, launches = loop_runs(
+        cfg, opts, params,
+        lambda: M.prefill(cfg, opts, params,
+                          {"tokens": tokens, "frames": frames},
+                          WHISPER_PROMPT + WHISPER_STEPS, device=dev),
+        WHISPER_PROMPT, WHISPER_STEPS, f"{cfg.name}",
+        {"chunk_prefill": L, "decode_attention": 2 * L * WHISPER_STEPS})
+    q = torch.randn((WHISPER_B, 1, cfg.num_heads, cfg.head_dim),
+                    generator=gen, device=dev).to(params["embed"].dtype)
+    sub = caches["blocks"]["sub0"]
+    xkv = [(sub["xk"][i], sub["xv"][i]) for i in range(L)]
+
+    def cross_all():
+        for xk, xv in xkv:
+            Lyr.run_attention_core("decode_cross", q, xk, xv,
+                                   opts=opts, window=0, causal=False)
+    cross_ms = graph_ms(cross_all, 1, replays=20)
+    share = "not measured" if not busy_ms else f"{cross_ms / busy_ms:.4f}"
+    print(f"  {cfg.name} cross attention in the decode step: {L} calls "
+          f"{cross_ms:.4f} ms (graph-replayed) of the step's busy "
+          f"{busy_ms or 0:.4f} ms: share {share}; {token_ms:.3f} ms a "
+          f"token ({WHISPER_B} streams)")
+    return {"whisper-model": launches}
+
+
+def arch_full():
+    """Phase 10: the four architectures at full width (seeded bf16
+    weights, each freed before the next): ``granite_full``,
+    ``internvl_full``, ``gemma_full`` (6 layers), ``whisper_full``, each
+    returning {path: its graphed run's launches}; returns them all."""
+    import torch
+    from repro_torch.configs import get_config
+    launches = {}
+    for name, run in ((GRANITE, granite_full), (INTERNVL, internvl_full),
+                      (GEMMA, gemma_full), (WHISPER, whisper_full)):
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if name == GEMMA:
+            cfg = gemma_cut(cfg)
+        params = full_params(cfg)
+        launches.update(run(cfg, params))
+        del params
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+class Laps:
+    """Prints the seconds each phase took, as it ends, and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"  [{phase} took {now - self.last:.1f} s; "
+              f"{now - self.start:.1f} s in all]", flush=True)
+        self.last = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3805,58 +4430,92 @@ def main() -> int:
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lap = Laps()
     print(card_line())
     ptxas = start_ptxas_report()
     print(f"phase 1: kernels built and loaded in {_build.timed_build():.1f} s")
     ptxas_report(ptxas)
+    lap("phase 1")
     cfg = get_config("molmoact-7b")
     moe_cfg = get_config(MOE_ARCH)
     print("phase 2: kernels vs plain versions")
     inputs, errs = kernel_checks(cfg)
+    lap("phase 2")
     print(f"phase 2b: grouped-expert kernels vs plain versions, "
           f"{MOE_ARCH} width")
     moe_errs = moe_kernel_checks(moe_cfg)
+    lap("phase 2b")
     ssm_cfg = get_config(SSM_ARCH)
     print(f"phase 2c: SSD kernel vs plain version, {SSM_ARCH} width")
     ssd_inputs_640, ssd_errs = ssd_kernel_checks(ssm_cfg)
+    lap("phase 2c")
     print("phase 2d: flash-attention kernel vs plain version")
     flash_inputs, flash_errs = flash_checks()
+    lap("phase 2d")
+    print(f"phase 2e: ring and cross decode ({GEMMA}, {WHISPER} widths) "
+          f"and flash attention at S = W = {GEMMA_PREFILL} vs plain "
+          f"versions")
+    arch_kernel_checks()
+    lap("phase 2e")
     print("phase 3: reduced molmoact-7b, card vs CPU")
     card_vs_cpu(cfg)
+    lap("phase 3")
     print(f"phase 3b: reduced {MOE_ARCH}, card vs CPU")
     moe_card_vs_cpu(moe_cfg)
+    lap("phase 3b")
     print(f"phase 3c: reduced {SSM_ARCH} and {HYBRID_ARCH}, card vs CPU")
     ssm_card_vs_cpu([SSM_ARCH, HYBRID_ARCH])
+    lap("phase 3c")
     print(f"phase 3d: reduced {TRAIN_ARCH} and molmoact-7b training, card "
           f"vs CPU")
     train_card_vs_cpu()
+    lap("phase 3d")
     print(f"phase 3e: reduced {DIT_ARCH}, card vs CPU")
     dit_card_vs_cpu()
+    lap("phase 3e")
+    print(f"phase 3f: reduced {GRANITE}, {INTERNVL}, {GEMMA} "
+          f"({GEMMA_LAYERS} layers) and {WHISPER}, card vs CPU")
+    arch_card_vs_cpu()
+    lap("phase 3f")
     params = full_params(cfg)
     print("phase 4: full-width control step")
     launches, discrete_ms = full_width(cfg, params)
+    lap("phase 4")
     print(f"phase 4b: full-width {DIT_ARCH} control step")
     dit_full_width(get_config(DIT_ARCH), params, discrete_ms)
+    lap("phase 4b")
     print("phase 5: full-width serving engine")
     serving, fused_streams = serving_full(cfg, params)
     prefill_consistency(cfg, params)
+    lap("phase 5")
     print("phase 5c: full-width self-speculative serving engine")
     spec_serving = spec_serving_full(cfg, params, fused_streams)
     del fused_streams
+    lap("phase 5c")
     print("phase 5d: the front end over two reduced replicas, card vs CPU")
     frontend_card_vs_cpu(cfg)
+    lap("phase 5d")
     print("phase 5e: full-width fleet replay through the front end")
     fleet_full(cfg, params)
+    lap("phase 5e")
     del params
     torch.cuda.empty_cache()
     print(f"phase 7: full-width {MOE_ARCH} serving engine")
     moe_serving = moe_serving_full(moe_cfg)
     torch.cuda.empty_cache()
+    lap("phase 7")
     print(f"phase 8: full-width {SSM_ARCH} serving engine")
     ssm_serving = ssm_serving_full(ssm_cfg)
     torch.cuda.empty_cache()
+    lap("phase 8")
     print(f"phase 9: full-width {TRAIN_ARCH} train step")
     train_launches = train_full()
+    torch.cuda.empty_cache()
+    lap("phase 9")
+    print(f"phase 10: full-width {GRANITE}, {INTERNVL}, {GEMMA} (first "
+          f"{GEMMA_LAYERS} layers) and {WHISPER}")
+    arch_launches = arch_full()
+    lap("phase 10")
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
     rows += verify_timings(cfg, inputs["verify"], errs, spec_serving)
@@ -3869,6 +4528,10 @@ def main() -> int:
               f"ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), launches {r['launches']}")
     rows += flash_timings(flash_inputs, flash_errs, train_launches)
+    lap("phase 6")
+    print("  phase 10's launches (graphed runs; rows 1-3, 5): " + "; ".join(
+        f"{path} " + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
+        for path, counts in arch_launches.items()))
     print(card_line())      # again here, beside the numbers it qualifies
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

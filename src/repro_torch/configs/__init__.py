@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the attention decoders (dense MLP or
-mixture-of-experts FFN), the attention-free Mamba2 stack and the
-attention / Mamba2 / MoE hybrid, whose decode and serving paths this
-package runs, and ``molmoact-7b-dit``, molmoact-7b with the DiT action
-head."""
+"""Architecture registry of the port: every config of the reference's
+registry (attention decoders with a dense MLP or mixture-of-experts FFN,
+sliding-window and global layers, vision towers, the attention-free
+Mamba2 stack, the attention / Mamba2 / MoE hybrid and the whisper
+encoder-decoder), and ``molmoact-7b-dit``, molmoact-7b with the DiT
+action head."""
 from __future__ import annotations
 
 import importlib
@@ -11,13 +12,17 @@ from repro_torch.configs.base import (GLOBAL_WINDOW, ActionConfig,
                                       ModelConfig, VisionConfig)
 
 _MODULES = {
+    "whisper-small": "whisper_small",
     "qwen1.5-0.5b": "qwen15_05b",
     "smollm-135m": "smollm_135m",
-    "molmoact-7b": "molmoact_7b",
+    "granite-3-2b": "granite_3_2b",
+    "gemma3-27b": "gemma3_27b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "arctic-480b": "arctic_480b",
-    "mamba2-780m": "mamba2_780m",
+    "internvl2-1b": "internvl2_1b",
     "jamba-1.5-large-398b": "jamba_15_large",
+    "mamba2-780m": "mamba2_780m",
+    "molmoact-7b": "molmoact_7b",
 }
 
 
@@ -26,11 +31,16 @@ def get_config(name: str) -> ModelConfig:
         return importlib.import_module(
             "repro_torch.configs.molmoact_7b").CONFIG_DIT
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; choices: {sorted(_MODULES)} "
-                       "(the other configs come with ROADMAP item 12)")
+        raise KeyError(f"unknown arch {name!r}; choices: {sorted(_MODULES)}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[name]}").CONFIG
 
 
+def list_archs():
+    """Every registered name, in the reference's order (not the DiT
+    variant, which ``get_config`` also takes)."""
+    return tuple(_MODULES)
+
+
 __all__ = ["ActionConfig", "GLOBAL_WINDOW", "ModelConfig", "VisionConfig",
-           "get_config"]
+           "get_config", "list_archs"]

@@ -21,6 +21,9 @@ The reference's flags, with these differences:
 - no ``--pallas``: on the card the port's kernels always run.
 - ``--mesh-model`` above 1 raises ``NotImplementedError`` (sharded
   serving is ROADMAP item 11).
+- an encoder-decoder ``--arch`` (whisper-small) exits at once with the
+  engine's refusal (``engine.check_servable``): a request carries no
+  audio frames. The reference's engine fails at the first admission.
 - ``--page-size`` defaults to 32, not 16: on the card the paged kernels
   take pages of 32, and a paged chunked engine needs ``page_size ==
   --prefill-band`` (32). ``--chunk-size`` (32) must divide by 32 there.
@@ -43,6 +46,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions
 from repro_torch.serving import (AsyncFrontend, Backpressure, Request,
                                  ServingEngine)
+from repro_torch.serving.engine import check_servable
 
 
 def _engine_snapshot(eng):
@@ -233,6 +237,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        p.error(str(e))
     opts = ModelOptions(prefill_band=args.prefill_band)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            torch.float32, device=dev)

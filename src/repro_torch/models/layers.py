@@ -1,9 +1,9 @@
-"""Layer math of the port (the dense- and paged-cache subset of
-``repro.models.layers``): norms, RoPE, attention (dense / flash / banded
-fresh rows, banded chunk, decode; dense or paged caches), the cache write
-paths (decode rows and prefill chunks), the routed attention sub-layer,
-the MLP, the capacity-dispatched mixture-of-experts FFN and the Mamba2
-mixer (its chunked SSD scan and per-token recurrence).
+"""Layer math of the port (``repro.models.layers``): norms, RoPE,
+attention (dense / flash / banded fresh rows, banded chunk, decode; dense,
+ring or paged caches; cross attention over an encoder context), the cache
+write paths (decode rows and prefill chunks), the routed attention
+sub-layer, the MLP, the capacity-dispatched mixture-of-experts FFN and
+the Mamba2 mixer (its chunked SSD scan and per-token recurrence).
 
 Everything is a function over a parameter dict in the reference's layout.
 Compute dtype follows the inputs; norms and softmax run in f32. Unlike the
@@ -50,6 +50,8 @@ class ModelOptions:
     moe_per_seq_dispatch: bool = False  # slots assigned within each sequence
     moe_gather_decode: bool = False    # T*K <= E: gather the hit experts'
     #                                    weights instead of the capacity path
+    window_cache: bool = False         # a sliding-window layer keeps a ring
+    #                                    cache of min(max_seq, window) rows
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +299,39 @@ def attention_decode(q, k_cache, v_cache, index, window: int):
     return out.reshape(B, 1, N, h)
 
 
+def attention_decode_ring(q, k_cache, v_cache, index):
+    """Single-token decode against a ring cache of W rows (the window), in
+    plain PyTorch: the ring holds exactly the last W positions, so the
+    window is implicit and slot order does not matter; only slots not yet
+    written (index < W) are masked. q [B,1,N,h]; cache [B,W,K,h]; index
+    scalar or [B]."""
+    B, _, N, h = q.shape
+    W, K = k_cache.shape[1], k_cache.shape[2]
+    qg = (q * (1.0 / math.sqrt(h))).reshape(B, K, N // K, h)
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.to(qg.dtype)).float()
+    slot = torch.arange(W, device=q.device)
+    idx = slot_index(index, B, q.device).long()
+    valid = (slot[None] <= idx[:, None]) | (idx[:, None] >= W)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", w, v_cache.to(w.dtype))
+    return out.reshape(B, 1, N, h)
+
+
+def update_cache_ring(cache, new, index):
+    """Write the decode token's KV ``new`` [B,1,K,h] into a ring cache
+    [B,W,K,h] at slot ``index % W`` (``index`` int or per-slot [B]), in
+    place (an ``index_put_``: the leaf keeps its storage). Unlike a dense
+    cache no write is dropped, as in the reference: a masked tick step
+    writes what its slot's next real step writes there, and a retired
+    slot's ring is replaced whole at its next admission."""
+    B, W = cache.shape[:2]
+    slot = slot_index(index, B, cache.device).long() % W
+    cache[torch.arange(B, device=cache.device), slot] = \
+        new[:, 0].to(cache.dtype)
+    return cache
+
+
 def update_cache(cache, new, index: int):
     """Write ``new`` [B,S,K,h] into ``cache`` [B,Smax,K,h] at position
     ``index`` (an int shared by every slot), in place."""
@@ -537,14 +572,17 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
     """The routing decision of every attention dispatch of the port:
     (mode x layout x shape) -> core name. Modes: ``decode`` (S == 1
     against a cache), ``chunk`` (S > 1 against a live cache view),
-    ``fresh`` (attention over exactly the new rows). Layouts: ``dense``,
-    ``paged`` (decode and chunk) and ``none``. Whether a ``*_flash`` core
-    launches a kernel or runs its plain version follows from the tensors'
-    device. Fresh attention takes the reference's four routes in its
-    order: the flash kernel for causal S == Skv in whole 128-row blocks,
-    dense masked attention up to ``dense_attn_threshold`` (or off the
-    ``attn_chunk`` grid, or not causal), the banded core for a window of
-    at most half the keys, else the plain flash core."""
+    ``fresh`` (attention over exactly the new rows), ``cross`` (the
+    encoder context: never cached here, never causal). Layouts: ``dense``,
+    ``paged`` (decode and chunk), ``ring`` (a window-sized ring cache:
+    decode, and prefill as fresh rows) and ``none``. Whether a kernel
+    core launches its kernel or runs its plain version follows from the
+    tensors' device. Fresh and cross attention take the reference's four
+    routes in its order: the flash kernel for causal S == Skv in whole
+    128-row blocks, dense masked attention up to ``dense_attn_threshold``
+    (or off the ``attn_chunk`` grid, or not causal), the banded core for
+    a window of at most half the keys, else the plain flash core; a cross
+    query of one row (decode) is the decode kernel's ``decode_cross``."""
     if layout == "paged":
         if mode == "decode":
             return "decode_paged_flash"
@@ -552,14 +590,20 @@ def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
             return "chunk_paged_flash"
         raise NotImplementedError(f"{mode!r} attention through a page "
                                   "table has no route")
-    if layout not in ("dense", "none"):
-        raise NotImplementedError(f"{layout!r} caches are ROADMAP item 12")
+    if layout not in ("dense", "ring", "none"):
+        raise ValueError(f"unknown cache layout {layout!r}")
     if mode == "decode":
-        return "decode_flash"
+        return "decode_ring" if layout == "ring" else "decode_flash"
     if mode == "chunk":
+        if layout == "ring":
+            raise ValueError("a ring cache takes no chunk against its "
+                             "contents (its prefill attends within the "
+                             "fresh rows)")
         return "chunk_flash"
-    if mode != "fresh":
-        raise NotImplementedError(f"{mode!r} attention is ROADMAP item 12")
+    if mode == "cross" and S == 1:
+        return "decode_cross"
+    if mode not in ("fresh", "cross"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     if causal and S % 128 == 0 and Skv == S:
         return "fresh_flash"
     if Skv <= opts.dense_attn_threshold or Skv % opts.attn_chunk \
@@ -584,6 +628,19 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
     fallbacks."""
     if route == "decode_flash":
         return decode_attention(q[:, 0], k, v, index, window=window)[:, None]
+    if route == "decode_ring":
+        # attending to ring slots j <= index, or to all W once index >= W,
+        # is the dense decode of the W rows at min(index, W - 1) without a
+        # window: attention does not depend on slot order, and RoPE is in
+        # the cached keys (a device op, so a captured step replays it)
+        last = slot_index(index, q.shape[0], q.device).clamp(
+            max=k.shape[1] - 1)
+        return decode_attention(q[:, 0], k, v, last)[:, None]
+    if route == "decode_cross":
+        # every context row is live: the dense decode at its last row
+        last = torch.full((q.shape[0],), k.shape[1] - 1, dtype=torch.int32,
+                          device=q.device)
+        return decode_attention(q[:, 0], k, v, last)[:, None]
     if route == "decode_dense":
         return attention_decode(q, k, v, index, window)
     if route == "decode_paged_flash":
@@ -627,28 +684,53 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
 
 def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
               positions, cache=None, cache_index=None, causal: bool = True,
-              live_len=None, page_table=None, n_valid=None):
+              live_len=None, page_table=None, n_valid=None, ctx=None,
+              ctx_prefix: str = ""):
     """Attention sub-layer: projections + RoPE + cache write path + the
     routed core + output projection. ``cache`` is a dense (k, v) pair of
     [B, Smax, K, h] tensors, written in place at ``cache_index``; S == 1 is
     decode, a chunk filling the whole buffer from 0 attends within itself,
     any other S > 1 runs the banded chunk core against the live cache
-    (``live_len`` bounds its key axis). With ``page_table`` [B, npg] the
-    cache is a pair of page pools [P, ps, K, h] (a 4-tuple adds a quantized
-    pool's scales): S == 1 writes one row per slot, S > 1 scatters a
-    prefill chunk page-wise and attends through the pool. ``n_valid`` drops
-    a chunk's padding rows from the write path. Returns (out, cache)."""
+    (``live_len`` bounds its key axis). A dense pair whose length is a
+    sliding-window layer's window is a ring (``ModelOptions.
+    window_cache``): decode writes slot ``index % W`` and attends to the
+    whole ring; a prefill, from position 0 and of at most W rows, attends
+    within its fresh rows. With ``page_table`` [B, npg] the cache is a
+    pair of page pools [P, ps, K, h] (a 4-tuple adds a quantized pool's
+    scales): S == 1 writes one row per slot, S > 1 scatters a prefill
+    chunk page-wise and attends through the pool. ``n_valid`` drops a
+    chunk's padding rows from the write path.
+
+    Cross attention: ``ctx`` (k, v) [B, T, K, h], the encoder context's
+    projections, with ``ctx_prefix`` naming the layer's weights ("x":
+    ``xwq``, ``xbq``, ``xwo``): q from ``x``, no RoPE, never causal,
+    nothing cached here. Returns (out, cache)."""
+    pre = ctx_prefix
     B, S, _ = x.shape
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q = _proj(x, p[pre + "wq"])
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    if cfg.pos == "rope":
+        q = q + p[pre + "bq"].to(q.dtype)
+    if ctx is not None:
+        k, v = ctx
+    else:
+        k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
+    if cfg.pos == "rope" and ctx is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and page_table is not None:
+    if ctx is not None:
+        route = attention_route("cross", "none", S=S, Skv=k.shape[1],
+                                window=GLOBAL_WINDOW, opts=opts,
+                                causal=False)
+        out = run_attention_core(route, q, k, v, opts=opts,
+                                 window=GLOBAL_WINDOW, causal=False,
+                                 q_pos=positions,
+                                 k_pos=torch.arange(k.shape[1],
+                                                    device=x.device))
+    elif cache is not None and page_table is not None:
         k_sc, v_sc = cache[2:] if len(cache) == 4 else (None, None)
         if S == 1:
             # n_valid (0 or 1 a slot; a draft step's) masks dead rows and
@@ -676,19 +758,34 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
                                  v_scales=v_sc, live_len=live_len)
     elif cache is not None:
         smax = cache[0].shape[1]
-        if window != GLOBAL_WINDOW and smax == window:
-            raise NotImplementedError("ring-buffer caches are ROADMAP "
-                                      "item 12")
+        ring = window != GLOBAL_WINDOW and smax == window
+        if ring and S > 1:
+            if S > smax:
+                raise ValueError(
+                    f"a ring cache of {smax} rows (the layer's window; "
+                    f"ModelOptions.window_cache) takes a prefill of at most "
+                    f"{smax} rows, got {S}: its rows would overwrite each "
+                    "other (the reference cannot take it either)")
+            if not (isinstance(cache_index, int) and cache_index == 0):
+                raise ValueError("a ring cache takes a prefill from "
+                                 "position 0 only (its prefill attends "
+                                 "within the fresh rows)")
         if S > smax:
             raise ValueError(f"prefill length {S} exceeds cache {smax}")
-        plan = chunk_write_plan(cache_index, n_valid, B, S, smax,
-                                cache[0].device)
-        update_cache_chunk(cache[0], k, cache_index, plan=plan)
-        update_cache_chunk(cache[1], v, cache_index, plan=plan)
+        if ring and S == 1:
+            update_cache_ring(cache[0], k, cache_index)
+            update_cache_ring(cache[1], v, cache_index)
+        else:
+            plan = chunk_write_plan(cache_index, n_valid, B, S, smax,
+                                    cache[0].device)
+            update_cache_chunk(cache[0], k, cache_index, plan=plan)
+            update_cache_chunk(cache[1], v, cache_index, plan=plan)
         whole = (isinstance(cache_index, int) and cache_index == 0
                  and S == smax)
-        mode = "decode" if S == 1 else ("fresh" if whole else "chunk")
-        route = attention_route(mode, "dense", S=S, Skv=S, window=window,
+        layout = "ring" if ring else "dense"
+        mode = "decode" if S == 1 else ("fresh" if whole or ring
+                                        else "chunk")
+        route = attention_route(mode, layout, S=S, Skv=S, window=window,
                                 opts=opts, causal=causal)
         if mode == "fresh":
             out = run_attention_core(route, q, k, v, opts=opts, window=window,
@@ -704,7 +801,7 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
         out = run_attention_core(route, q, k, v, opts=opts, window=window,
                                  causal=causal, q_pos=positions,
                                  k_pos=positions)
-    wo = p["wo"]
+    wo = p[pre + "wo"]
     out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return out, cache
 

@@ -19,7 +19,10 @@
     traj = generate_actions_dit(cfg, params, cond, noise=noise)  # DiT head
 
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
-tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``).
+tower, or a precomputed 'prefix' [B,T,d_model] from ``encode_vision``; +
+'frames' [B,T,e] for the encoder-decoder's audio tower, whose output the
+decoder's cross-attention layers read; ``prefill`` caches its K/V for
+decode).
 Every entry point runs on ``device`` (default ``"cuda"``); the parameters
 and caches must already live there. Caches are updated in place. A stack
 with Mamba2 layers (``family`` "ssm" or "hybrid") prefills from position 0
@@ -50,10 +53,6 @@ __all__ = ["model_template", "forward", "prefill", "embed_prompt",
 
 def model_template(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
-    if cfg.pos != "rope" or cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: absolute positions and "
-                                  "encoder-decoder models are ROADMAP "
-                                  "item 12")
     t: Dict = {
         "embed": P.PSpec((cfg.vocab_size, d), fan_in=d),
         "decoder": stacks.decoder_template(cfg),
@@ -61,6 +60,11 @@ def model_template(cfg: ModelConfig) -> Dict:
     t.update(stacks._norm_template(cfg, "final_norm", d))
     if not cfg.tie_embeddings:
         t["lm_head"] = P.PSpec((cfg.vocab_size, d), fan_in=d)
+    if cfg.pos == "absolute":
+        # the reference's size: its largest decode shape (32k positions)
+        t["pos"] = P.PSpec((32_768, d), "pos")
+    if cfg.encoder is not None:
+        t["encoder"] = stacks.tower_template(cfg.encoder, d)
     if cfg.vision is not None:
         t["vision"] = stacks.tower_template(cfg.vision, d)
     if cfg.action is not None and cfg.action.mode == "dit":
@@ -85,22 +89,39 @@ def _check_params(params, dev):
                          f"the call asked for {dev}")
 
 
-def _embed_tokens(params, tokens):
-    return params["embed"][tokens]
+def _embed_tokens(params, tokens, cfg: ModelConfig, positions=None):
+    """Token embeddings [B,S,d], plus the absolute position table's rows
+    at ``positions`` (default 0..S-1) for ``pos == "absolute"``."""
+    x = params["embed"][tokens]
+    if cfg.pos == "absolute":
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=x.device)
+        x = x + params["pos"][positions].to(x.dtype)
+    return x
 
 
 def _encode_context(params, batch, cfg: ModelConfig, dev):
-    """The vision prefix: ``batch['prefix']`` as given, else the tower over
+    """(cross-attention context, vision prefix): the encoder tower over
+    ``batch['frames']`` (an encoder-decoder's), else None; and
+    ``batch['prefix']`` as given, else the vision tower over
     ``batch['patches']``, else None."""
+    ctx = prefix = None
+    if cfg.encoder is not None:
+        if "frames" not in batch:
+            raise KeyError("encoder-decoder model needs batch['frames']")
+        frames = _on(batch["frames"], dev,
+                     params["encoder"]["in_proj"].dtype)
+        ctx = stacks.apply_tower(params["encoder"], frames, cfg.encoder)
     if "prefix" in batch:
-        return _on(batch["prefix"], dev)
-    if cfg.vision is None:
-        return None
-    if "patches" not in batch:
-        raise KeyError("vision model needs batch['patches'] "
-                       "(or a precomputed batch['prefix'])")
-    patches = _on(batch["patches"], dev, params["vision"]["in_proj"].dtype)
-    return stacks.apply_tower(params["vision"], patches, cfg.vision)
+        prefix = _on(batch["prefix"], dev)
+    elif cfg.vision is not None:
+        if "patches" not in batch:
+            raise KeyError("vision model needs batch['patches'] "
+                           "(or a precomputed batch['prefix'])")
+        patches = _on(batch["patches"], dev,
+                      params["vision"]["in_proj"].dtype)
+        prefix = stacks.apply_tower(params["vision"], patches, cfg.vision)
+    return ctx, prefix
 
 
 def encode_vision(cfg: ModelConfig, opts: ModelOptions, params, patches, *,
@@ -122,16 +143,16 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def _sequence(params, batch, cfg, dev):
-    """Token embeddings for full-sequence passes (vision prefix folded in)
-    and their positions [B, S]."""
+    """Token embeddings for full-sequence passes (vision prefix folded in),
+    their positions [B, S] and the cross-attention context (or None)."""
     tokens = _on(batch["tokens"], dev, torch.long)
-    prefix = _encode_context(params, batch, cfg, dev)
-    x = _embed_tokens(params, tokens)
+    ctx, prefix = _encode_context(params, batch, cfg, dev)
+    x = _embed_tokens(params, tokens, cfg)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=dev).expand(B, S)
-    return x, positions
+    return x, positions, ctx
 
 
 def _refuse_ssm_resume(cfg: ModelConfig):
@@ -153,8 +174,9 @@ def forward(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
     """Full-sequence forward -> logits [B, S_total, V]."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    x, positions = _sequence(params, batch, cfg, dev)
-    x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions)
+    x, positions, ctx = _sequence(params, batch, cfg, dev)
+    x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions,
+                                ctx=ctx)
     return _logits(params, x, cfg)
 
 
@@ -170,7 +192,10 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
     suffix starting there, written into the given ``caches`` (in place)
     and attending to everything already in them. Positioned prefill is
     tokens-only (a vision prefix fills positions 0..n_vis-1, before any
-    suffix) and needs ``caches``. ``page_table`` [B, npg] routes writes and
+    suffix; an encoder-decoder's context is whole-sequence state) and
+    needs ``caches``. ``opts.window_cache`` gives sliding-window layers
+    ring caches, which take a prefill of at most their window, from
+    position 0. ``page_table`` [B, npg] routes writes and
     reads through a paged pool. ``live_len`` bounds the banded chunk
     core's key axis to ``[0, live_len)``; an int ``cache_index`` derives
     it, a device one leaves the whole view unless it is given."""
@@ -178,10 +203,16 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
     _check_params(params, dev)
     positioned = caches is not None or page_table is not None \
         or not (isinstance(cache_index, int) and cache_index == 0)
+    ctx = None
     if not positioned:
-        x, positions = _sequence(params, batch, cfg, dev)
-        caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype,
+        x, positions, ctx = _sequence(params, batch, cfg, dev)
+        caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype, opts,
                              device=dev)
+        if ctx is not None:
+            # the reference caches the cross K/V as computed, unrounded
+            for path, leaf in P.leaves(caches):
+                if path.split("/")[-1] in ("xk", "xv"):
+                    P.set_leaf(caches, path, leaf.to(ctx.dtype))
         if live_len is None:
             live_len = x.shape[1]
     else:
@@ -190,14 +221,15 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
                              "page table) needs existing caches")
         if not (isinstance(cache_index, int) and cache_index == 0):
             _refuse_ssm_resume(cfg)
-        if "prefix" in batch or "patches" in batch:
+        if cfg.encoder is not None or "prefix" in batch \
+                or "patches" in batch:
             raise ValueError("positioned prefill is tokens-only; fold the "
                              "vision prefix in at cache_index == 0 (or use "
                              "prefill_chunk over precomputed embeddings)")
         tokens = _on(batch["tokens"], dev, torch.long)
         B, S = tokens.shape
         positions = _positions(cache_index, B, S, dev)
-        x = _embed_tokens(params, tokens)
+        x = _embed_tokens(params, tokens, cfg, positions)
         if page_table is not None:
             page_table = _on(page_table, dev, torch.int32)
         if live_len is None and isinstance(cache_index, int):
@@ -206,7 +238,7 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
                                      positions, caches=caches,
                                      cache_index=cache_index,
                                      live_len=live_len,
-                                     page_table=page_table)
+                                     page_table=page_table, ctx=ctx)
     return _logits(params, x[:, -1:], cfg), caches
 
 
@@ -215,7 +247,11 @@ def embed_prompt(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
     """The prompt's embedding sequence [B, S_total, d_model] exactly as
     ``prefill`` builds it (vision prefix folded in). The chunked scheduler
     computes it once per request and slices it into ``prefill_chunk``
-    calls."""
+    calls. Encoder-decoder models are not sliceable this way (their
+    cross-attention context is whole-sequence state)."""
+    if cfg.encoder is not None:
+        raise ValueError("chunked prefill does not support encoder-decoder "
+                         "models (whole-sequence cross-attention context)")
     dev = resolve_device(device)
     _check_params(params, dev)
     return _sequence(params, batch, cfg, dev)[0]
@@ -266,7 +302,7 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     token = _on(token, dev, torch.long)
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
-    x = _embed_tokens(params, token)
+    x = _embed_tokens(params, token, cfg, positions)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -292,7 +328,7 @@ def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
     token = _on(token, dev, torch.long)
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
-    x = _embed_tokens(params, token)
+    x = _embed_tokens(params, token, cfg, positions)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -323,7 +359,7 @@ def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
     tokens = _on(tokens, dev, torch.long)
     B, K = tokens.shape
     positions = _positions(cache_index, B, K, dev)
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, tokens, cfg, positions)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,

@@ -1,6 +1,7 @@
 """Decoder stacks: templates and the loop over layers (the port of
-``repro.models.stacks`` for stacks of attention and Mamba2 mixers with a
-dense, MoE or MoE + dense FFN, with dense or paged caches).
+``repro.models.stacks``: attention (self, and cross attention over an
+encoder context) and Mamba2 mixers with a dense, MoE or MoE + dense FFN,
+with dense, ring or paged caches).
 
 The stack is a repeating pattern of ``period`` sub-layers; parameters of
 the ``L // period`` blocks are stacked on a leading axis, the ``L % period``
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,18 +80,18 @@ def _norm_template(cfg: ModelConfig, prefix: str, d: int) -> Dict[str, PSpec]:
     return t
 
 
-def attn_template(cfg: ModelConfig) -> Dict[str, PSpec]:
+def attn_template(cfg: ModelConfig, pre: str = "") -> Dict[str, PSpec]:
     d, n, k, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     t = {
-        "wq": PSpec((d, n, h), fan_in=d),
-        "wk": PSpec((d, k, h), fan_in=d),
-        "wv": PSpec((d, k, h), fan_in=d),
-        "wo": PSpec((n, h, d), fan_in=n * h),
+        pre + "wq": PSpec((d, n, h), fan_in=d),
+        pre + "wk": PSpec((d, k, h), fan_in=d),
+        pre + "wv": PSpec((d, k, h), fan_in=d),
+        pre + "wo": PSpec((n, h, d), fan_in=n * h),
     }
     if cfg.qkv_bias:
-        t["bq"] = PSpec((n, h), "zeros")
-        t["bk"] = PSpec((k, h), "zeros")
-        t["bv"] = PSpec((k, h), "zeros")
+        t[pre + "bq"] = PSpec((n, h), "zeros")
+        t[pre + "bk"] = PSpec((k, h), "zeros")
+        t[pre + "bv"] = PSpec((k, h), "zeros")
     return t
 
 
@@ -131,14 +132,15 @@ def mamba_template(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 
 def layer_template(cfg: ModelConfig, kind: SubKind) -> Dict[str, PSpec]:
-    if kind.cross:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} needs cross-attention layers "
-            "(ROADMAP item 12)")
     t: Dict[str, PSpec] = {}
     t.update(_norm_template(cfg, "ln1", cfg.d_model))
-    t.update(attn_template(cfg) if kind.mixer == "attn"
-             else mamba_template(cfg))
+    if kind.mixer == "attn":
+        t.update(attn_template(cfg))
+        if kind.cross:
+            t.update(_norm_template(cfg, "ln_cross", cfg.d_model))
+            t.update(attn_template(cfg, pre="x"))
+    else:
+        t.update(mamba_template(cfg))
     if kind.ffn != "none":
         t.update(_norm_template(cfg, "ln2", cfg.d_model))
     if kind.ffn in ("dense", "moe+dense"):
@@ -160,7 +162,8 @@ def decoder_template(cfg: ModelConfig) -> Dict:
 
 
 def tower_template(enc: VisionConfig, d_out: int) -> Dict:
-    """Vision tower (pre-LN MHA + plain-gelu MLP) + projector."""
+    """Vision/audio encoder tower (pre-LN MHA + plain-gelu MLP) +
+    projector."""
     d, n, f = enc.d_model, enc.num_heads, enc.d_ff
     h = d // n
     layer = {
@@ -197,15 +200,20 @@ def layer_slice(tree, i: int):
 
 def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                    kind: SubKind, positions, cache=None, cache_index=None,
-                   live_len=None, page_table=None, n_valid=None):
+                   live_len=None, page_table=None, n_valid=None, ctx=None):
     """One pre-norm mixer (attention or Mamba2) + FFN sub-layer (dense MLP
     and/or MoE on the same ``ln2`` output, summed). An attention layer's
-    ``cache`` (``k``/``v``, dense or page pools, plus ``k_scale``/
+    ``cache`` (``k``/``v``, dense, ring or page pools, plus ``k_scale``/
     ``v_scale`` for a quantized pool) is written in place, a prefill
     chunk's rows at or past ``n_valid`` dropped; a Mamba2 layer's (``ssm``
     [B,H,P,N], ``conv`` [B, ssm_conv - 1, conv_ch]) is overwritten with the
     new states: one row with a cache runs the recurrence from them, more
-    rows run the scan from zero (a prefill from position 0). Returns x."""
+    rows run the scan from zero (a prefill from position 0). A
+    cross-attention layer (an encoder-decoder's) adds, after the self
+    attention, attention over the encoder context: its K/V are projected
+    from ``ctx`` [B, T, d] (and copied into the cache's ``xk``/``xv``,
+    which keep their storage, when there is a cache), or read from the
+    cache when ``ctx`` is None (decode). Returns x."""
     h = L.apply_norm(p, x, cfg, "ln1")
     if kind.mixer == "attn":
         kv = None
@@ -217,6 +225,21 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
                            cache=kv, cache_index=cache_index,
                            live_len=live_len, page_table=page_table,
                            n_valid=n_valid)
+        if kind.cross:
+            x = x + a
+            hc = L.apply_norm(p, x, cfg, "ln_cross")
+            if ctx is None:
+                xkv = (cache["xk"], cache["xv"])
+            else:
+                xkv = (L._proj(ctx, p["xwk"]), L._proj(ctx, p["xwv"]))
+                if cfg.qkv_bias:
+                    xkv = (xkv[0] + p["xbk"].to(xkv[0].dtype),
+                           xkv[1] + p["xbv"].to(xkv[1].dtype))
+                if cache is not None:
+                    cache["xk"].copy_(xkv[0])
+                    cache["xv"].copy_(xkv[1])
+            a, _ = L.attention(p, hc, cfg, opts, GLOBAL_WINDOW, positions,
+                               ctx=xkv, ctx_prefix="x", causal=False)
     else:
         decode = cache is not None and x.shape[1] == 1
         a, state, conv = L.mamba_block(
@@ -237,11 +260,13 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
                   positions, caches=None, cache_index=None, live_len=None,
-                  page_table=None, n_valid=None, n_blocks=None):
+                  page_table=None, n_valid=None, n_blocks=None, ctx=None):
     """Run the decoder stack, layer by layer. ``caches`` (from
     ``init_caches``) is updated in place; ``page_table`` [B, npg] marks
     them as page pools; ``n_valid`` masks a prefill chunk's padding rows
-    (or a draft step's dead rows) out of every layer's cache write.
+    (or a draft step's dead rows) out of every layer's cache write;
+    ``ctx`` [B, T, d] is an encoder-decoder's context (None at decode,
+    where the cross-attention layers read their cached K/V).
 
     ``n_blocks`` truncates the stack to its leading ``n_blocks`` stacked
     blocks: the self-speculative draft pass, which shares the parameters
@@ -265,12 +290,13 @@ def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
     for p, kind, cache in layers:
         x = apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
                            cache_index=cache_index, live_len=live_len,
-                           page_table=page_table, n_valid=n_valid)
+                           page_table=page_table, n_valid=n_valid, ctx=ctx)
     return x, caches
 
 
 def apply_tower(params, embeds, enc: VisionConfig):
-    """Vision tower over stubbed frontend embeddings [B,T,embed_dim]."""
+    """Vision/audio tower over stubbed frontend embeddings
+    [B,T,embed_dim]."""
     x = embeds @ params["in_proj"]
     x = x + params["pos"].to(x.dtype)[None]
     pos = torch.arange(x.shape[1], device=x.device)
@@ -291,23 +317,29 @@ def apply_tower(params, embeds, enc: VisionConfig):
 # caches
 # ---------------------------------------------------------------------------
 
-def cache_template(cfg: ModelConfig, batch: int, max_seq: int, *,
+def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
+                   opts: Optional[L.ModelOptions] = None, *,
                    paged: bool = False, num_pages: int = 0,
                    page_size: int = 0, kv_dtype: str = "bf16",
                    scale_granularity: str = "head") -> Dict:
     """Shape tree of the decode cache, stacked like the parameters.
 
     Dense (default): per attention sub-layer, K and V buffers
-    [batch, max_seq, K, h]. Paged: K and V become shared pools
-    [num_pages, page_size, K, h] addressed through a per-slot page table
-    (``serving.kv_pool``). ``kv_dtype`` "int8"/"fp8" (paged only) adds an
-    f32 scale sibling per pool (``k_scale``/``v_scale``): [num_pages, K]
-    at "head" granularity, [num_pages, page_size, K] at "token". A Mamba2
-    sub-layer holds its recurrent state ``ssm`` [batch, H, P, N] and the
-    conv's last inputs ``conv`` [batch, ssm_conv - 1, conv_ch], batched by
-    slot in either layout."""
+    [batch, max_seq, K, h]; under ``opts.window_cache`` a sliding-window
+    layer's are rings of min(max_seq, window) rows. Paged: K and V become
+    shared pools [num_pages, page_size, K, h] addressed through a
+    per-slot page table (``serving.kv_pool``); rings and pools exclude
+    each other. ``kv_dtype`` "int8"/"fp8" (paged only) adds an f32 scale
+    sibling per pool (``k_scale``/``v_scale``): [num_pages, K] at "head"
+    granularity, [num_pages, page_size, K] at "token". A cross-attention
+    sub-layer adds the encoder context's K and V, ``xk``/``xv``
+    [batch, T, K, h], and a Mamba2 sub-layer holds its recurrent state
+    ``ssm`` [batch, H, P, N] and the conv's last inputs ``conv``
+    [batch, ssm_conv - 1, conv_ch]: these are batched by slot in either
+    layout."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
+    opts = opts or L.ModelOptions()
     quantized = kv_quant.quant_dtype(kv_dtype) is not None
     if scale_granularity not in kv_quant.SCALE_GRANULARITIES:
         raise ValueError(f"scale_granularity must be one of "
@@ -317,24 +349,36 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int, *,
     if paged:
         if num_pages <= 0 or page_size <= 0:
             raise ValueError("paged cache_template needs num_pages/page_size")
-        kv = (num_pages, page_size, K, h)
+        if opts.window_cache:
+            raise ValueError("window_cache (per-layer ring buffers) and the "
+                             "paged KV pool are mutually exclusive")
     elif quantized:
         raise ValueError("kv_dtype quantization requires the paged layout "
                          "(the page pool is the quantization boundary)")
-    else:
-        kv = (batch, max_seq, K, h)
-    attn = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
-    if quantized:
-        sshape = ((num_pages, page_size, K) if scale_granularity == "token"
-                  else (num_pages, K))
-        attn["k_scale"] = PSpec(sshape, "zeros")
-        attn["v_scale"] = PSpec(sshape, "zeros")
     _, H, P, N, _, conv_ch = L.mamba_dims(cfg)
-    ssm = {"ssm": PSpec((batch, H, P, N), "zeros"),
-           "conv": PSpec((batch, cfg.ssm_conv - 1, conv_ch), "zeros")}
 
     def sub(kind: SubKind):
-        return dict(attn if kind.mixer == "attn" else ssm)
+        if kind.mixer != "attn":
+            return {"ssm": PSpec((batch, H, P, N), "zeros"),
+                    "conv": PSpec((batch, cfg.ssm_conv - 1, conv_ch),
+                                  "zeros")}
+        if paged:
+            kv = (num_pages, page_size, K, h)
+        elif opts.window_cache and kind.window != GLOBAL_WINDOW:
+            kv = (batch, min(max_seq, kind.window), K, h)
+        else:
+            kv = (batch, max_seq, K, h)
+        c = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
+        if quantized:
+            sshape = ((num_pages, page_size, K)
+                      if scale_granularity == "token" else (num_pages, K))
+            c["k_scale"] = PSpec(sshape, "zeros")
+            c["v_scale"] = PSpec(sshape, "zeros")
+        if kind.cross and cfg.encoder:
+            xkv = (batch, cfg.encoder.num_tokens, K, h)
+            c["xk"] = PSpec(xkv, "zeros")
+            c["xv"] = PSpec(xkv, "zeros")
+        return c
     t = {"blocks": stack({f"sub{j}": sub(kinds[j]) for j in range(period)},
                          nblocks)}
     if ntail:
@@ -362,16 +406,17 @@ def cache_dtype(path_key: str, dtype, kv_dtype: str = "bf16"):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16, *, paged: bool = False,
-                num_pages: int = 0, page_size: int = 0,
-                kv_dtype: str = "bf16", scale_granularity: str = "head",
-                device="cuda"):
-    """Zeroed caches on ``device`` (see ``cache_template``); values in
-    ``dtype`` (bf16 by default) unless the pool stores codes."""
+                dtype=torch.bfloat16, opts: Optional[L.ModelOptions] = None,
+                *, paged: bool = False, num_pages: int = 0,
+                page_size: int = 0, kv_dtype: str = "bf16",
+                scale_granularity: str = "head", device="cuda"):
+    """Zeroed caches on ``device`` (see ``cache_template``; ``opts``
+    chooses ring caches); values in ``dtype`` (bf16 by default) unless the
+    pool stores codes."""
     dev = resolve_device(device)
     out: Dict = {}
     for path, spec in leaves(cache_template(
-            cfg, batch, max_seq, paged=paged, num_pages=num_pages,
+            cfg, batch, max_seq, opts, paged=paged, num_pages=num_pages,
             page_size=page_size, kv_dtype=kv_dtype,
             scale_granularity=scale_granularity)):
         leaf_dtype = cache_dtype(path.split("/")[-1], dtype, kv_dtype)
@@ -383,8 +428,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 def is_paged_leaf(path: str) -> bool:
     """Whether a leaf of a paged cache lives in the pool layout (leading
     axis = pages): attention ``k``/``v`` and their scale siblings, not the
-    slot-batched ``ssm``/``conv`` states. Only meaningful for caches built
-    with ``paged=True``."""
+    slot-batched ``xk``/``xv``/``ssm``/``conv``. Only meaningful for
+    caches built with ``paged=True``."""
     return path.split("/")[-1] in ("k", "v", "k_scale", "v_scale")
 
 

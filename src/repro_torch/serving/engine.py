@@ -59,6 +59,13 @@ accepted prefix plus one bonus token, the stream the plain tick makes. Its
 carry lives in static buffers and one round is captured in a CUDA graph
 once an engine (``SpecTick``).
 
+Ring caches (``ModelOptions(window_cache=True)``: a sliding-window
+layer keeps its last window of rows) serve on the dense layout,
+admit-stall, fused and per-token; the paged pool, chunked prefill and
+speculative decode refuse them, as in the reference. Encoder-decoder
+models (whisper) are refused at construction: a ``Request`` carries no
+encoder input (``check_servable``).
+
 Not ported yet, and refused with ``NotImplementedError``: a device mesh
 (ROADMAP item 11).
 """
@@ -527,6 +534,19 @@ class SpecTick:
         done.logical_or_(newly)
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config the engine cannot serve: an
+    encoder-decoder model, whose decoder reads its encoder's output while
+    a ``Request`` carries only a prompt and vision patches, no audio
+    ``frames`` (the reference's engine takes such a config and fails at
+    the first admission instead)."""
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: the serving engine "
+            "cannot serve it, because a Request carries no frames for its "
+            "encoder (run it through model.prefill / decode_loop)")
+
+
 def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
                 temperature: float, top_k: int, params, tokens, caches,
                 index, budget, done, keys, max_steps: int, page_table=None,
@@ -581,6 +601,7 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("sharded serving (mesh=) is ROADMAP "
                                       "item 11")
+        check_servable(cfg)
         if slo_hz < 0:
             raise ValueError(f"slo_hz must be >= 0, got {slo_hz}")
         if slo_hz > 0 and not chunked_prefill:
@@ -595,6 +616,10 @@ class ServingEngine:
             if not fused:
                 raise ValueError("chunked_prefill requires the fused decode "
                                  "path (fused=True)")
+            if opts.window_cache:
+                raise ValueError("chunked_prefill and window_cache ring "
+                                 "buffers are mutually exclusive (rings "
+                                 "don't support positioned prefill)")
             if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
                 raise ValueError("chunked_prefill requires attention-only "
                                  "decoders (SSM prefill state is not "
@@ -617,9 +642,10 @@ class ServingEngine:
                                  "stream at temperature 0")
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-            if cfg.encoder is not None:
-                raise ValueError("spec_decode does not support "
-                                 "encoder-decoder models")
+            if opts.window_cache:
+                raise ValueError("spec_decode and window_cache ring buffers "
+                                 "are mutually exclusive (rings don't "
+                                 "support positioned chunk writes)")
             if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
                 raise ValueError("spec_decode requires attention-only "
                                  "decoders (SSM state cannot roll back "
@@ -712,7 +738,7 @@ class ServingEngine:
                 num_pages = 1 + n_slots * pages_per_slot
             self.pool = KVPool(num_pages, page_size, n_slots, pages_per_slot)
             self.caches = M.init_caches(
-                cfg, n_slots, max_seq, torch.float32, paged=True,
+                cfg, n_slots, max_seq, torch.float32, opts, paged=True,
                 num_pages=num_pages, page_size=page_size, kv_dtype=kv_dtype,
                 scale_granularity=scale_granularity or "head", device=dev)
             self._bytes_per_page = sum(
@@ -720,7 +746,7 @@ class ServingEngine:
                 for path, t in leaves(self.caches) if is_paged_leaf(path))
         else:
             self.caches = M.init_caches(cfg, n_slots, max_seq, torch.float32,
-                                        device=dev)
+                                        opts, device=dev)
         # the fused tick's buffers and step (or speculative round),
         # captured once on the card: the caches keep their storage for the
         # engine's life (every write and admission scatter is in place)

@@ -1163,3 +1163,133 @@ def test_engines_ticked_from_two_threads_equal_serial_on_card():
     for eng in engines:
         assert eng._tick.graph.captures == 1
         assert eng._tick.graph.recorded == {decode: cfg.num_layers}
+
+
+# ---------------------------------------------------------------------------
+# ring caches (gemma3-27b's local layers) and cross attention (whisper)
+# ---------------------------------------------------------------------------
+
+# (B, W, N, K, h): gemma3-27b's heads (G = 2 at h = 128) over its window
+# of 1024 as a ring (the kernel's S == W), and the reduced form's ring of 32
+RINGS = [(8, 1024, 32, 16, 128), (3, 32, 4, 2, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", RINGS)
+def test_ring_decode_on_card(shape, kv):
+    """The ``decode_ring`` route (the split-key kernel at min(index, W - 1)
+    without a window) against ``attention_decode_ring`` before, at and
+    after the wrap, per slot."""
+    from repro_torch.models import layers as L
+    dev = _cuda()
+    B, W, N, K, h = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(B, 1, N, h, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, W, K, h, generator=g, device=dev).to(kv)
+    vc = torch.randn(B, W, K, h, generator=g, device=dev).to(kv)
+    for index in ((0, 5, W - 1, W, W + 1, 2 * W - 1, 3 * W, 7 * W + 3),
+                  (W - 1,), (4 * W,)):
+        idx = _slots(index, B, dev)
+        got = L.run_attention_core("decode_ring", q, kc, vc,
+                                   opts=L.ModelOptions(), window=W,
+                                   index=idx)
+        want = L.attention_decode_ring(q.float(), kc.float(), vc.float(),
+                                       idx)
+        torch.cuda.synchronize()
+        assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,heads", [(1500, (12, 12, 64)),
+                                     (24, (2, 2, 16))])
+def test_cross_decode_on_card(T, heads, kv):
+    """The ``decode_cross`` route against the reference's non-causal dense
+    core: a context of 1500 rows (whisper's; not a multiple of the
+    kernel's 128-key split) and the reduced form's 24."""
+    from repro_torch.models import layers as L
+    dev = _cuda()
+    N, K, h = heads
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(4, 1, N, h, generator=g, device=dev).to(kv)
+    xk = torch.randn(4, T, K, h, generator=g, device=dev).to(kv)
+    xv = torch.randn(4, T, K, h, generator=g, device=dev).to(kv)
+    got = L.run_attention_core("decode_cross", q, xk, xv,
+                               opts=L.ModelOptions(), window=0,
+                               causal=False)
+    want = L.attention_dense(q.float(), xk.float(), xv.float(),
+                             torch.arange(1, device=dev),
+                             torch.arange(T, device=dev), 0, causal=False)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_window_of_the_whole_sequence_on_card(dtype):
+    """gemma3-27b's ring prefill: S = W = 1024, its heads, causal with the
+    window 1024 (which then cuts nothing), against the plain version."""
+    from repro_torch.models import layers as L
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(1, 1024, 32, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(1, 1024, 16, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(1, 1024, 16, 128, generator=g, device=dev).to(dtype)
+    got = fa.flash_attention(q, k, v, window=1024, causal=True)
+    pos = torch.arange(1024, device=dev)
+    want = L.attention_dense(q.float(), k.float(), v.float(), pos, pos, 1024)
+    torch.cuda.synchronize()
+    assert _close(got, want, 1e-2 if dtype == torch.bfloat16 else TF32X3)
+
+
+def _arch_model(name, layers=None):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(name).reduced()
+    if layers:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return cfg, M.init_params(cfg, gen, torch.bfloat16, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gemma3-27b", "whisper-small"])
+def test_replayed_ring_and_cross_decode_equals_eager_on_card(name):
+    """``decode_loop`` replayed from its graph, across a ring's wrap
+    (reduced gemma3-27b in 6 layers, window_cache) and over cached cross
+    K/V (reduced whisper-small), against the same step run eagerly:
+    tokens and every cache leaf bit for bit; the decode kernel launched
+    once a self-attention layer a step (and once more a cross-attention
+    layer)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    _cuda()
+    cfg, params = _arch_model(name, 6 if name == "gemma3-27b" else None)
+    opts = ModelOptions(window_cache=name == "gemma3-27b")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, S, n = 3, 20, 30
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda")}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(
+            B, cfg.encoder.num_tokens, cfg.encoder.embed_dim, generator=gen,
+            device="cuda").bfloat16()
+    logits, caches = M.prefill(cfg, opts, params, batch, S + n,
+                               device="cuda")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    twin = _clone_tree(caches)
+    before = da.decode_attention.launches
+    graph = M.DecodeGraph("cuda")
+    got, _, _ = M.decode_loop(cfg, opts, params, tok, caches, S, n,
+                              device="cuda", graph=graph)
+    torch.cuda.synchronize()
+    per_step = cfg.num_layers * (2 if cfg.encoder is not None else 1)
+    assert da.decode_attention.launches - before == per_step * n
+    assert graph.runner.captures == 1
+    want, _, _ = M.decode_loop(cfg, opts, params, tok, twin, S, n,
+                               device="cuda",
+                               graph=M.DecodeGraph("cuda", eager=True))
+    assert torch.equal(got, want)
+    assert _same_tree(caches, twin)

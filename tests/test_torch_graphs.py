@@ -157,17 +157,20 @@ def test_engine_streams_through_the_runner_match_reference(case,
 STORAGE_CASES = {**{k: ("qwen1.5-0.5b", v) for k, v in LAYOUTS.items()},
                  "granite-moe": (GRANITE, {}),
                  "mamba2-dense": (MAMBA, {}),
-                 "mamba2-paged": (MAMBA, LAYOUTS["paged-bf16"])}
+                 "mamba2-paged": (MAMBA, LAYOUTS["paged-bf16"]),
+                 "gemma3-ring": ("gemma3-27b", {})}
 
 
 @pytest.mark.parametrize("case", sorted(STORAGE_CASES))
 def test_cache_leaves_keep_their_storage(case):
-    """An engine's cache leaves (K/V, pages, scales, Mamba states) keep
-    their storage through admission and a tick, and through one more
-    ``decode_step`` over the same caches."""
+    """An engine's cache leaves (K/V, pages, scales, Mamba states, the
+    ring caches of gemma3's local layers) keep their storage through
+    admission and a tick, and through one more ``decode_step`` over the
+    same caches."""
     name, kw = STORAGE_CASES[case]
     cfg, params = port_params(name)
-    eng = ServingEngine(cfg, ModelOptions(), params, n_slots=2, max_seq=32,
+    opts = ModelOptions(window_cache=case.endswith("ring"))
+    eng = ServingEngine(cfg, opts, params, n_slots=2, max_seq=32,
                         eos=-999, tick_tokens=3, device="cpu", **kw)
     ptrs = {p: t.data_ptr() for p, t in leaves(eng.caches)}
     for i, (prompt, m, _) in enumerate(_requests(cfg, 5, [(5, 6), (3, 6)])):
@@ -175,6 +178,6 @@ def test_cache_leaves_keep_their_storage(case):
     assert eng.step_fused() > 0
     assert {p: t.data_ptr() for p, t in leaves(eng.caches)} == ptrs
     tick = eng._tick
-    TM.decode_step(cfg, ModelOptions(), params, tick.tokens, eng.caches,
+    TM.decode_step(cfg, opts, params, tick.tokens, eng.caches,
                    tick.index, tick.page_table, device="cpu")
     assert {p: t.data_ptr() for p, t in leaves(eng.caches)} == ptrs

@@ -37,7 +37,9 @@ def bridge(name):
 
 
 @pytest.mark.parametrize("name", ["smollm-135m", "qwen1.5-0.5b",
-                                  "molmoact-7b"])
+                                  "molmoact-7b", "granite-3-2b",
+                                  "internvl2-1b", "gemma3-27b",
+                                  "whisper-small"])
 def test_from_jax_round_trip(name):
     jcfg, jparams, tcfg, tparams = bridge(name)
     jleaves = jax.tree_util.tree_flatten_with_path(jparams)[0]
@@ -167,6 +169,21 @@ def test_routes():
                  opts=opts) == "chunk_paged_flash"
     with pytest.raises(NotImplementedError):
         route("fresh", "paged", S=8, Skv=8, window=0, opts=opts)
+    # a ring cache (window_cache): decode over the ring, prefill as fresh
+    # rows; the encoder context (cross): the decode kernel for one query
+    # row, the reference's fresh routes (never causal) for more
+    assert route("decode", "ring", S=1, Skv=1, window=1024,
+                 opts=opts) == "decode_ring"
+    assert route("fresh", "ring", S=1024, Skv=1024, window=1024,
+                 opts=opts) == "fresh_flash"
+    assert route("fresh", "ring", S=300, Skv=300, window=1024,
+                 opts=opts) == "fresh_dense"
+    with pytest.raises(ValueError, match="ring"):
+        route("chunk", "ring", S=8, Skv=8, window=32, opts=opts)
+    assert route("cross", "none", S=1, Skv=1500, window=0, opts=opts,
+                 causal=False) == "decode_cross"
+    assert route("cross", "none", S=4, Skv=1500, window=0, opts=opts,
+                 causal=False) == "fresh_dense"
     assert TL.band_len(640, 32, 833) == 640
     assert TL.band_len(641, 32, 833) == 672
     assert TL.band_len(833, 32, 833) == 833
