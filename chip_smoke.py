@@ -21,7 +21,7 @@ weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
 16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
 pools) and chunked under the token-budget scheduler (dense; paged f32,
-int8 and fp8 pools; the serving engines on molmoact's first 12 layers).
+int8 and fp8 pools; the serving engines on molmoact's first 10 layers).
 The MoE family follows: the grouped-expert kernels
 against their plain versions at granite-moe-3b-a800m's width, the reduced
 granite engine on card and CPU, and the full-width granite-moe-3b-a800m
@@ -64,7 +64,14 @@ internvl2-1b (24 + 24 layers; dense engine with 256 patches a request),
 gemma3-27b's first 6 layers (model level with ring and full caches, a
 1024-token prefill and 256 steps past the wrap; a ring-cache engine) and
 whisper-small (12 + 12 layers; B=4 over 1500 frames, 220 steps), each
-decode path graph-replayed and eager under phase 5's gates. Prints each
+decode path graph-replayed and eager under phase 5's gates. Training the
+MoE and Mamba2 families: phases 2b and 2c hold the gmm pair's backward
+(its five products on gmm_down's kernel) and the SSD scan's (the plain
+scan again under autograd) to autograd through their plain versions;
+phase 3d trains reduced granite-moe-3b-a800m, arctic-480b, mamba2-780m
+and jamba on card and CPU with layer remat (launches as predicted from
+the layer pattern; remat on = off); phase 9b takes full-width f32 train
+steps of mamba2-780m and granite-moe-3b-a800m. Prints each
 phase's seconds, the card, the phase numbers, one JSON line describing
 each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, without that line, when there is no CUDA device or any phase
@@ -110,11 +117,12 @@ PHASE_REPEATS = 3                  # timed control steps after the first
 # twice), 144 CoT + 48 action tokens + the prefill token per request
 SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
 SERVE_MAX_SEQ, SERVE_TICK = 864, 8
-# molmoact-7b's serving engines run its first 12 of 28 layers (full
+# molmoact-7b's serving engines run its first 10 of 28 layers (full
 # width; every engine and gate kept), so that the script, with the MoE
-# phases and phase 10, stays well inside its time limit; the control
-# step and the f32 prefill check keep every layer
-SERVE_LAYERS = 12
+# phases, phase 9b's full-width train steps and phase 10, stays well
+# inside its time limit; the control step and the f32 prefill check keep
+# every layer
+SERVE_LAYERS = 10
 PAGE = 32
 SPEC_K = 4           # the speculative engines' chunk: 3 drafts + 1
 # phase 5c: (name, engine options, phase 5's engine whose streams it is
@@ -209,6 +217,20 @@ SSM_ENGINES = [("ssm-dense", {}), ("ssm-paged-f32", dict(paged=True))]
 # warm-up step and TRAIN_STEPS timed ones on one repeated batch
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "smollm-135m", 4, 2048, 3
 TRAIN_LR = 1e-3
+# the MoE and Mamba2 families' training. Phases 2b and 2c hold the
+# backward of the gmm pair at granite-moe-3b-a800m's width, at a 128-row
+# chunk's and a 640-row prefill's capacities and at the full-width train
+# step's (B=4 x 2048 tokens, top-8 of 40 experts at capacity factor 1.25:
+# C = 2048), and the SSD scan's at mamba2-780m's, S = 640 and 2048
+MOE_GRAD_C = (32, 160, 2048)
+SSD_GRAD_S = (640, 2048)
+# phase 3d: the reduced families trained card vs CPU (B=4 x 128 tokens)
+TRAIN_FAMILIES = ("granite-moe-3b-a800m", "arctic-480b", "mamba2-780m",
+                  "jamba-1.5-large-398b")
+# phase 9b: full-width f32 train steps with layer remat, B=4 x 2048 tokens
+# unless the reckoned memory passes TRAIN_MEMORY_GB (then B=2)
+TRAIN_FULL = ("mamba2-780m", "granite-moe-3b-a800m")
+TRAIN_MEMORY_GB = 75
 GRAD_TOL = 1e-4      # FlashAttention's backward vs autograd through the
 #                      plain version (f32; sums in another order)
 # flash attention vs its plain version: (label, B, S, Sk, N, K, h, type,
@@ -1663,8 +1685,10 @@ KERNEL_GROUPS = (("grouped experts", ("gmm_kernel", "gmm_gated",
                                       "gmm_down")),
                  ("attention", ("decode_kernel", "split_combine",
                                 "chunk_kernel", "chunk_tf32", "chunk_mma",
-                                "paged_kernel", "flash_kernel")),
-                 ("library GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
+                                "paged_kernel", "flash_kernel",
+                                "flash_tf32", "flash_mma")),
+                 ("library GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("SSD scan", ("ssd_states", "ssd_output")))
 
 
 def decode_breakdown(run_steps, wall_ms: float, steps: int = 4,
@@ -2773,6 +2797,125 @@ def moe_timings(cfg, errs, serving):
     return rows
 
 
+def moe_backward_checks(cfg):
+    """Phase 2b, backward: each of ``GmmGated`` and ``GmmDown`` (their
+    forward kernels; their backward's three and two products on
+    gmm_down's kernel) against autograd through its plain version on the
+    card, on the same operands and a seeded cotangent, at
+    granite-moe-3b-a800m's width and C in MOE_GRAD_C, f32 and bf16, every
+    act: each gradient within GRAD_TOL x max(1, |plain|) in f32 (sums in
+    another order) and KERNEL_TOL in bf16 (each rounded to bf16 once, as
+    the plain version's); the backwards launch gmm_down's kernel three
+    and two times and gmm_gated's never. (Chained in bf16, a sum that
+    rounds to the other neighbour in one backward moves the next one's
+    result by that ulp times an operand, past KERNEL_TOL where the result
+    is near zero; so the bf16 backwards are held one at a time.) Then the
+    five products' times at the train step's C in f32 (the phase 9b
+    path), each beside its bound and ``torch.bmm`` of the same
+    operands."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def backward(fn, plain, ins, cot, spent):
+        out = fn(*ins)
+        before = (gmm.gmm_gated.launches, gmm.gmm_down.launches)
+        got = torch.autograd.grad(out, ins, cot)
+        torch.cuda.synchronize()
+        n = (gmm.gmm_gated.launches - before[0],
+             gmm.gmm_down.launches - before[1])
+        if n != (0, spent):
+            raise AssertionError(f"a backward launched (gmm_gated, "
+                                 f"gmm_down) {n}, not (0, {spent})")
+        return got, torch.autograd.grad(plain(*ins), ins, cot,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = GRAD_TOL if dtype == torch.float32 else KERNEL_TOL
+        for C in MOE_GRAD_C:
+            x, wi, wg, wo = (t.requires_grad_()
+                             for t in moe_experts(g, cfg, C, dtype))
+            worst = {}
+            for act in ("silu", "gelu", "gelu_plain"):
+                dh = torch.randn(x.shape[0], C, wi.shape[-1],
+                                 generator=g, device="cuda").to(dtype)
+                got, want = backward(
+                    lambda *a: gmm.gmm_gated(*a, act=act),
+                    lambda *a: gmm.gmm_gated_ref(*a, act),
+                    (x, wi, wg), dh, 3)
+                for name, a, b in zip(("x", "wi", "wg"), got, want):
+                    worst[name] = max(worst.get(name, 0.0), check(
+                        f"gmm_gated d{name} {dtype} C={C} {act}", a, b,
+                        tol, quiet=True))
+            h = gmm.gmm_gated(x, wi, wg).detach().requires_grad_()
+            dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+            got, want = backward(gmm.gmm_down, gmm.gmm_down_ref, (h, wo),
+                                 dy, 2)
+            for name, a, b in zip(("h", "wo"), got, want):
+                worst[name] = check(f"gmm_down d{name} {dtype} C={C}", a, b,
+                                    tol, quiet=True)
+            print(f"  backward, {str(dtype).replace('torch.', '')} C={C}: "
+                  f"max_abs_err gmm_gated (silu, gelu, gelu_plain) "
+                  + ", ".join(f"d{k} {worst[k]:.3g}" for k in
+                              ("x", "wi", "wg"))
+                  + f"; gmm_down dh {worst['h']:.3g}, dwo {worst['wo']:.3g}"
+                  f" (tol {tol:g} x max(1, |plain|)); 3 and 2 gmm_down "
+                  f"launches")
+    E, D, F, C = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, MOE_GRAD_C[-1]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    products = {  # name -> (a [E,M,K], b [E,K,N])
+        "x [wi|wg] (the sums again)": (rnd(E, C, D), rnd(E, D, 2 * F)),
+        "dx = [da|dg] [wi|wg]^T": (rnd(E, C, 2 * F), rnd(E, 2 * F, D)),
+        "[dwi|dwg] = x^T [da|dg]": (rnd(E, D, C), rnd(E, C, 2 * F)),
+        "dh = dy wo^T": (rnd(E, C, D), rnd(E, D, F)),
+        "dwo = h^T dy": (rnd(E, F, C), rnd(E, C, D))}
+    print(f"  backward products at the train step's C={C} (f32, E={E}; "
+          f"ms a launch, one by one):")
+    for name, (a, b) in products.items():
+        ms = time_ms(lambda: gmm._products(a, b), 5, warmup=1)
+        lib = time_ms(lambda: torch.bmm(a, b), 5, warmup=1)
+        M, K, N = a.shape[1], a.shape[2], b.shape[2]
+        bd, by = bound(4 * E * (M * K + K * N + M * N), 2 * E * M * K * N,
+                       torch.float32)
+        print(f"    {name}: {ms:.3f} ms, torch.bmm {lib:.3f} ms, bound "
+              f"{bd:.3f} ms ({by}; f32 outside the tensor cores)")
+
+
+def ssd_backward_checks(cfg):
+    """Phase 2c, backward: ``ssd`` through ``SSD`` (the kernel forward,
+    the backward ``ssd_chunked`` again under autograd) against autograd
+    through ``ssd_chunked`` on the card, at mamba2-780m's width, B=1 and S
+    in SSD_GRAD_S, f32 and bf16, with seeded cotangents on y and the final
+    state: each gradient within GRAD_TOL x max(1, |plain|) (f32) or
+    KERNEL_TOL (bf16); the backward launches no kernel."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    for S in SSD_GRAD_S:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = GRAD_TOL if dtype == torch.float32 else KERNEL_TOL
+            ins = [t.requires_grad_()
+                   for t in ssd_inputs(g, cfg, 1, S, dtype)]
+            y, st = ssd.ssd(*ins)
+            dy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+            ds = torch.randn(st.shape, generator=g, device="cuda")
+            before = ssd.ssd.launches
+            got = torch.autograd.grad((y, st), ins, (dy, ds))
+            if ssd.ssd.launches != before:
+                raise AssertionError("the ssd backward launched the kernel")
+            want = torch.autograd.grad(ssd.ssd_chunked(*ins), ins, (dy, ds))
+            errs = [check(f"ssd d{n} {dtype} S={S}", a, b, tol, quiet=True)
+                    for n, a, b in zip(("x", "dt", "A_log", "B", "C"), got,
+                                       want)]
+            print(f"  ssd backward, {str(dtype).replace('torch.', '')} "
+                  f"S={S}: max_abs_err dx, ddt, dA_log, dB, dC "
+                  + ", ".join(f"{e:.3g}" for e in errs)
+                  + f" (tol {tol:g} x max(1, |plain|))")
+
+
 def ssd_inputs(g, cfg, B: int, S: int, dtype):
     """Seeded SSD operands at ``cfg``'s Mamba2 width: x, B, C in
     ``dtype``; dt = softplus(normal) and A_log in [0, 1.5) in f32 (the
@@ -3063,14 +3206,13 @@ def flash_checks():
     return inputs, errs
 
 
-def loss_and_grads(cfg, params, batch, device):
+def loss_and_grads(cfg, params, batch, device, opts):
     """lm_loss (the train step's z-loss) and its gradients by leaf."""
     import torch
-    from repro_torch.models import model as M
     from repro_torch.models.params import leaves, map_tree
     from repro_torch.training import TrainConfig, lm_loss
     live = map_tree(lambda t: t.detach().requires_grad_(True), params)
-    loss = lm_loss(cfg, M.ModelOptions(), live, batch, TrainConfig().z_loss,
+    loss = lm_loss(cfg, opts, live, batch, TrainConfig().z_loss,
                    device=device)
     grads = torch.autograd.grad(loss, [t for _, t in leaves(live)])
     return float(loss.detach()), dict(zip([p for p, _ in leaves(live)],
@@ -3087,7 +3229,8 @@ def train_card_vs_cpu():
     and within 2 x lr elsewhere (a gradient near AdamW's eps moves its
     parameter by up to about lr); and on the card microbatches=2 against
     microbatches=1 (loss within 1e-4 relative, parameters within 1e-4,
-    the reference's own contract)."""
+    the reference's own contract). Layer remat is off here (one flash
+    launch a layer); ``train_families_card_vs_cpu`` runs it on."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
@@ -3095,7 +3238,7 @@ def train_card_vs_cpu():
     from repro_torch.models.params import leaves, map_tree
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_train_step)
-    opts = M.ModelOptions()
+    opts = M.ModelOptions(remat=False)
     for name, text, vision in ((TRAIN_ARCH, 256, False),
                                ("molmoact-7b", 120, True)):
         cfg = get_config(name).reduced()
@@ -3109,12 +3252,12 @@ def train_card_vs_cpu():
                 (4, cfg.vision.num_tokens, cfg.vision.embed_dim),
                 dtype=np.float32)
         before = fa.flash_attention.launches
-        lg, gg = loss_and_grads(cfg, p_gpu, batch, "cuda")
+        lg, gg = loss_and_grads(cfg, p_gpu, batch, "cuda", opts)
         if fa.flash_attention.launches - before != cfg.num_layers:
             raise AssertionError(f"reduced {name}: the train forward did "
                                  f"not launch the flash kernel once a "
                                  f"layer")
-        lc, gc = loss_and_grads(cfg, p_cpu, batch, "cpu")
+        lc, gc = loss_and_grads(cfg, p_cpu, batch, "cpu", opts)
         if not abs(lg - lc) <= 1e-5 * abs(lc):
             raise AssertionError(f"reduced {name} loss: card {lg} vs CPU "
                                  f"{lc}")
@@ -3164,6 +3307,129 @@ def train_card_vs_cpu():
               f"microbatches 2 vs 1 within {mb_d:.3g}")
 
 
+def predicted_train_launches(cfg, remat: bool):
+    """The port's kernel launches in one loss-and-gradient pass at S a
+    multiple of 128, from the layer pattern: an attention layer launches
+    the flash kernel once, a Mamba2 layer the SSD scan once, an MoE layer
+    gmm_gated and gmm_down once each, all twice in a layer body that remat
+    runs again (the tail layers are not checkpointed); an MoE layer's
+    backward launches gmm_down's kernel five more times (three products
+    for gmm_gated's gradient, two for gmm_down's); the flash and SSD
+    backwards launch none."""
+    from repro_torch.models.stacks import stack_plan, sub_kinds
+    period, nblocks, ntail = stack_plan(cfg)
+    kinds = sub_kinds(cfg)
+    want = dict.fromkeys(("flash_attention", "ssd", "gmm_gated",
+                          "gmm_down"), 0)
+    for kind, again in ([(k, remat) for _ in range(nblocks) for k in kinds]
+                        + [(kinds[j], False) for j in range(ntail)]):
+        n = 2 if again else 1
+        want["flash_attention" if kind.mixer == "attn" else "ssd"] += n
+        if kind.ffn.startswith("moe"):
+            want["gmm_gated"] += n
+            want["gmm_down"] += n + 5
+    return want
+
+
+def grads_apart(got, want):
+    """(the largest |got - want| of a leaf over its max|want|, that leaf's
+    path), over the leaves of two {path: gradient} dicts."""
+    return max((float((got[p].cpu() - w).abs().max()
+                      / w.abs().max().clamp(min=1e-30)), p)
+               for p, w in want.items())
+
+
+def train_families_card_vs_cpu():
+    """Phase 3d, the MoE and Mamba2 families: reduced granite-moe-3b-a800m,
+    arctic-480b, mamba2-780m and jamba-1.5-large-398b, f32, B=4 x 128
+    tokens, layer remat on, the same seeded weights and batch on the card
+    (gmm_gated, gmm_down, ssd, flash) and on the CPU (plain versions): the
+    loss within 1e-5 relative and the gradients within 1e-5 x max|g| of
+    each leaf (jamba's within GRAD_TOL: its 14 Mamba2 layers each take
+    the SSD kernel's 3xTF32 forward, 2.5e-5 x max|g| measured on dt_bias
+    and A_log); the kernels' launches in the pass exactly
+    ``predicted_train_launches``; remat off (and on jamba's 8-sublayer
+    bodies, remat_sublayers) against remat on, on the card: every
+    gradient within 1e-6 x max|g| (the same values recomputed;
+    bit-equality printed); one train step's parameters on the smollm
+    case's bars."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    opts = M.ModelOptions()
+    for name in TRAIN_FAMILIES:
+        cfg = get_config(name).reduced()
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              torch.float32, device="cpu")
+        p_gpu = map_tree(lambda t: t.cuda(), p_cpu)
+        rng = np.random.default_rng(SEED + 18)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 128))}
+        # the CPU's on one thread: its sums then come in one order
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            lc, gc = loss_and_grads(cfg, p_cpu, batch, "cpu", opts)
+        finally:
+            torch.set_num_threads(threads)
+        kernels = reset_launches()
+        lg, gg = loss_and_grads(cfg, p_gpu, batch, "cuda", opts)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches(kernels).items()
+               if k in ("flash_attention", "ssd", "gmm_gated", "gmm_down")}
+        want = predicted_train_launches(cfg, remat=True)
+        if got != want:
+            raise AssertionError(f"reduced {name}: launches {got} in a "
+                                 f"loss-and-gradient pass, not {want}")
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"reduced {name} loss: card {lg} vs CPU "
+                                 f"{lc}")
+        worst, leaf = grads_apart(gg, gc)
+        if worst > (GRAD_TOL if name == HYBRID_ARCH else 1e-5):
+            raise AssertionError(f"reduced {name}: gradients of {leaf} "
+                                 f"{worst} x max|g| apart")
+        variants = [("remat off", M.ModelOptions(remat=False))]
+        if name == HYBRID_ARCH:
+            variants.append(("remat_sublayers",
+                             M.ModelOptions(remat_sublayers=True)))
+        remat_line = []
+        for label, o in variants:
+            _, gv = loss_and_grads(cfg, p_gpu, batch, "cuda", o)
+            apart, _ = grads_apart(gv, {p: t.cpu() for p, t in gg.items()})
+            if apart > 1e-6:
+                raise AssertionError(f"reduced {name}: {label} gradients "
+                                     f"{apart} x max|g| from remat on")
+            same = all(torch.equal(gv[p], gg[p]) for p in gg)
+            remat_line.append(f"{label} within {apart:.3g} x max|g|"
+                              + (" (bit-equal)" if same else ""))
+        tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+        new = {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            step = make_train_step(cfg, opts, tcfg, device=dev)
+            new[dev] = step(p, init_train_state(cfg, tcfg, p), batch)
+        worst_p = 0.0
+        for (path, a), (_, b) in zip(leaves(new["cuda"][0]),
+                                     leaves(new["cpu"][0])):
+            g = gc[path].abs()
+            d = ((a.cpu() - b).abs()
+                 - 2 * torch.finfo(torch.float32).eps * b.abs())
+            sure = g > 1e-2 * g.max()
+            worst_p = max(worst_p, float(d[sure].max()) if sure.any()
+                          else 0.0)
+            if (sure.any() and float(d[sure].max()) > 1e-4 * TRAIN_LR) \
+                    or float(d.max()) > 2 * TRAIN_LR:
+                raise AssertionError(f"reduced {name} updated {path}: "
+                                     f"card and CPU apart")
+        print(f"  reduced {name} (remat on): loss card {lg:.7f} CPU "
+              f"{lc:.7f}; grads within {worst:.3g} x max|g| ({leaf}); "
+              f"launches "
+              f"{got} as predicted; {'; '.join(remat_line)}; updated "
+              f"parameters within {worst_p / TRAIN_LR:.3g} x lr where "
+              f"|g| > 1e-2 max|g|")
+
+
 def train_full():
     """Phase 9: the full-width smollm-135m train step (seeded f32 weights,
     B=4 x 2048 tokens from ``lm_batches``, AdamW at lr TRAIN_LR): one
@@ -3187,7 +3453,7 @@ def train_full():
     from repro_torch.training.optimizer import adamw_update
     cfg = get_config(TRAIN_ARCH)
     dev = torch.device("cuda")
-    opts = M.ModelOptions()
+    opts = M.ModelOptions(remat=False)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                            torch.float32, device=dev)
     n_params = sum(t.numel() for _, t in leaves(params))
@@ -3275,6 +3541,111 @@ def train_full():
           f"the restored state is bit-equal to the continued one "
           f"({len(pairs)} leaves and the loss)")
     return launches
+
+
+def train_families_full():
+    """Phase 9b: full-width f32 train steps of the MoE and Mamba2 families
+    (TRAIN_FULL: mamba2-780m's 48 layers, granite-moe-3b-a800m's 32;
+    seeded weights, B=4 x 2048 tokens from ``lm_batches`` unless the
+    reckoned memory passes TRAIN_MEMORY_GB, AdamW at lr TRAIN_LR, layer
+    remat on, the update in place: ``donate=True``): one warm-up and
+    TRAIN_STEPS timed steps on one repeated batch, gated on a finite loss
+    that falls and on the launches ``predicted_train_launches`` predicts
+    for each step;
+    then the step's split (forward, backward, optimizer by CUDA events),
+    peak memory and device breakdown. Returns {arch: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, map_tree, set_leaf
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, lm_loss,
+                                      make_train_step)
+    from repro_torch.training.optimizer import adamw_update
+    dev = torch.device("cuda")
+    opts = M.ModelOptions()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    out = {}
+    for name in TRAIN_FULL:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED),
+            torch.float32, device=dev)
+        n_params = sum(t.numel() for _, t in leaves(params))
+        # parameters, gradients and two moments at 4 bytes each; the
+        # layers' saved inputs under remat; four f32 copies of the logits
+        reckon = {B: (16 * n_params + 4 * cfg.num_layers * B * TRAIN_S
+                      * cfg.d_model + 16 * B * TRAIN_S * cfg.vocab_size)
+                  / 1e9 for B in (TRAIN_B, 2)}
+        B = TRAIN_B if reckon[TRAIN_B] <= TRAIN_MEMORY_GB else 2
+        batch = next(lm_batches(cfg, B, TRAIN_S, seed=SEED, steps=1))
+        step = make_train_step(cfg, opts, tcfg, device=dev, donate=True)
+        state = init_train_state(cfg, tcfg, params)
+        torch.cuda.synchronize()
+        print(f"  {name}: {n_params / 1e9:.3f} B parameters in f32 "
+              f"({time.perf_counter() - t0:.1f} s to build), batch {B} x "
+              f"{TRAIN_S} tokens (memory reckoned {reckon[TRAIN_B]:.1f} GB "
+              f"at B={TRAIN_B}, limit {TRAIN_MEMORY_GB} GB)")
+        torch.cuda.reset_peak_memory_stats()
+        kernels = reset_launches()
+        losses, step_s = [], []
+        for _ in range(1 + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = read_launches(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * (1 + TRAIN_STEPS) for k, v in
+                     predicted_train_launches(cfg, remat=True).items()})
+        print(f"  launches in {1 + TRAIN_STEPS} steps: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+              + (" (as predicted)" if launches == want
+                 else f" (expected {want})"))
+        if launches != want:
+            raise AssertionError(f"{name}: the train step's launches are "
+                                 f"not the predicted ones")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} train losses {losses}: not finite "
+                                 f"or not falling")
+        ms = float(np.median(step_s[1:])) * 1e3
+        print(f"  losses {[round(x, 4) for x in losses]}; warm-up step "
+              f"{step_s[0] * 1e3:.1f} ms; steps "
+              f"{[round(t * 1e3, 1) for t in step_s[1:]]} ms, median "
+              f"{ms:.1f} ms, {B * TRAIN_S / ms * 1e3:.0f} tokens/s; peak "
+              f"memory {peak_gb:.2f} GB")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        live = map_tree(lambda t: t.detach().requires_grad_(True), params)
+        ev[0].record()
+        loss = lm_loss(cfg, opts, live, batch, tcfg.z_loss, device=dev)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [t for _, t in leaves(live)])
+        ev[2].record()
+        tree = {}
+        for (path, _), gr in zip(leaves(live), grads):
+            set_leaf(tree, path, gr)
+        del live, loss, grads
+        adamw_update(tcfg.opt, tree, state["inner"], params, inplace=True)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        print(f"  step split (ms): forward {split[0]:.2f}, backward "
+              f"{split[1]:.2f}, optimizer {split[2]:.2f}")
+        del tree
+
+        def run_steps(n):
+            for _ in range(n):
+                step(params, state, batch)
+        decode_breakdown(run_steps, ms, steps=1,
+                         label=f"{name} train step")
+        out[name] = launches
+        del params, state, step
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_timings(inputs, errs, launches):
@@ -4442,12 +4813,15 @@ def main() -> int:
     inputs, errs = kernel_checks(cfg)
     lap("phase 2")
     print(f"phase 2b: grouped-expert kernels vs plain versions, "
-          f"{MOE_ARCH} width")
+          f"{MOE_ARCH} width, and their backward")
     moe_errs = moe_kernel_checks(moe_cfg)
+    moe_backward_checks(moe_cfg)
     lap("phase 2b")
     ssm_cfg = get_config(SSM_ARCH)
-    print(f"phase 2c: SSD kernel vs plain version, {SSM_ARCH} width")
+    print(f"phase 2c: SSD kernel vs plain version, {SSM_ARCH} width, and "
+          f"its backward")
     ssd_inputs_640, ssd_errs = ssd_kernel_checks(ssm_cfg)
+    ssd_backward_checks(ssm_cfg)
     lap("phase 2c")
     print("phase 2d: flash-attention kernel vs plain version")
     flash_inputs, flash_errs = flash_checks()
@@ -4466,9 +4840,10 @@ def main() -> int:
     print(f"phase 3c: reduced {SSM_ARCH} and {HYBRID_ARCH}, card vs CPU")
     ssm_card_vs_cpu([SSM_ARCH, HYBRID_ARCH])
     lap("phase 3c")
-    print(f"phase 3d: reduced {TRAIN_ARCH} and molmoact-7b training, card "
-          f"vs CPU")
+    print(f"phase 3d: reduced {TRAIN_ARCH}, molmoact-7b, "
+          f"{', '.join(TRAIN_FAMILIES)} training, card vs CPU")
     train_card_vs_cpu()
+    train_families_card_vs_cpu()
     lap("phase 3d")
     print(f"phase 3e: reduced {DIT_ARCH}, card vs CPU")
     dit_card_vs_cpu()
@@ -4512,6 +4887,9 @@ def main() -> int:
     train_launches = train_full()
     torch.cuda.empty_cache()
     lap("phase 9")
+    print(f"phase 9b: full-width {', '.join(TRAIN_FULL)} train steps")
+    family_launches = train_families_full()
+    lap("phase 9b")
     print(f"phase 10: full-width {GRANITE}, {INTERNVL}, {GEMMA} (first "
           f"{GEMMA_LAYERS} layers) and {WHISPER}")
     arch_launches = arch_full()
@@ -4529,6 +4907,10 @@ def main() -> int:
               f"({r['bound_by']}), launches {r['launches']}")
     rows += flash_timings(flash_inputs, flash_errs, train_launches)
     lap("phase 6")
+    print(f"  phase 9b's launches ({1 + TRAIN_STEPS} train steps; rows 5-8): "
+          + "; ".join(f"{arch} " + ", ".join(f"{k} {n}" for k, n in
+                                             counts.items() if n)
+                      for arch, counts in family_launches.items()))
     print("  phase 10's launches (graphed runs; rows 1-3, 5): " + "; ".join(
         f"{path} " + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
         for path, counts in arch_launches.items()))

@@ -11,6 +11,13 @@ layout of ``repro/kernels/ssd/ops.py: ssd`` (B and C with a group axis of
 size 1, dropped here) and follow ``ssd_chunked``'s contract: the sequence
 is one chunk when S <= Q, else S must be a multiple of Q (the reference's
 Pallas kernel leaves the rows past the last whole chunk unwritten there).
+
+``ssd`` is differentiable through ``SSD`` (the TPU kernel is forward only):
+its backward runs ``ssd_chunked`` again from the saved inputs under
+autograd, on the tensors' device; a backward kernel is later work.
+``ssd_chunked`` masks the intra-chunk decay before its exponential, so
+its gradient stays finite where an exponential taken over the whole
+square and masked afterwards overflows above the diagonal.
 """
 from __future__ import annotations
 
@@ -163,17 +170,45 @@ def scratch_states(scratch, xs, N: int, Q: int = 128):
             scratch[cut:cut + Bsz * H * nc].view(Bsz, H, nc))
 
 
+class SSD(torch.autograd.Function):
+    """Forward: the kernel on the card, ``ssd_chunked`` on the CPU.
+    Backward: the vector-Jacobian product of ``ssd_chunked`` recomputed
+    from the saved inputs, for y and, where it has a gradient, the final
+    state."""
+
+    @staticmethod
+    def forward(ctx, xs, dt, A_log, B_, C_, Q: int):
+        ctx.save_for_backward(xs, dt, A_log, B_, C_)
+        ctx.Q = Q
+        ctx.set_materialize_grads(False)
+        if xs.device.type == "cpu":
+            return ssd_chunked(xs, dt, A_log, B_, C_, Q)
+        if xs.device.type != "cuda":
+            raise ValueError(f"unsupported device {xs.device}")
+        return _launch(xs, dt, A_log, B_, C_, Q)[:2]
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_chunked(*ins, ctx.Q)
+            pairs = [(o, d) for o, d in zip(outs, (dy, dstate))
+                     if d is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t in ins if t.requires_grad],
+                [d for _, d in pairs], allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
 def ssd(xs, dt, A_log, B_, C_, Q: int = 128):
     """Model-facing SSD: xs [B,S,H,P] (f32 or bf16); dt [B,S,H]; A_log [H];
     B_/C_ [B,S,1,N] in xs's type. Returns (y [B,S,H,P] in xs's dtype,
     final state [B,H,P,N] f32): the kernel for CUDA tensors, the plain
-    ``ssd_chunked`` for CPU tensors."""
+    ``ssd_chunked`` for CPU tensors; differentiable through ``SSD``."""
     _check(xs, dt, A_log, B_, C_)
-    if xs.device.type == "cpu":
-        return ssd_chunked(xs, dt, A_log, B_, C_, Q)
-    if xs.device.type != "cuda":
-        raise ValueError(f"unsupported device {xs.device}")
-    return _launch(xs, dt, A_log, B_, C_, Q)[:2]
+    return SSD.apply(xs, dt, A_log, B_, C_, int(Q))
 
 
 ssd.launches = 0

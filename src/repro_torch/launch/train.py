@@ -46,7 +46,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    opts = ModelOptions()
+    opts = ModelOptions(remat=False)
     tcfg = TrainConfig(opt=AdamWConfig(lr=args.lr, warmup_steps=10,
                                        total_steps=args.steps),
                        microbatches=args.microbatches)

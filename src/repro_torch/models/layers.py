@@ -52,6 +52,14 @@ class ModelOptions:
     #                                    weights instead of the capacity path
     window_cache: bool = False         # a sliding-window layer keeps a ring
     #                                    cache of min(max_seq, window) rows
+    remat: bool = True                 # a training forward checkpoints each
+    #                                    layer body (its period of
+    #                                    sublayers): the backward runs it
+    #                                    again instead of keeping its
+    #                                    activations
+    remat_sublayers: bool = False      # and, inside a body of more than one
+    #                                    sublayer, each sublayer: the peak
+    #                                    is one sublayer's activations
 
 
 # ---------------------------------------------------------------------------

@@ -169,14 +169,15 @@ def _positions(index, B: int, S: int, dev):
     return (start.reshape(-1, 1) + torch.arange(S, device=dev)).expand(B, S)
 
 
-def forward(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
-            device="cuda"):
-    """Full-sequence forward -> logits [B, S_total, V]."""
+def forward(cfg: ModelConfig, opts: ModelOptions, params, batch,
+            train: bool = False, *, device="cuda"):
+    """Full-sequence forward -> logits [B, S_total, V]. ``train`` lets
+    ``opts.remat`` checkpoint the decoder's layers."""
     dev = resolve_device(device)
     _check_params(params, dev)
     x, positions, ctx = _sequence(params, batch, cfg, dev)
     x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions,
-                                ctx=ctx)
+                                ctx=ctx, train=train)
     return _logits(params, x, cfg)
 
 

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig, VisionConfig
@@ -260,7 +261,8 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
                   positions, caches=None, cache_index=None, live_len=None,
-                  page_table=None, n_valid=None, n_blocks=None, ctx=None):
+                  page_table=None, n_valid=None, n_blocks=None, ctx=None,
+                  train: bool = False):
     """Run the decoder stack, layer by layer. ``caches`` (from
     ``init_caches``) is updated in place; ``page_table`` [B, npg] marks
     them as page pools; ``n_valid`` masks a prefill chunk's padding rows
@@ -272,8 +274,13 @@ def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
     blocks: the self-speculative draft pass, which shares the parameters
     and caches of the full model and writes its layers' KV into them (the
     verify pass rewrites those rows). The tail layers are skipped then,
-    even at ``n_blocks == num_blocks``, as in the reference. Returns (x,
-    caches)."""
+    even at ``n_blocks == num_blocks``, as in the reference.
+
+    ``train`` with ``opts.remat`` runs each block (its ``period``
+    sublayers) under ``torch.utils.checkpoint``, and with
+    ``opts.remat_sublayers`` and ``period > 1`` each sublayer inside it
+    too, as the reference's ``jax.checkpoint``s; the tail layers run as
+    they are. Returns (x, caches)."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
     if n_blocks is not None:
@@ -281,17 +288,38 @@ def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
             raise ValueError(f"n_blocks must be in 1..{nblocks}, "
                              f"got {n_blocks}")
         nblocks, ntail = n_blocks, 0
-    layers = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
-               layer_slice(caches["blocks"], i)[f"sub{j}"] if caches else None)
-              for i in range(nblocks) for j in range(period)]
-    layers += [(params["tail"][f"tail{j}"], kinds[j],
-                caches["tail"][f"tail{j}"] if caches else None)
-               for j in range(ntail)]
-    for p, kind, cache in layers:
-        x = apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
-                           cache_index=cache_index, live_len=live_len,
-                           page_table=page_table, n_valid=n_valid, ctx=ctx)
-    return x, caches
+    remat = train and opts.remat
+    sub_remat = remat and opts.remat_sublayers and period > 1
+
+    def sublayer(p, kind, cache, x):
+        return apply_sublayer(p, x, cfg, opts, kind, positions, cache=cache,
+                              cache_index=cache_index, live_len=live_len,
+                              page_table=page_table, n_valid=n_valid,
+                              ctx=ctx)
+
+    def block(x, subs, nested: bool):
+        for p, kind, cache in subs:
+            x = (_checkpoint(sublayer, p, kind, cache, x) if nested
+                 else sublayer(p, kind, cache, x))
+        return x
+
+    for i in range(nblocks):
+        subs = [(layer_slice(params["blocks"], i)[f"sub{j}"], kinds[j],
+                 layer_slice(caches["blocks"], i)[f"sub{j}"] if caches
+                 else None) for j in range(period)]
+        x = (_checkpoint(block, x, subs, sub_remat) if remat
+             else block(x, subs, False))
+    tail = [(params["tail"][f"tail{j}"], kinds[j],
+             caches["tail"][f"tail{j}"] if caches else None)
+            for j in range(ntail)]
+    return block(x, tail, False), caches
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` whose saved activations the backward recomputes; the
+    layers draw no random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def apply_tower(params, embeds, enc: VisionConfig):

@@ -2,11 +2,13 @@
 gradient accumulation in f32, optional int8 gradient compression, AdamW
 (the port's copy of ``repro.training.train_step``).
 
-Gradients come from autograd through ``models.model.forward``; fresh
+Gradients come from autograd through ``models.model.forward`` with
+``train=True``, so ``ModelOptions.remat`` checkpoints the layers; fresh
 attention in whole 128-row blocks runs the flash kernel
 (``kernels/flash_attention``), whose backward is written out in tensor
-operations. On the card the step refuses stacks with MoE or Mamba2 layers:
-their kernels (``gmm_gated``, ``gmm_down``, ``ssd``) have no gradient yet.
+operations; MoE layers run ``gmm_gated`` / ``gmm_down``, whose backward
+products run on ``gmm_down``'s kernel, and Mamba2 layers ``ssd``, whose
+backward runs its plain version again under autograd.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def lm_loss(cfg: ModelConfig, opts: ModelOptions, params, batch,
     padding (token == -1) are masked out of the loss."""
     dev = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=dev, dtype=torch.long)
-    logits = M.forward(cfg, opts, params, batch, device=dev)
+    logits = M.forward(cfg, opts, params, batch, train=True, device=dev)
     n_prefix = logits.shape[1] - tokens.shape[1]
     logits = logits[:, n_prefix:]
     targets = tokens[:, 1:]
@@ -55,14 +57,6 @@ def lm_loss(cfg: ModelConfig, opts: ModelOptions, params, batch,
     return loss
 
 
-def _refuse_untrainable(cfg: ModelConfig):
-    if any(not cfg.is_attn_layer(i) or cfg.is_moe_layer(i)
-           for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE or Mamba2 layers on the card needs "
-            "gradients of gmm_gated, gmm_down and ssd (ROADMAP item 15)")
-
-
 def _on_device(batch, dev):
     return {k: torch.as_tensor(v, device=dev,
                                dtype=torch.long if k == "tokens" else None)
@@ -70,14 +64,16 @@ def _on_device(batch, dev):
 
 
 def make_train_step(cfg: ModelConfig, opts: ModelOptions, tcfg: TrainConfig,
-                    *, device="cuda"):
+                    *, device="cuda", donate: bool = False):
     """Returns train_step(params, state, batch) -> (params, state,
     metrics); ``state`` is ``init_train_state``'s, metrics 0-d tensors
     (``loss``, ``grad_norm``, ``lr``). batch tokens [B, S] (+ 'patches'),
-    numpy or tensors; B must divide by ``tcfg.microbatches``."""
+    numpy or tensors; B must divide by ``tcfg.microbatches``. ``donate``
+    updates the parameters and AdamW's moments in place (as a jitted step
+    whose arguments are donated reuses their buffers), so that no second
+    copy of them is ever held: the trees passed in are then the ones
+    returned."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        _refuse_untrainable(cfg)
 
     def grads_of(params, batch):
         live = map_tree(lambda t: t.detach().requires_grad_(True), params)
@@ -110,7 +106,7 @@ def make_train_step(cfg: ModelConfig, opts: ModelOptions, tcfg: TrainConfig,
         if tcfg.compress_grads:
             grads, err = C.compress_grads(grads, state["error"])
         new_params, new_inner, metrics = adamw_update(
-            tcfg.opt, grads, state["inner"], params)
+            tcfg.opt, grads, state["inner"], params, inplace=donate)
         new_state = {"inner": new_inner}
         if tcfg.compress_grads:
             new_state["error"] = err

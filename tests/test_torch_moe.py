@@ -339,6 +339,25 @@ def _counting_drops(monkeypatch):
     return dropped
 
 
+def _engine_matches_reference(name, engine, schedule, monkeypatch):
+    cfg, _ = port_params(name)
+    shape, n_slots = SCHEDULES[schedule]
+    reqs = _requests(cfg, 6, shape)
+    kw = dict(n_slots=n_slots, opts=dict(moe_capacity_factor=0.5),
+              **ENGINES[engine])
+    dropped = _counting_drops(monkeypatch)
+    port = run_port(name, reqs, **kw)
+    monkeypatch.undo()
+    assert dropped["prefill"] > 0 and dropped["decode"] > 0
+    ref = run_ref(name, reqs, **kw)
+    if "chunked" in engine:
+        assert_same_chunked_run(port, ref)
+    else:
+        assert_same_run(port, ref)
+    assert all(len(port[0][i]) == m for i, (_, m, _) in enumerate(reqs))
+    assert (port[1].masked_steps > 0) == ENGINES[engine].get("fused", True)
+
+
 @pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("engine", sorted(ENGINES))
 def test_moe_engine_matches_reference(engine, schedule, monkeypatch):
@@ -351,22 +370,15 @@ def test_moe_engine_matches_reference(engine, schedule, monkeypatch):
     rows, and the same T. A capacity factor of 0.5 (one slot per expert
     at decode) makes the decode steps drop assignments too, so every row
     of a step competes with the others."""
-    cfg, _ = port_params(GRANITE)
-    shape, n_slots = SCHEDULES[schedule]
-    reqs = _requests(cfg, 6, shape)
-    kw = dict(n_slots=n_slots, opts=dict(moe_capacity_factor=0.5),
-              **ENGINES[engine])
-    dropped = _counting_drops(monkeypatch)
-    port = run_port(GRANITE, reqs, **kw)
-    monkeypatch.undo()
-    assert dropped["prefill"] > 0 and dropped["decode"] > 0
-    ref = run_ref(GRANITE, reqs, **kw)
-    if "chunked" in engine:
-        assert_same_chunked_run(port, ref)
-    else:
-        assert_same_run(port, ref)
-    assert all(len(port[0][i]) == m for i, (_, m, _) in enumerate(reqs))
-    assert (port[1].masked_steps > 0) == ENGINES[engine].get("fused", True)
+    _engine_matches_reference(GRANITE, engine, schedule, monkeypatch)
+
+
+def test_arctic_engine_matches_reference(monkeypatch):
+    """The same for reduced arctic (MoE beside a dense residual MLP, the
+    ``moe+dense`` sublayer), paged with an int8 pool, on the refill
+    schedule."""
+    _engine_matches_reference("arctic-480b", "paged-int8", "refill",
+                              monkeypatch)
 
 
 def test_masked_steps_leave_the_null_page_as_found():

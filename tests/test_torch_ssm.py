@@ -413,11 +413,13 @@ SCHEDULES = {"refill": ([(4, 7), (9, 3), (6, 12), (1, 5), (8, 9)], 2),
              "idle": ([(5, 3), (7, 11), (4, 6)], 4)}
 ENGINES = {"dense": {}, "dense-per-token": dict(fused=False),
            "paged": LAYOUTS["paged-bf16"],
-           "paged-per-token": dict(LAYOUTS["paged-bf16"], fused=False)}
+           "paged-per-token": dict(LAYOUTS["paged-bf16"], fused=False),
+           "paged-int8": LAYOUTS["int8-head"]}
 ENGINE_CASES = ([(MAMBA, e, s) for e in ("dense", "dense-per-token",
                                          "paged", "paged-per-token")
                  for s in sorted(SCHEDULES)]
-                + [(JAMBA, e, "refill") for e in ("dense", "paged")])
+                + [(JAMBA, e, "refill") for e in ("dense", "paged",
+                                                  "paged-int8")])
 
 
 @pytest.mark.parametrize("name,engine,schedule", ENGINE_CASES)

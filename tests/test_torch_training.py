@@ -546,8 +546,8 @@ def test_loss_decreases_and_padding_is_finite():
 
 
 def test_train_step_refuses_nothing_on_the_cpu_but_needs_a_device():
-    """MoE and Mamba stacks are refused only on the card (their kernels
-    have no gradient yet); the step's device is resolved up front."""
+    """A MoE stack's step is built on the CPU, and the step's device is
+    resolved up front (no card here: it raises)."""
     cfg, _ = port_params("granite-moe-3b-a800m")
     make_train_step(cfg, TL.ModelOptions(), TrainConfig(), device="cpu")
     if not torch.cuda.is_available():
