@@ -92,13 +92,17 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+from repro_torch.core.hardware import H100_SXM  # noqa: E402
+
+# the H100 SXM data sheet (``core.hardware.H100_SXM``, one source for the
+# card's HBM rate and bf16 peak)
+HBM_BYTES_PER_S = H100_SXM.mem_bw_gbs * 1e9
 L2_BYTES = 50 * 2 ** 20            # H100 SXM L2 cache
 # peak operations per second by input type (dense, no sparsity): bf16
 # tensor cores; f32 outside the tensor cores (the exact f32 function);
 # int8/fp8 tensor cores
-OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
-             "float8_e4m3fn": 1979e12}
+OPS_PER_S = {"bfloat16": H100_SXM.bf16_tflops * 1e12, "float32": 67e12,
+             "int8": 1979e12, "float8_e4m3fn": 1979e12}
 KERNEL_TOL = 1e-2    # relative to max(1, |plain|): a bf16 output is off by
 #                      up to half an ulp (2**-9 relative) plus f32 sums
 #                      taken in another order
@@ -1509,15 +1513,13 @@ def full_width(cfg, params):
 def simulated_split(cfg, measured):
     """Phase 4, the paper's Fig. 2 question asked of the card: the
     analytical model's phase split of the same control step (``core.
-    xpu_sim.simulate_vla`` at B = FULL_B) on an H100 built from this
-    script's data-sheet constants (HBM rate, bf16 peak; the model's
-    default efficiencies), beside the graphed step's measured split
+    xpu_sim.simulate_vla`` at B = FULL_B) on ``core.hardware.H100_SXM``
+    (the data sheet's HBM rate and bf16 peak; the model's default
+    efficiencies), beside the graphed step's measured split
     (``measured``: ms by phase, medians). The generation fraction is the
     paper's: prefill + CoT decode over the step."""
-    from repro_torch.core.hardware import Hardware
     from repro_torch.core.xpu_sim import simulate_vla
-    hw = Hardware("h100", mem_bw_gbs=HBM_BYTES_PER_S / 1e9,
-                  bf16_tflops=OPS_PER_S["bfloat16"] / 1e12, hbm_gb=80)
+    hw = H100_SXM
     sim = simulate_vla(cfg, hw, B=FULL_B)
     sim_ms = {p: t * 1e3 for p, t in sim.phase_seconds().items()}
     names = dict(zip(("vision_encode", "generation_prefill",
@@ -3553,7 +3555,8 @@ def train_families_full():
     that falls and on the launches ``predicted_train_launches`` predicts
     for each step;
     then the step's split (forward, backward, optimizer by CUDA events),
-    peak memory and device breakdown. Returns {arch: launches}."""
+    peak memory and device breakdown. Returns ({arch: launches},
+    {arch: (batch, median step ms)})."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
@@ -3566,7 +3569,7 @@ def train_families_full():
     dev = torch.device("cuda")
     opts = M.ModelOptions()
     tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
-    out = {}
+    out, walls = {}, {}
     for name in TRAIN_FULL:
         cfg = get_config(name)
         t0 = time.perf_counter()
@@ -3643,9 +3646,10 @@ def train_families_full():
         decode_breakdown(run_steps, ms, steps=1,
                          label=f"{name} train step")
         out[name] = launches
+        walls[name] = (B, ms)
         del params, state, step
         torch.cuda.empty_cache()
-    return out
+    return out, walls
 
 
 def flash_timings(inputs, errs, launches):
@@ -3924,6 +3928,7 @@ def dit_full_width(cfg, params, discrete_ms):
     if res is not None:
         print(f"  DiT loop: {res[1] / a.dit_steps:.1f} kernels a denoising "
               f"step")
+    return phase_ms["graphed"]["action_decode"]
 
 
 def frontend_card_vs_cpu(cfg_full):
@@ -4779,6 +4784,153 @@ def arch_full():
     return launches
 
 
+ONE_CARD = {"pod": 1, "data": 1, "model": 1}
+# the engines' decode positions: prompt 640 (576 patches + 64 instruction
+# tokens), then 192 decoded tokens at 640 .. 831; their mean context
+DECODE_CONTEXT = 640 + (SERVE_TOKENS - 1) // 2
+
+
+def roofline_row(label, cfg, shape, measured_ms, *, dtype_bytes=2,
+                 cache_bytes=None, peak=None, steps=1, counted=None):
+    """One line of phase 11: ``analytic_cell`` of the run's own shape on a
+    one-card mesh (``dtype_bytes`` the weights' and activations' width,
+    ``cache_bytes`` the cache's where it differs) priced by
+    ``RooflineTerms`` on ``H100_SXM`` (``peak`` in FLOP/s for a type other
+    than bf16), times ``steps`` steps a measured wall; prints FLOPs, HBM
+    bytes, the bound, the measured ms and measured / bound."""
+    from repro_torch.roofline.analytic import analytic_cell, kv_cache_bytes
+    from repro_torch.roofline.report import RooflineTerms
+    c = analytic_cell(cfg, shape, mesh=ONE_CARD, dtype_bytes=dtype_bytes)
+    hbm = c.hbm_bytes_per_dev
+    if cache_bytes is not None and "hbm_cache" in c.breakdown:
+        hbm += kv_cache_bytes(cfg, shape, ONE_CARD,
+                              dtype_bytes=cache_bytes) - \
+            c.breakdown["hbm_cache"]
+    t = RooflineTerms(arch=cfg.name, shape=shape.name, mesh="one_card",
+                      flops_per_dev=c.flops_per_dev * steps,
+                      bytes_per_dev=hbm * steps, coll_bytes_per_dev=0.0,
+                      model_flops=0.0, hardware=H100_SXM,
+                      peak_tflops=None if peak is None else peak / 1e12)
+    return _roofline_line(label, shape, t, measured_ms, counted, steps)
+
+
+def _roofline_line(label, shape, t, measured_ms, counted, steps):
+    bound_ms = t.bound_time * 1e3
+    extra = "" if counted is None else \
+        f" (counted on the meta device: {counted * steps:.6e})"
+    print(f"  {label}: {shape}; FLOPs {t.flops_per_dev:.6e}{extra}, HBM "
+          f"bytes {t.bytes_per_dev:.6e}; bound {bound_ms:.4f} ms "
+          f"({t.dominant}); measured {measured_ms:.4f} ms; measured / "
+          f"bound {measured_ms / bound_ms:.2f}")
+    return {"label": label, "bound_ms": bound_ms, "ms": measured_ms,
+            "ratio": measured_ms / bound_ms}
+
+
+def roofline_phase(discrete_ms, dit_ms, serving, train_walls):
+    """Phase 11: the roofline of walls phases 4, 4b, 5 and 9b measured (no
+    new timed run). For each: the ShapeConfig the run had, priced by the
+    port's analytic cost model on a one-card mesh and ``RooflineTerms`` on
+    ``H100_SXM``, in the run's own types: phase 4's decode step
+    (molmoact-7b, B=4, bf16 weights and cache; the graphed action phase's
+    median over its 48 steps, at their mean context), phase 4b's DiT
+    loop (the analytic model has no DiT ops: its FLOPs are the loop's
+    matrix products counted on the meta device, its bytes the bf16 head
+    read once a denoising step), phase 5's decode ticks (the first
+    SERVE_LAYERS layers, 8 slots, bf16 weights, f32 caches, SERVE_TICK
+    steps a tick; decode-tick p50 by host clock) and phase 9b's f32 train
+    steps (layer remat; f32 products priced at the f32 peak). Then the
+    dry-run CLI on this host (``python -m repro_torch.launch.dryrun``,
+    PyTorch only), its row's FLOPs and per-device argument bytes."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import vla
+    from repro_torch.models import action as A
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves, meta_params
+    from repro_torch.roofline.counts import dot_flops
+    from repro_torch.roofline.report import RooflineTerms
+    meta = torch.device("meta")
+    rows = []
+    cfg = get_config("molmoact-7b")
+    # the action phase's steps: pure replays (the CoT phase's first step
+    # captures the graph for the prefill's new caches) at positions
+    # prompt + n_cot .. prompt + n_cot + n_act - 1
+    prompt, n_act, _ = vla.control_step_lengths(cfg, FULL_TEXT)
+    ctx = prompt + cfg.n_cot_tokens + n_act // 2
+    shape = ShapeConfig("phase4-action-decode", ctx, FULL_B, "decode")
+    step_ms = discrete_ms["action_decode"] / n_act
+    p = meta_params(M.model_template(cfg), torch.bfloat16)
+    caches = M.init_caches(cfg, FULL_B, ctx, torch.bfloat16, device=meta)
+    counted, _ = dot_flops(
+        M.decode_step, cfg, M.ModelOptions(), p,
+        torch.empty(FULL_B, 1, dtype=torch.long, device=meta), caches,
+        torch.empty((), dtype=torch.int32, device=meta), device=meta)
+    rows.append(roofline_row("phase 4 action decode step (graphed)", cfg,
+                             shape, step_ms, counted=counted))
+
+    dcfg = get_config(DIT_ARCH)
+    a = dcfg.action
+    head = meta_params(A.dit_template(a, dcfg.d_model), torch.bfloat16)
+    head_bytes = sum(t.numel() * t.element_size() for _, t in leaves(head))
+    cond = torch.empty(FULL_B, dcfg.d_model, dtype=torch.bfloat16,
+                       device=meta)
+    noise = torch.empty(FULL_B, a.horizon, a.action_dim,
+                        dtype=torch.bfloat16, device=meta)
+    dit_flops, _ = dot_flops(M.generate_actions_dit, dcfg,
+                             {"action_dit": head, "embed": p["embed"]},
+                             cond, noise=noise, device=meta)
+    dshape = ShapeConfig("phase4b-dit-loop", a.horizon, FULL_B, "decode")
+    t = RooflineTerms(arch=dcfg.name, shape=dshape.name, mesh="one_card",
+                      flops_per_dev=dit_flops,
+                      bytes_per_dev=head_bytes * a.dit_steps,
+                      coll_bytes_per_dev=0.0, model_flops=0.0,
+                      hardware=H100_SXM)
+    rows.append(_roofline_line(f"phase 4b DiT loop ({a.dit_steps} steps, "
+                               f"graphed)", dshape, t, dit_ms, None, 1))
+
+    scfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS)
+    eshape = ShapeConfig("phase5-tick", DECODE_CONTEXT, SERVE_SLOTS,
+                         "decode")
+    for name in ("dense", "paged-f32"):
+        st = serving[name][1]
+        tick_ms = float(np.percentile(st.decode_tick_s, 50)) * 1e3
+        rows.append(roofline_row(
+            f"phase 5 {name} decode tick p50 ({SERVE_TICK} steps, "
+            f"{SERVE_LAYERS} layers)", scfg, eshape, tick_ms, cache_bytes=4,
+            steps=SERVE_TICK))
+
+    for arch, (B, ms) in train_walls.items():
+        tshape = ShapeConfig("phase9b-train", TRAIN_S, B, "train")
+        rows.append(roofline_row(
+            f"phase 9b {arch} train step (f32, remat)", get_config(arch),
+            tshape, ms, dtype_bytes=4, peak=OPS_PER_S["float32"]))
+
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", "smollm-135m", "--shape", "decode_32k",
+                            "--out", out], capture_output=True, text=True,
+                           env=env, timeout=300)
+        if r.returncode:
+            raise AssertionError(f"the dry-run CLI failed: {r.stderr[-2000:]}")
+        with open(os.path.join(
+                out, "smollm-135m__decode_32k__single_pod.json")) as f:
+            row = json.load(f)
+    if not row["cost"]["flops"] > 0:
+        raise AssertionError(f"dry-run row without a count: {row}")
+    print(f"  dry run on this host (python -m repro_torch.launch.dryrun "
+          f"--arch smollm-135m --shape decode_32k; meta device, no JAX): "
+          f"flops {row['cost']['flops']:.6e} (counted, global), argument "
+          f"bytes per device "
+          f"{row['memory']['argument_size_in_bytes']:.6e} on the "
+          f"{row['mesh']} mesh; meta run {row['t_lower_s']:.2f} s")
+    return rows
+
+
 class Laps:
     """Prints the seconds each phase took, as it ends, and the total."""
 
@@ -4857,7 +5009,7 @@ def main() -> int:
     launches, discrete_ms = full_width(cfg, params)
     lap("phase 4")
     print(f"phase 4b: full-width {DIT_ARCH} control step")
-    dit_full_width(get_config(DIT_ARCH), params, discrete_ms)
+    dit_ms = dit_full_width(get_config(DIT_ARCH), params, discrete_ms)
     lap("phase 4b")
     print("phase 5: full-width serving engine")
     serving, fused_streams = serving_full(cfg, params)
@@ -4888,12 +5040,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("phase 9")
     print(f"phase 9b: full-width {', '.join(TRAIN_FULL)} train steps")
-    family_launches = train_families_full()
+    family_launches, train_walls = train_families_full()
     lap("phase 9b")
     print(f"phase 10: full-width {GRANITE}, {INTERNVL}, {GEMMA} (first "
           f"{GEMMA_LAYERS} layers) and {WHISPER}")
     arch_launches = arch_full()
     lap("phase 10")
+    print("phase 11: roofline of the measured phases on H100_SXM, and the "
+          "dry run on this host")
+    roofline_phase(discrete_ms, dit_ms, serving, train_walls)
+    lap("phase 11")
     print("phase 6: kernel times")
     rows = kernel_timings(inputs, errs, launches, serving)
     rows += verify_timings(cfg, inputs["verify"], errs, spec_serving)

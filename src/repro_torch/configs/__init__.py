@@ -7,9 +7,11 @@ action head."""
 from __future__ import annotations
 
 import importlib
+from typing import Iterator, Tuple
 
-from repro_torch.configs.base import (GLOBAL_WINDOW, ActionConfig,
-                                      ModelConfig, VisionConfig)
+from repro_torch.configs.base import (GLOBAL_WINDOW, SHAPES, ActionConfig,
+                                      ModelConfig, ShapeConfig, VisionConfig,
+                                      shape_supported)
 
 _MODULES = {
     "whisper-small": "whisper_small",
@@ -24,6 +26,9 @@ _MODULES = {
     "mamba2-780m": "mamba2_780m",
     "molmoact-7b": "molmoact_7b",
 }
+
+# the dry run's ten architectures (the paper's molmoact-7b is not one)
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "molmoact-7b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -42,5 +47,18 @@ def list_archs():
     return tuple(_MODULES)
 
 
-__all__ = ["ActionConfig", "GLOBAL_WINDOW", "ModelConfig", "VisionConfig",
-           "get_config", "list_archs"]
+def cells(include_skipped: bool = False
+          ) -> Iterator[Tuple[ModelConfig, ShapeConfig, bool, str]]:
+    """The 40 assigned (arch x shape) cells, as (cfg, shape, supported,
+    skip_reason); the unsupported ones only with ``include_skipped``."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, why = shape_supported(cfg, shape)
+            if ok or include_skipped:
+                yield cfg, shape, ok, why
+
+
+__all__ = ["ASSIGNED_ARCHS", "ActionConfig", "GLOBAL_WINDOW", "ModelConfig",
+           "SHAPES", "ShapeConfig", "VisionConfig", "cells", "get_config",
+           "list_archs", "shape_supported"]

@@ -106,6 +106,13 @@ class ModelConfig:
             return False
         return i % self.moe_every == self.moe_every - 1
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: SSM/hybrid or mostly-sliding-window."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return any(w != GLOBAL_WINDOW for w in self.window_pattern)
+
     def param_counts(self) -> dict:
         """Analytical parameter counts, split by component (the analytical
         model's, ``core.scaling`` and ``core.workload``)."""
@@ -183,3 +190,31 @@ class ModelConfig:
                 self.action, num_action_tokens=4, dit_layers=2,
                 dit_d_model=32, dit_heads=2, dit_steps=2, horizon=2)
         return dataclasses.replace(self, **updates)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run: a global batch of ``seq_len``
+    positions for a train step, a prefill, or one decode step against a
+    ``seq_len``-deep cache."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether this (arch, shape) cell runs, and why not if skipped (the
+    reference's reason, word for word)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention; " \
+                      f"{cfg.name} is pure full-attention (see DESIGN.md)"
+    return True, ""

@@ -61,6 +61,15 @@ TPU_V5E = Hardware("tpu-v5e", mem_bw_gbs=819, bf16_tflops=197,
                    gemm_eff=0.55, gemv_bw_eff=0.80,
                    chips=256, ici_gbs=50, hbm_gb=16)
 
+# ----- the port's card (data-sheet constants, not measurements) ----------
+# NVIDIA H100 SXM5 80GB: 3.35 TB/s HBM3, 989 TFLOP/s dense bf16 on the
+# tensor cores, NVLink 4 at 900 GB/s both ways (450 GB/s each way). Kept
+# out of CATALOG and TABLE1, which stay the reference's; chip_smoke.py
+# and roofline.report price the card with it.
+
+H100_SXM = Hardware("h100-sxm", mem_bw_gbs=3350, bf16_tflops=989,
+                    chips=1, ici_gbs=450, hbm_gb=80)
+
 CATALOG: Dict[str, Hardware] = {h.name: h for h in [
     ORIN, THOR, ORIN_LPDDR5X, ORIN_GDDR7, ORIN_PIM, THOR_GDDR7, THOR_PIM,
     TPU_V5E,

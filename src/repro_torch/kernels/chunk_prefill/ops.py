@@ -14,7 +14,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, KV_CODES,
                                                       kv_batch_stride,
                                                       slot_index)
@@ -82,10 +82,8 @@ def chunk_prefill_attention(q, k_cache, v_cache, index, *,
     starts. Key blocks of ``bk`` sit on the absolute partition from 0, so a
     row's result does not depend on the chunking. Returns [B,S,N,h]."""
     _check(q, k_cache, v_cache, bk)
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return chunk_prefill_ref(q, k_cache, v_cache, index, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, S, N, h = q.shape
     L, K = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()

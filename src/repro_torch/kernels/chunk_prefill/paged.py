@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_ref
 from repro_torch.kernels.decode_attention import paged as pg
 from repro_torch.kernels.decode_attention.ops import slot_index
@@ -49,11 +49,9 @@ def paged_chunk_prefill_attention(q, k_pages, v_pages, page_table, index, *,
                          f"got {tuple(q.shape)}")
     # the paged decode checks read q's per-row shape [B,N,h]
     pg._check(q[:, 0], k_pages, v_pages, page_table, k_scales, v_scales)
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return paged_chunk_prefill_ref(q, k_pages, v_pages, page_table,
                                        index, k_scales, v_scales, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, S, N, h = q.shape
     ps, K = k_pages.shape[1], k_pages.shape[2]
     if ps != pg.PAGE_SIZE:

@@ -16,7 +16,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 32          # query heads per KV head the kernel holds
@@ -161,10 +161,8 @@ def decode_attention(q, k_cache, v_cache, index, *,
     """
     _check(q, k_cache, v_cache)
     dev = q.device
-    if dev.type == "cpu":
+    if runs_plain(q):
         return decode_attention_ref(q, k_cache, v_cache, index, window)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     B, N, h = q.shape
     _, S, K, _ = k_cache.shape
     q = q.contiguous()

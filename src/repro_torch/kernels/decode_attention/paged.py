@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS, MAX_GROUP,
                                                       decode_attention_ref,
                                                       cuda_stream,
@@ -144,15 +144,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, index, *,
     takes page_size 32 only and raises on any other."""
     _check(q, k_pages, v_pages, page_table, k_scales, v_scales)
     dev = q.device
-    if dev.type == "cpu":
+    if runs_plain(q):
         if k_scales is None:
             return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                               index, window)
         return paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scales,
                                                 v_scales, page_table, index,
                                                 window)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     B, N, h = q.shape
     _, ps, K, _ = k_pages.shape
     if ps != PAGE_SIZE:

@@ -22,7 +22,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GLOBAL_WINDOW
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 
 BLOCK = 128                     # the TPU kernel's block: the length rule
 HEAD_DIMS = (16, 64, 128)       # head widths the kernel is built for
@@ -160,12 +160,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, causal: bool):
-        if q.device.type == "cpu":
+        if runs_plain(q):
             out, lse = _attention_lse(q, k, v, window, causal)
-        elif q.device.type == "cuda":
-            out, lse = _launch(q, k, v, window, causal)
         else:
-            raise ValueError(f"unsupported device {q.device}")
+            out, lse = _launch(q, k, v, window, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.causal = window, causal
         return out

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 
 ACTS = {"silu": 0, "gelu": 1, "gelu_plain": 2}   # the kernels' act codes
 DTYPES = (torch.float32, torch.bfloat16)
@@ -151,7 +151,7 @@ def _products(a, b):
     (K padded with zeros to a multiple of 8, which adds nothing to a sum;
     each launch counts in ``gmm_down.launches``), ``gmm_down_ref`` for CPU
     tensors."""
-    if a.device.type == "cpu":
+    if runs_plain(a):
         return gmm_down_ref(a, b)
     E, M, K = a.shape
     N = b.shape[-1]
@@ -193,7 +193,7 @@ class GmmGated(torch.autograd.Function):
     def forward(ctx, x, wi, wg, act: str):
         ctx.save_for_backward(x, wi, wg)
         ctx.act = act
-        if x.device.type == "cpu":
+        if runs_plain(x):
             return gmm_gated_ref(x, wi, wg, act)
         return _gated_launch(x, wi, wg, act)
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, count_launches
+from repro_torch.kernels import _build, count_launches, runs_plain
 
 DTYPES = (torch.float32, torch.bfloat16)
 Q_MAX = 128        # the kernel's largest chunk
@@ -181,10 +181,8 @@ class SSD(torch.autograd.Function):
         ctx.save_for_backward(xs, dt, A_log, B_, C_)
         ctx.Q = Q
         ctx.set_materialize_grads(False)
-        if xs.device.type == "cpu":
+        if runs_plain(xs):
             return ssd_chunked(xs, dt, A_log, B_, C_, Q)
-        if xs.device.type != "cuda":
-            raise ValueError(f"unsupported device {xs.device}")
         return _launch(xs, dt, A_log, B_, C_, Q)[:2]
 
     @staticmethod

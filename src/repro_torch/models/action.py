@@ -37,22 +37,23 @@ def dit_template(a: ActionConfig, d_lm: int) -> Dict:
     d, n = a.dit_d_model, a.dit_heads
     h = d // n
     layer = {
-        "ada": PSpec((d, 6 * d), "zeros"),                  # AdaLN-zero
-        "wq": PSpec((d, n, h), fan_in=d),
-        "wk": PSpec((d, n, h), fan_in=d),
-        "wv": PSpec((d, n, h), fan_in=d),
-        "wo": PSpec((n, h, d), fan_in=d),
-        "wi": PSpec((d, 4 * d), fan_in=d),
-        "wo_mlp": PSpec((4 * d, d), fan_in=4 * d),
+        "ada": PSpec((d, 6 * d), (None, None), "zeros"),    # AdaLN-zero
+        "wq": PSpec((d, n, h), (None, "heads", "head_dim"), fan_in=d),
+        "wk": PSpec((d, n, h), (None, "heads", "head_dim"), fan_in=d),
+        "wv": PSpec((d, n, h), (None, "heads", "head_dim"), fan_in=d),
+        "wo": PSpec((n, h, d), ("heads", "head_dim", None), fan_in=d),
+        "wi": PSpec((d, 4 * d), (None, "mlp"), fan_in=d),
+        "wo_mlp": PSpec((4 * d, d), ("mlp", None), fan_in=4 * d),
     }
     return {
-        "in_proj": PSpec((a.action_dim, d), fan_in=a.action_dim),
-        "cond_proj": PSpec((d_lm, d), fan_in=d_lm),
-        "t_proj": PSpec((T_EMBED, d), fan_in=T_EMBED),
-        "pos": PSpec((a.horizon, d), "pos"),
-        "stack": stack(layer, a.dit_layers),
-        "final_ada": PSpec((d, 2 * d), "zeros"),
-        "out_proj": PSpec((d, a.action_dim), "zeros"),
+        "in_proj": PSpec((a.action_dim, d), (None, None),
+                         fan_in=a.action_dim),
+        "cond_proj": PSpec((d_lm, d), (None, None), fan_in=d_lm),
+        "t_proj": PSpec((T_EMBED, d), (None, None), fan_in=T_EMBED),
+        "pos": PSpec((a.horizon, d), (None, None), "pos"),
+        "stack": stack(layer, a.dit_layers, "layers"),
+        "final_ada": PSpec((d, 2 * d), (None, None), "zeros"),
+        "out_proj": PSpec((d, a.action_dim), (None, None), "zeros"),
     }
 
 

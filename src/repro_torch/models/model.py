@@ -54,15 +54,16 @@ __all__ = ["model_template", "forward", "prefill", "embed_prompt",
 def model_template(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     t: Dict = {
-        "embed": P.PSpec((cfg.vocab_size, d), fan_in=d),
+        "embed": P.PSpec((cfg.vocab_size, d), ("vocab", "embed"), fan_in=d),
         "decoder": stacks.decoder_template(cfg),
     }
     t.update(stacks._norm_template(cfg, "final_norm", d))
     if not cfg.tie_embeddings:
-        t["lm_head"] = P.PSpec((cfg.vocab_size, d), fan_in=d)
+        t["lm_head"] = P.PSpec((cfg.vocab_size, d), ("vocab", "embed"),
+                               fan_in=d)
     if cfg.pos == "absolute":
         # the reference's size: its largest decode shape (32k positions)
-        t["pos"] = P.PSpec((32_768, d), "pos")
+        t["pos"] = P.PSpec((32_768, d), (None, None), "pos")
     if cfg.encoder is not None:
         t["encoder"] = stacks.tower_template(cfg.encoder, d)
     if cfg.vision is not None:

@@ -1,10 +1,13 @@
 """Parameter templates, seeded initialisation and the bridge from the JAX
 reference's parameters.
 
-A template is a nested dict whose leaves are ``PSpec`` (shape + init); the
-parameters are the same nested dict with tensors at the leaves, in the
-reference's layout (stacked layers on a leading axis), so a parameter tree
-of the reference maps onto the port leaf for leaf.
+A template is a nested dict whose leaves are ``PSpec`` (shape + logical
+axes + init); the parameters are the same nested dict with tensors at the
+leaves, in the reference's layout (stacked layers on a leading ``"layers"``
+axis), so a parameter tree of the reference maps onto the port leaf for
+leaf. The logical axes name each dim for the rule tables of
+``distributed.sharding`` (the dry run's placements and the analytic cost
+model's per-device bytes).
 """
 from __future__ import annotations
 
@@ -22,15 +25,29 @@ from repro_torch import resolve_device
 @dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"       # normal | zeros | ones | ssm_a | ssm_dt | pos
     fan_in: Optional[int] = None
-    stacked: bool = False      # leading axis is a stack of layers
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the leading axis is a stack of layers."""
+        return bool(self.axes) and self.axes[0] == "layers"
 
 
-def stack(template, n: int):
-    """Prepend a stacked-layer axis to every leaf of a layer template."""
-    return {k: (stack(v, n) if isinstance(v, dict) else
-                dataclasses.replace(v, shape=(n,) + v.shape, stacked=True))
+def is_pspec(x) -> bool:
+    return isinstance(x, PSpec)
+
+
+def stack(template, n: int, axis_name: Optional[str] = "layers"):
+    """Prepend a stacked dimension named ``axis_name`` to every leaf of a
+    layer template."""
+    return {k: (stack(v, n, axis_name) if isinstance(v, dict) else
+                dataclasses.replace(v, shape=(n,) + v.shape,
+                                    axes=(axis_name,) + v.axes))
             for k, v in template.items()}
 
 
@@ -116,6 +133,17 @@ def init_params(template, generator: torch.Generator,
     params: Dict = {}
     for path, spec in leaves(template):
         set_leaf(params, path, _init_leaf(spec, generator, dtype, dev))
+    return params
+
+
+def meta_params(template, dtype=torch.bfloat16):
+    """The template's leaves as meta tensors of ``dtype``: shapes without
+    storage, the counterpart of the reference's ``param_shapes`` (which
+    returns ShapeDtypeStructs) for a run on the meta device."""
+    params: Dict = {}
+    for path, spec in leaves(template):
+        set_leaf(params, path, torch.empty(spec.shape, dtype=dtype,
+                                           device="meta"))
     return params
 
 

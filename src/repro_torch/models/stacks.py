@@ -75,32 +75,37 @@ def sub_kinds(cfg: ModelConfig) -> Tuple[SubKind, ...]:
 # ---------------------------------------------------------------------------
 
 def _norm_template(cfg: ModelConfig, prefix: str, d: int) -> Dict[str, PSpec]:
-    t = {prefix + "_w": PSpec((d,), "ones")}
+    t = {prefix + "_w": PSpec((d,), (None,), "ones")}
     if cfg.norm == "layernorm":
-        t[prefix + "_b"] = PSpec((d,), "zeros")
+        t[prefix + "_b"] = PSpec((d,), (None,), "zeros")
     return t
 
 
 def attn_template(cfg: ModelConfig, pre: str = "") -> Dict[str, PSpec]:
     d, n, k, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     t = {
-        pre + "wq": PSpec((d, n, h), fan_in=d),
-        pre + "wk": PSpec((d, k, h), fan_in=d),
-        pre + "wv": PSpec((d, k, h), fan_in=d),
-        pre + "wo": PSpec((n, h, d), fan_in=n * h),
+        pre + "wq": PSpec((d, n, h), ("embed", "heads", "head_dim"),
+                          fan_in=d),
+        pre + "wk": PSpec((d, k, h), ("embed", "kv_heads", "head_dim"),
+                          fan_in=d),
+        pre + "wv": PSpec((d, k, h), ("embed", "kv_heads", "head_dim"),
+                          fan_in=d),
+        pre + "wo": PSpec((n, h, d), ("heads", "head_dim", "embed"),
+                          fan_in=n * h),
     }
     if cfg.qkv_bias:
-        t[pre + "bq"] = PSpec((n, h), "zeros")
-        t[pre + "bk"] = PSpec((k, h), "zeros")
-        t[pre + "bv"] = PSpec((k, h), "zeros")
+        t[pre + "bq"] = PSpec((n, h), ("heads", "head_dim"), "zeros")
+        t[pre + "bk"] = PSpec((k, h), ("kv_heads", "head_dim"), "zeros")
+        t[pre + "bv"] = PSpec((k, h), ("kv_heads", "head_dim"), "zeros")
     return t
 
 
 def mlp_template(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, f = cfg.d_model, cfg.d_ff
-    t = {"wi": PSpec((d, f), fan_in=d), "wo_mlp": PSpec((f, d), fan_in=f)}
+    t = {"wi": PSpec((d, f), ("embed", "mlp"), fan_in=d),
+         "wo_mlp": PSpec((f, d), ("mlp", "embed"), fan_in=f)}
     if cfg.act in ("silu", "gelu"):
-        t["wg"] = PSpec((d, f), fan_in=d)
+        t["wg"] = PSpec((d, f), ("embed", "mlp"), fan_in=d)
     return t
 
 
@@ -108,10 +113,10 @@ def moe_template(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, f = cfg.d_model, cfg.moe_d_ff
     e = max(cfg.num_experts_padded, cfg.num_experts)
     return {
-        "router": PSpec((d, e), fan_in=d),
-        "moe_wi": PSpec((e, d, f), fan_in=d),
-        "moe_wg": PSpec((e, d, f), fan_in=d),
-        "moe_wo": PSpec((e, f, d), fan_in=f),
+        "router": PSpec((d, e), ("embed", None), fan_in=d),
+        "moe_wi": PSpec((e, d, f), ("experts", "embed", "mlp"), fan_in=d),
+        "moe_wg": PSpec((e, d, f), ("experts", "embed", "mlp"), fan_in=d),
+        "moe_wo": PSpec((e, f, d), ("experts", "mlp", "embed"), fan_in=f),
     }
 
 
@@ -119,16 +124,17 @@ def mamba_template(cfg: ModelConfig) -> Dict[str, PSpec]:
     d = cfg.d_model
     d_in, H, P, N, G, conv_ch = L.mamba_dims(cfg)
     return {
-        "w_z": PSpec((d, d_in), fan_in=d),
-        "w_xbc": PSpec((d, conv_ch), fan_in=d),
-        "w_dt": PSpec((d, H), fan_in=d),
-        "conv_w": PSpec((cfg.ssm_conv, conv_ch), fan_in=cfg.ssm_conv),
-        "conv_b": PSpec((conv_ch,), "zeros"),
-        "A_log": PSpec((H,), "ssm_a"),
-        "dt_bias": PSpec((H,), "ssm_dt"),
-        "d_skip": PSpec((H,), "ones"),
-        "mamba_norm_w": PSpec((d_in,), "ones"),
-        "w_out": PSpec((d_in, d), fan_in=d_in),
+        "w_z": PSpec((d, d_in), ("embed", "ssm_inner"), fan_in=d),
+        "w_xbc": PSpec((d, conv_ch), ("embed", "ssm_inner"), fan_in=d),
+        "w_dt": PSpec((d, H), ("embed", None), fan_in=d),
+        "conv_w": PSpec((cfg.ssm_conv, conv_ch), ("conv", "ssm_inner"),
+                        fan_in=cfg.ssm_conv),
+        "conv_b": PSpec((conv_ch,), ("ssm_inner",), "zeros"),
+        "A_log": PSpec((H,), (None,), "ssm_a"),
+        "dt_bias": PSpec((H,), (None,), "ssm_dt"),
+        "d_skip": PSpec((H,), (None,), "ones"),
+        "mamba_norm_w": PSpec((d_in,), (None,), "ones"),
+        "w_out": PSpec((d_in, d), ("ssm_inner", "embed"), fan_in=d_in),
     }
 
 
@@ -155,7 +161,7 @@ def decoder_template(cfg: ModelConfig) -> Dict:
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
     block = {f"sub{j}": layer_template(cfg, kinds[j]) for j in range(period)}
-    t = {"blocks": stack(block, nblocks)}
+    t = {"blocks": stack(block, nblocks, "layers")}
     if ntail:
         t["tail"] = {f"tail{j}": layer_template(cfg, kinds[j])
                      for j in range(ntail)}
@@ -168,24 +174,25 @@ def tower_template(enc: VisionConfig, d_out: int) -> Dict:
     d, n, f = enc.d_model, enc.num_heads, enc.d_ff
     h = d // n
     layer = {
-        "ln1_w": PSpec((d,), "ones"),
-        "ln1_b": PSpec((d,), "zeros"),
-        "wq": PSpec((d, n, h), fan_in=d),
-        "wk": PSpec((d, n, h), fan_in=d),
-        "wv": PSpec((d, n, h), fan_in=d),
-        "wo": PSpec((n, h, d), fan_in=d),
-        "ln2_w": PSpec((d,), "ones"),
-        "ln2_b": PSpec((d,), "zeros"),
-        "wi": PSpec((d, f), fan_in=d),
-        "wo_mlp": PSpec((f, d), fan_in=f),
+        "ln1_w": PSpec((d,), (None,), "ones"),
+        "ln1_b": PSpec((d,), (None,), "zeros"),
+        "wq": PSpec((d, n, h), ("embed", "heads", "head_dim"), fan_in=d),
+        "wk": PSpec((d, n, h), ("embed", "heads", "head_dim"), fan_in=d),
+        "wv": PSpec((d, n, h), ("embed", "heads", "head_dim"), fan_in=d),
+        "wo": PSpec((n, h, d), ("heads", "head_dim", "embed"), fan_in=d),
+        "ln2_w": PSpec((d,), (None,), "ones"),
+        "ln2_b": PSpec((d,), (None,), "zeros"),
+        "wi": PSpec((d, f), ("embed", "mlp"), fan_in=d),
+        "wo_mlp": PSpec((f, d), ("mlp", "embed"), fan_in=f),
     }
     return {
-        "in_proj": PSpec((enc.embed_dim, d), fan_in=enc.embed_dim),
-        "pos": PSpec((enc.num_tokens, d), "pos"),
-        "stack": stack(layer, enc.num_layers),
-        "final_ln_w": PSpec((d,), "ones"),
-        "final_ln_b": PSpec((d,), "zeros"),
-        "out_proj": PSpec((d, d_out), fan_in=d),
+        "in_proj": PSpec((enc.embed_dim, d), (None, "embed"),
+                         fan_in=enc.embed_dim),
+        "pos": PSpec((enc.num_tokens, d), (None, None), "pos"),
+        "stack": stack(layer, enc.num_layers, "layers"),
+        "final_ln_w": PSpec((d,), (None,), "ones"),
+        "final_ln_b": PSpec((d,), (None,), "zeros"),
+        "out_proj": PSpec((d, d_out), ("embed", None), fan_in=d),
     }
 
 
@@ -387,28 +394,36 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
 
     def sub(kind: SubKind):
         if kind.mixer != "attn":
-            return {"ssm": PSpec((batch, H, P, N), "zeros"),
+            return {"ssm": PSpec((batch, H, P, N),
+                                 ("batch", None, None, None), "zeros"),
                     "conv": PSpec((batch, cfg.ssm_conv - 1, conv_ch),
-                                  "zeros")}
+                                  ("batch", None, "ssm_inner"), "zeros")}
         if paged:
             kv = (num_pages, page_size, K, h)
-        elif opts.window_cache and kind.window != GLOBAL_WINDOW:
-            kv = (batch, min(max_seq, kind.window), K, h)
+            kv_axes = (None, None, "act_kv_heads", None)
         else:
-            kv = (batch, max_seq, K, h)
-        c = {"k": PSpec(kv, "zeros"), "v": PSpec(kv, "zeros")}
+            seq = max_seq
+            if opts.window_cache and kind.window != GLOBAL_WINDOW:
+                seq = min(max_seq, kind.window)
+            kv = (batch, seq, K, h)
+            kv_axes = ("batch", "kv_seq", "act_kv_heads", None)
+        c = {"k": PSpec(kv, kv_axes, "zeros"),
+             "v": PSpec(kv, kv_axes, "zeros")}
         if quantized:
-            sshape = ((num_pages, page_size, K)
-                      if scale_granularity == "token" else (num_pages, K))
-            c["k_scale"] = PSpec(sshape, "zeros")
-            c["v_scale"] = PSpec(sshape, "zeros")
+            sshape, saxes = (num_pages, K), (None, "act_kv_heads")
+            if scale_granularity == "token":
+                sshape = (num_pages, page_size, K)
+                saxes = (None, None, "act_kv_heads")
+            c["k_scale"] = PSpec(sshape, saxes, "zeros")
+            c["v_scale"] = PSpec(sshape, saxes, "zeros")
         if kind.cross and cfg.encoder:
             xkv = (batch, cfg.encoder.num_tokens, K, h)
-            c["xk"] = PSpec(xkv, "zeros")
-            c["xv"] = PSpec(xkv, "zeros")
+            xaxes = ("batch", None, "act_kv_heads", None)
+            c["xk"] = PSpec(xkv, xaxes, "zeros")
+            c["xv"] = PSpec(xkv, xaxes, "zeros")
         return c
     t = {"blocks": stack({f"sub{j}": sub(kinds[j]) for j in range(period)},
-                         nblocks)}
+                         nblocks, "layers")}
     if ntail:
         t["tail"] = {f"tail{j}": sub(kinds[j]) for j in range(ntail)}
     return t

@@ -1335,3 +1335,42 @@ def test_replayed_ring_and_cross_decode_equals_eager_on_card(name):
                                graph=M.DecodeGraph("cuda", eager=True))
     assert torch.equal(got, want)
     assert _same_tree(caches, twin)
+
+
+@pytest.mark.gpu
+def test_dot_flops_on_card_miss_only_the_decode_kernel():
+    """``roofline.counts.dot_flops`` of a decode step on the card against
+    the same step on the meta device (plain versions): lower by exactly
+    the plain decode's attention products (its two ``bmm`` a layer),
+    because the decode kernel is a ``ctypes`` launch that dispatches no
+    aten op; every other product is counted alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import meta_params
+    from repro_torch.roofline.counts import dot_flops
+    _cuda()
+    cfg = get_config("smollm-135m").reduced()
+    B, S, index = 2, 64, 5
+    opts = M.ModelOptions()
+    runs = {}
+    for dev in ("cuda", "meta"):
+        if dev == "cuda":
+            params = M.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                torch.float32, device="cuda")
+        else:
+            params = meta_params(M.model_template(cfg), torch.float32)
+        caches = M.init_caches(cfg, B, S, torch.float32, opts, device=dev)
+        tok = torch.zeros(B, 1, dtype=torch.long, device=dev)
+        before = da.decode_attention.launches
+        runs[dev] = dot_flops(M.decode_step, cfg, opts, params, tok, caches,
+                              index, device=dev)
+        launched = da.decode_attention.launches - before
+        assert launched == (cfg.num_layers if dev == "cuda" else 0)
+    (on_card, card_items), (on_meta, meta_items) = runs["cuda"], runs["meta"]
+    attn = [f for f, op in meta_items if op.startswith("aten.bmm")]
+    assert len(attn) == 2 * cfg.num_layers
+    assert sum(attn) == cfg.num_layers * 4 * B * cfg.num_heads * S \
+        * cfg.head_dim
+    assert not any(op.startswith("aten.bmm") for _, op in card_items)
+    assert on_meta - on_card == sum(attn)

@@ -131,9 +131,20 @@ def test_gmm_wrappers_check_their_operands():
         tgmm.gmm_gated(x, w, torch.zeros(2, 8, 8))
     with pytest.raises(TypeError, match="one type"):
         tgmm.gmm_down(torch.zeros(2, 3, 16), w.transpose(1, 2).bfloat16())
+    # a meta tensor takes the plain version (shapes only, the dry run);
+    # a tensor on any device but the CPU, meta or the card raises
+    out = tgmm.gmm_down(torch.zeros(2, 3, 16, device="meta"),
+                        torch.zeros(2, 16, 8, device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, 3, 8)
+
+    class Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xla")
     with pytest.raises(ValueError, match="unsupported device"):
-        tgmm.gmm_down(torch.zeros(2, 3, 16, device="meta"),
-                      torch.zeros(2, 16, 8, device="meta"))
+        tgmm.gmm_down(
+            torch.Tensor._make_subclass(Elsewhere, torch.zeros(2, 3, 16)),
+            torch.Tensor._make_subclass(Elsewhere, torch.zeros(2, 16, 8)))
 
 
 # ---------------------------------------------------------------------------
