@@ -21,16 +21,18 @@ weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
 16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
 pools) and chunked under the token-budget scheduler (dense; paged f32,
-int8 and fp8 pools; the serving engines on molmoact's first 10 layers).
+int8 and fp8 pools; the serving engines on molmoact's first 8 layers).
 The MoE family follows: the grouped-expert kernels
 against their plain versions at granite-moe-3b-a800m's width, the reduced
 granite engine on card and CPU, and the full-width granite-moe-3b-a800m
-serving the same 16-request shape through three engines (admit-stall
-dense and paged f32, chunked paged f32) with its decode breakdown. The
-Mamba2 family last: the SSD scan kernel against its plain version at
-mamba2-780m's width, reduced mamba2-780m and the reduced jamba hybrid on
-card and CPU, and the full-width mamba2-780m serving the same shape
-admit-stall (dense and paged f32) with its decode breakdown. Every
+(its first 8 layers) serving the same 16-request shape through three
+engines (admit-stall dense and paged f32, chunked paged f32) with its
+decode breakdown. The Mamba2 family last: the SSD scan kernel against
+its plain version at mamba2-780m's width, reduced mamba2-780m and the
+reduced jamba hybrid on card and CPU, and the full-width mamba2-780m (its
+first 12 layers) serving the same shape admit-stall (dense and paged
+f32) with its decode breakdown. Phase 12 serves molmoact-7b sharded,
+model=2, rank 0 and one spawned worker sharing the card over gloo. Every
 full-width decode path runs twice: its decode step replayed from a
 captured CUDA graph (the main path: ``model.DecodeGraph``, the engines'
 ``DecodeTick``; launches count the replays), then eagerly; the two must
@@ -59,7 +61,7 @@ the decode kernel as ring decode (gemma3-27b's heads over a ring of its
 the flash kernel at S = W = 1024, against their plain versions; phase
 3f, reduced granite-3-2b, internvl2-1b, gemma3-27b (6 layers, ring and
 full caches) and whisper-small on card and CPU; phase 10, full-width
-granite-3-2b (40 layers; admit-stall and chunked paged f32 engines),
+granite-3-2b (10 of 40 layers; admit-stall and chunked paged f32 engines),
 internvl2-1b (24 + 24 layers; dense engine with 256 patches a request),
 gemma3-27b's first 6 layers (model level with ring and full caches, a
 1024-token prefill and 256 steps past the wrap; a ring-cache engine) and
@@ -123,9 +125,9 @@ SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
 SERVE_MAX_SEQ, SERVE_TICK = 864, 8
 # molmoact-7b's serving engines run its first 10 of 28 layers (full
 # width; every engine and gate kept), so that the script, with the MoE
-# phases, phase 9b's full-width train steps and phase 10, stays well
-# inside its time limit; the control step and the f32 prefill check keep
-# every layer
+# phases, phase 9b's full-width train steps, phase 10 and phase 12, stays
+# inside its time limit on a slower host; the control step and the f32
+# prefill check keep every layer
 SERVE_LAYERS = 10
 PAGE = 32
 SPEC_K = 4           # the speculative engines' chunk: 3 drafts + 1
@@ -157,6 +159,18 @@ CHUNKED_ENGINES = [
     ("paged-fp8-token-chunked", dict(CHUNKED, paged=True, kv_dtype="fp8",
                                      scale_granularity="token")),
 ]
+# phase 12: sharded serving, model=2 (rank 0 here and one spawned worker
+# sharing the card over gloo), phase 5's requests and layer cut; a
+# rank's local heads of molmoact-7b (28 query, 4 KV) at model=2 and 4
+MESH_MODEL = 2
+LOCAL_HEADS = {2: (14, 2), 4: (7, 1)}
+SHARDED_ENGINES = [("paged-f32-chunked", dict(CHUNKED, paged=True)),
+                   ("dense", {})]
+# the first 17 of the 193 tokens (two 8-step decode ticks a request): the
+# sharded tick runs eagerly and each of a step's collectives costs
+# milliseconds in gloo on the card's host (phase 12 times them), so a
+# step takes ~100 ms and the whole shape would not fit the phase's minute
+SHARD_TOKENS = 17
 CMP_LAYERS = 4       # depth of the f32 chunked-vs-monolithic comparison
 CMP_TOL = 1e-4       # f32 weights; GEMM and attention sums in other orders
 # paged storage variants: (row name, kv_dtype, granularity or page dtype)
@@ -207,6 +221,13 @@ MOE_ENGINES = [
 # as in the reference); the jamba hybrid (attention, Mamba2 and MoE
 # layers) at its reduced width only (398 B parameters do not fit one card)
 SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "jamba-1.5-large-398b"
+# phases 7, 8 and 10 serve their models' first layers only, at full width
+# (granite-moe-3b-a800m 8 of 32, mamba2-780m 24 of 48, granite-3-2b 20
+# of 40): each engine's eager oracle run is host-bound (granite-moe's
+# most, ~8 s a layer), and with phase 12 the script must stay inside its
+# limit on a slower host (1,256.4 s at full depth, 1,059.1 s at 16, 24
+# and 20 layers, on such a host)
+MOE_SERVE_LAYERS, SSM_SERVE_LAYERS, GRANITE_LAYERS = 8, 24, 20
 # SSD scans at mamba2-780m's width (H=48, P=64, N=128, chunks of 128)
 # unless "reduced" (P = N = 16): (B, S, type, width): the admission
 # prefill, one chunk, a chunk shorter than 128, f32, six chunks, and the
@@ -1761,7 +1782,7 @@ def observations(cfg, vocab: int, seed: int):
             for _ in range(SERVE_OBS)]
 
 
-def run_engine(cfg, params, obs, kw, device):
+def run_engine(cfg, params, obs, kw, device, max_tokens=SERVE_TOKENS):
     """The 16 requests (each observation twice in a row) on one engine;
     returns (engine, {uid: tokens}, wall seconds)."""
     import torch
@@ -1772,7 +1793,7 @@ def run_engine(cfg, params, obs, kw, device):
                         tick_tokens=SERVE_TICK, device=device, **kw)
     for i in range(2 * SERVE_OBS):
         prompt, px = obs[i // 2]
-        eng.submit(Request(uid=i, prompt=prompt, max_tokens=SERVE_TOKENS,
+        eng.submit(Request(uid=i, prompt=prompt, max_tokens=max_tokens,
                            patches=px))
     t0 = time.perf_counter()
     done = eng.run()
@@ -2034,7 +2055,7 @@ def first_layers(cfg, params, n: int, dtype=None):
 
 
 def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
-                 graphs: bool = True):
+                 graphs: bool = True, max_tokens: int = SERVE_TOKENS):
     """The 16 requests through one full-width engine on the card, its tick
     step replayed from a CUDA graph or (``graphs=False``) run eagerly;
     prints its serving row and returns (engine, {uid: tokens}, launches,
@@ -2058,7 +2079,7 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
     eng, out, wall = run_engine(cfg, params, obs, dict(kw, graphs=graphs),
-                                "cuda")
+                                "cuda", max_tokens)
     launches = read_launches(kernels)
     st = eng.stats
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2100,9 +2121,9 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
           f"{st.cache_bytes_hwm}, prefix_hits {st.prefix_hits}; peak "
           f"memory {peak_gb:.2f} GB; launches {launches}")
     gates = {
-        "every request finishes with 193 tokens":
+        f"every request finishes with {max_tokens} tokens":
             len(out) == 2 * SERVE_OBS
-            and all(len(t) == SERVE_TOKENS for t in out.values()),
+            and all(len(t) == max_tokens for t in out.values()),
         f"{decode_kernel} launches == {n_attn} x tick steps":
             launches[decode_kernel] == expected[decode_kernel],
         f"{chunk_kernel} launches == {n_attn} x {runs} prefill runs":
@@ -2173,6 +2194,234 @@ def serve_both(cfg, params, obs, name: str, kw, prompt_len: int):
     return eng, out, launches, gates, eager
 
 
+def local_kernel_checks(cfg):
+    """Phase 12, rows 1-4 against their plain versions at a sharded rank's
+    local heads (LOCAL_HEADS: G = 7 with K = 2 and K = 1, h = 128): the
+    dense decode kernel over bf16 and f32 caches of the engines' 8 slots,
+    the paged decode kernel over every page type (and bit-equal to the
+    dense one), the chunk kernel at the admission prefill (one 640-row
+    prompt) and a 128-row chunk over bf16 and f32 views, and the paged
+    chunk kernel's phase-2 checks. Returns the largest errors."""
+    import torch
+    from repro_torch.core.vla import control_step_lengths
+    from repro_torch.kernels.chunk_prefill import ops as cp
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    h = cfg.head_dim
+    _, _, smax = control_step_lengths(cfg, FULL_TEXT)
+    errs = {}
+
+    def record(name, label, got, want):
+        errs[name] = max(errs.get(name, 0.0),
+                         check(label, got, want, KERNEL_TOL, quiet=True))
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    for n, (N, K) in LOCAL_HEADS.items():
+        print(f"  model={n}: {N} query and {K} KV heads a rank (G = "
+              f"{N // K}, h = {h})")
+        q = randn(SERVE_SLOTS, N, h)
+        for kv_type in (torch.float32, torch.bfloat16):
+            kc = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=kv_type)
+            vc = randn(SERVE_SLOTS, SERVE_MAX_SEQ, K, h, dtype=kv_type)
+            decode_cases(f"decode_attention/local{n}/{kv_type}", q, kc, vc,
+                         serve_cases(dev), record)
+        paged_checks(g, errs, (SERVE_SLOTS, N, K, h), smax)
+        qc = randn(1, 640, N, h)
+        for kv_type in (torch.bfloat16, torch.float32):
+            k1 = randn(1, 640, K, h, dtype=kv_type)
+            v1 = randn(1, 640, K, h, dtype=kv_type)
+            for start, window in ((0, 0), (512, 0), (0, 64), (512, 64)):
+                qs = qc[:, start:].contiguous()
+                record(f"chunk_prefill/local{n}/{kv_type}",
+                       f"start={start} window={window}",
+                       cp.chunk_prefill_attention(qs, k1, v1, start,
+                                                  window=window),
+                       cp.chunk_prefill_ref(qs.float(), k1, v1, start,
+                                            window))
+        paged_chunk_checks(dataclasses.replace(cfg, num_heads=N,
+                                               num_kv_heads=K), g, errs)
+    for k, v in sorted(errs.items()):
+        if "local" in k:
+            print(f"  {k}: max_abs_err={v:.3g} (tol {KERNEL_TOL:g} x "
+                  f"max(1, |plain|))")
+    return errs
+
+
+def shard_step_bytes(cfg, eng, mesh):
+    """(counted, formula, seconds, all-reduces) of one fused decode step
+    of a sharded engine's 8 slots: the collective bytes counted and by the
+    formula (an all-reduce of [B, 1, D] after each layer's attention when
+    the heads shard and after its MLP when the width does, one after the
+    embedding when the vocab shards, and one all-gather of [B, 1, V]
+    logits, at the weights' item size), rank 0's seconds in each kind of
+    collective (``ShardGroup.seconds``, the card synchronized around each
+    one) and in the whole step (by host clock, timing on), and the number
+    of all-reduces."""
+    import torch
+    from repro_torch.distributed.collectives import KINDS
+    from repro_torch.distributed.sharding import serving_rules
+    n, B = mesh.shape["model"], eng.n_slots
+    rules = serving_rules(n, cfg.num_heads, cfg.num_kv_heads)
+    item = eng.params["embed"].element_size()
+    act = B * cfg.d_model * item
+    vocab = cfg.vocab_size % n == 0
+    layer = (rules["heads"] is not None) + (cfg.d_ff % n == 0)
+    want = {"all-reduce": float(cfg.num_layers * layer * act + vocab * act),
+            "all-gather": float(vocab * B * cfg.vocab_size * item)}
+    want["total"] = want["all-reduce"] + want["all-gather"]
+    mesh.group.reset_counts()
+    mesh.group.seconds = dict.fromkeys(KINDS, 0.0)
+    pt = eng._decode_page_table() if eng.paged else None
+    done = np.asarray([s is None for s in eng.slots])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        eng._dev("tick", eng.tokens, eng.index, eng.budget, done, eng.keys,
+                 pt, 1)
+        torch.cuda.synchronize()
+        seconds = dict(mesh.group.seconds,
+                       step=time.perf_counter() - t0)
+    finally:
+        mesh.group.seconds = None
+    return (mesh.group.counts(), want, seconds,
+            cfg.num_layers * layer + vocab)
+
+
+def first_logits(cfg, eng, obs):
+    """An engine's logits of observation 0's admission prefill and of one
+    decode step after it (slot 0 at its next position; the others at 0),
+    through its device stages."""
+    prompt, px = obs[0]
+    eng._dev("vision", px)
+    pre = eng._dev("prefill", 0, prompt, True)
+    eng._dev("scatter", 0, None)
+    tokens = np.zeros((eng.n_slots, 1), np.int32)
+    index = np.zeros(eng.n_slots, np.int32)
+    tokens[0, 0] = int(pre[0, -1].float().argmax())
+    index[0] = cfg.vision.num_tokens + len(prompt)
+    return pre, eng._dev("decode", tokens, index, None)
+
+
+def sharded_serving_full(cfg, params, streams, serving):
+    """Phase 12: sharded serving on the card, model=2: this process is rank
+    0 and one spawned worker (``serving.sharded.spawn_mesh``) shares the
+    card over gloo, each rank holding its slice of phase 5's seeded bf16
+    weights (drawn leaf by leaf and sliced, ``SeededWeights``) on the
+    same SERVE_LAYERS cut. Rows 1-4 at the local head shapes first
+    (``local_kernel_checks``). Then the gates: the admission prefill's and
+    a decode step's logits within CMP_TOL x max(1, |unsharded|) of an
+    unsharded engine on the same f32 weights (on phase 5's bf16 weights
+    the error is reported: every layer's sums in another order move the
+    bf16 residual stream by a rounding, as phase 5's dense-chunked engine
+    does); per engine (paged f32
+    chunked, dense) ``serve_engine``'s gates on rank 0 (every request
+    finishes, each kernel's launches per layer and step), one rank's
+    cache bytes half the pool's, and a decode step's counted collective
+    bytes equal to the formula (``shard_step_bytes``). Reported: the share
+    of greedy tokens equal to phase 5's streams (bf16 near-ties may flip
+    as the sums change order), tokens/s and decode-tick p50 of two ranks
+    sharing one card (not a multi-card figure), rank 0's time in a decode
+    step's all-reduces and all-gather, and each rank's peak memory."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.sharded import SeededWeights, spawn_mesh
+    t0 = time.perf_counter()
+    local_kernel_checks(cfg)
+    print(f"  rows 1-4 at the local heads: {time.perf_counter() - t0:.1f} s")
+    obs = observations(cfg, cfg.vocab_size, SEED + 3)       # phase 5's
+    cut, cut_params = first_layers(cfg, params, SERVE_LAYERS)
+    weights = SeededWeights(SEED, torch.bfloat16,
+                            draw_layers=cfg.num_layers)
+    prompt_len = cfg.vision.num_tokens + FULL_TEXT
+    t0 = time.perf_counter()
+    mesh = spawn_mesh(MESH_MODEL, device="cuda", timeout=120.0)
+    print(f"  mesh: model={MESH_MODEL} over gloo, both ranks on "
+          f"{torch.cuda.get_device_name(0)}, started in "
+          f"{time.perf_counter() - t0:.1f} s; the collectives run on the "
+          f"card's tensors")
+    kw = dict(n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, eos=-1,
+              tick_tokens=SERVE_TICK, device="cuda", graphs=False)
+    try:
+        # the function, on f32 weights (another seed, drawn on the cut);
+        # then phase 5's bf16 weights, where each layer's sums in another
+        # order move the bf16 residual stream by its rounding
+        f32 = SeededWeights(SEED + 12, torch.float32)
+        for w, whole, tol in ((f32, None, CMP_TOL),
+                              (weights, cut_params, None)):
+            plain = ServingEngine(cut, M.ModelOptions(),
+                                  whole or w(cut, "cuda"), **kw)
+            sharded = ServingEngine(cut, M.ModelOptions(), w, mesh=mesh,
+                                    **kw)
+            for (label, want), got in zip(
+                    zip(("prefill logits", "decode logits"),
+                        first_logits(cut, plain, obs)),
+                    first_logits(cut, sharded, obs)):
+                dtype = str(plain.params["embed"].dtype)
+                label = (f"sharded vs unsharded {label} "
+                         f"({dtype.removeprefix('torch.')})")
+                if tol is not None:
+                    check(label, got, want, tol)
+                    continue
+                err = (got.float() - want.float()).abs()
+                rel = (err / want.float().abs().clamp(min=1.0)).max()
+                same = (got.float().argmax(-1)
+                        == want.float().argmax(-1)).float().mean()
+                print(f"  {label}: max_abs_err={err.max().item():.4g}, "
+                      f"largest error / max(1, |unsharded|) "
+                      f"{rel.item():.4g}, argmax equal in {same.item():.4f}"
+                      f" of rows (reported, not a gate)")
+            sharded.close(workers=False)
+            del plain, sharded
+            torch.cuda.empty_cache()
+        print(f"  logits checks: {time.perf_counter() - t0:.1f} s since the "
+              f"mesh's start")
+        for name, ekw in SHARDED_ENGINES:
+            eng, out, launches, gates = serve_engine(
+                cut, weights, obs, f"sharded {name}", dict(ekw, mesh=mesh),
+                prompt_len, graphs=False, max_tokens=SHARD_TOKENS)
+            st = eng.stats
+            counted, want, sec, n_ar = shard_step_bytes(cut, eng, mesh)
+            gates[f"collective bytes a step == {want}"] = counted == want
+            if eng.paged:
+                gates["cache_bytes_hwm_shard x 2 == cache_bytes_hwm"] = \
+                    st.cache_bytes_hwm_shard * 2 == st.cache_bytes_hwm
+            mem = eng.rank_memory()
+            eng.close(workers=False)
+            ref = {u: t[:SHARD_TOKENS] for u, t in streams[name].items()}
+            failed = [k for k, ok in gates.items() if not ok]
+            if failed:
+                raise AssertionError(f"sharded serving ({name}): {failed}")
+            n_tok = sum(map(len, out.values()))
+            rep = st.phase_report()
+            p5 = serving[name][1].phase_report()
+            print(f"  sharded {name}, two ranks sharing one card over gloo "
+                  f"({card_line()}): {n_tok / sum(st.tick_s):.2f} tokens/s "
+                  f"over its ticks, decode tick p50 "
+                  f"{rep['decode_tick_p50'] * 1e3:.2f} ms (phase 5's "
+                  f"graphed unsharded engine: "
+                  f"{p5['decode_tick_p50'] * 1e3:.2f} ms); collective "
+                  f"bytes a step {counted['total']:.0f} (all-reduce "
+                  f"{counted['all-reduce']:.0f}, all-gather "
+                  f"{counted['all-gather']:.0f}) = the formula; one decode "
+                  f"step {sec['step'] * 1e3:.2f} ms by host clock, of it "
+                  f"{n_ar} all-reduces {sec['all-reduce'] * 1e3:.2f} ms "
+                  f"({sec['all-reduce'] / max(n_ar, 1) * 1e3:.3f} ms each)"
+                  f" and the all-gather {sec['all-gather'] * 1e3:.2f} ms "
+                  f"(rank 0, the card synchronized around each); "
+                  f"cache_bytes_hwm_shard {st.cache_bytes_hwm_shard} of "
+                  f"{st.cache_bytes_hwm}; peak memory "
+                  + ", ".join(f"rank {r} {b / 1e9:.2f} GB"
+                              for r, b in enumerate(mem))
+                  + f"; share of tokens equal to phase 5's {name} streams "
+                  f"(their first {SHARD_TOKENS}) "
+                  f"{stream_share(out, ref):.4f} (reported, not a gate)")
+            del eng
+    finally:
+        mesh.shutdown()
+
+
 def tick_breakdown(eng, label: str):
     """``decode_breakdown`` of an engine's tick step after it drained (8
     slots, every step masked but each a full decode), replayed from its
@@ -2195,7 +2444,8 @@ def tick_breakdown(eng, label: str):
 
 
 def moe_serving_full(cfg):
-    """Phase 7: full-width granite-moe-3b-a800m (seeded bf16 weights)
+    """Phase 7: full-width granite-moe-3b-a800m, its first MOE_SERVE_LAYERS
+    layers (seeded bf16 weights)
     serving the molmoact engines' shape: 16 requests from 8 prompts of 640
     seeded random tokens (each sent twice in a row), 193 tokens each, 8
     slots, max_seq 864, 8-token ticks, f32 caches, pages of 32; through
@@ -2206,6 +2456,7 @@ def moe_serving_full(cfg):
     steps)}."""
     import torch
     from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, num_layers=MOE_SERVE_LAYERS)
     params = full_params(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     obs = [(torch.randint(0, cfg.vocab_size, (MOE_PROMPT,), generator=gen,
@@ -2741,7 +2992,7 @@ def moe_timings(cfg, errs, serving):
     yardstick, not one call). Returns the kernels-line rows."""
     import torch
     from repro_torch.kernels.moe_gmm import ops as gmm
-    L = cfg.num_layers
+    L = MOE_SERVE_LAYERS            # the layers phase 7 served
     by_c = dict.fromkeys(MOE_C, 0)
     for name, (launches, st, masked) in serving.items():
         by_c[2] += L * (st.device_steps + masked)
@@ -3062,7 +3313,8 @@ def replayed_plan(cfg, obs, engines):
 
 
 def ssm_serving_full(cfg):
-    """Phase 8: full-width mamba2-780m (seeded bf16 weights, f32 caches)
+    """Phase 8: full-width mamba2-780m, its first SSM_SERVE_LAYERS layers
+    (seeded bf16 weights, f32 caches)
     serving the granite engines' shape: 16 requests from 8 prompts of 640
     seeded random tokens (each sent twice in a row), 193 tokens each, 8
     slots, max_seq 864, 8-token ticks; through SSM_ENGINES (admit-stall
@@ -3073,6 +3325,7 @@ def ssm_serving_full(cfg):
     Returns {engine: (launches, stats, masked steps)}."""
     import torch
     from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, num_layers=SSM_SERVE_LAYERS)
     params = full_params(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     obs = [(torch.randint(0, cfg.vocab_size, (MOE_PROMPT,), generator=gen,
@@ -4485,7 +4738,7 @@ def seeded_prompts(vocab: int, lengths, seed: int):
 
 
 def granite_full(cfg, params):
-    """granite-3-2b at full width and depth (40 layers, bf16): 8 requests
+    """granite-3-2b at full width, its first GRANITE_LAYERS layers (bf16): 8 requests
     of GRANITE_PROMPT tokens, ARCH_NEW new tokens each, on 8 slots,
     through admit-stall paged f32 and chunked paged f32 (chunks of
     CHUNK_SIZE, TOKEN_BUDGET a tick). Launches: the paged decode kernel
@@ -4776,6 +5029,8 @@ def arch_full():
         cfg = get_config(name)
         if name == GEMMA:
             cfg = gemma_cut(cfg)
+        if name == GRANITE:
+            cfg = dataclasses.replace(cfg, num_layers=GRANITE_LAYERS)
         params = full_params(cfg)
         launches.update(run(cfg, params))
         del params
@@ -5017,7 +5272,6 @@ def main() -> int:
     lap("phase 5")
     print("phase 5c: full-width self-speculative serving engine")
     spec_serving = spec_serving_full(cfg, params, fused_streams)
-    del fused_streams
     lap("phase 5c")
     print("phase 5d: the front end over two reduced replicas, card vs CPU")
     frontend_card_vs_cpu(cfg)
@@ -5025,6 +5279,11 @@ def main() -> int:
     print("phase 5e: full-width fleet replay through the front end")
     fleet_full(cfg, params)
     lap("phase 5e")
+    print(f"phase 12: sharded serving, model={MESH_MODEL}: two ranks "
+          f"sharing one card over gloo")
+    sharded_serving_full(cfg, params, fused_streams, serving)
+    del fused_streams
+    lap("phase 12")
     del params
     torch.cuda.empty_cache()
     print(f"phase 7: full-width {MOE_ARCH} serving engine")

@@ -1,8 +1,8 @@
 """Fault tolerance for the training loop (the port's copy of
 ``repro.checkpoint.resilience``): ``ResilientLoop`` wraps a step function
 with retry + restore-from-latest; a fault hook lets tests inject failures
-deterministically. ``elastic_shrink`` needs a device mesh and is not
-ported yet (ROADMAP item 11).
+deterministically. ``elastic_shrink``: on permanent node loss, shrink the
+``data`` axis, rebuild the mesh and re-slice the state for it.
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import logging
 from typing import Callable, Optional
 
 from repro_torch.checkpoint import store
+from repro_torch.distributed.sharding import Placed, place
+from repro_torch.models.params import map_tree
 
 log = logging.getLogger(__name__)
 
@@ -70,3 +72,26 @@ class ResilientLoop:
         if self._pending is not None:
             self._pending.join()
         return state, step
+
+
+def elastic_shrink(state, old_mesh, make_mesh: Callable, sharding_fn: Callable,
+                   lost_nodes: int = 1):
+    """Rebuild a smaller mesh after node loss and re-slice ``state`` for it
+    (the reference's contract). ``make_mesh(new_data_size)`` -> mesh;
+    ``sharding_fn(state, mesh)`` -> a tree of ``spec_for`` entries (None:
+    leave the leaf as it is). Each leaf to move is gathered whole on the
+    host (a ``Placed`` leaf from its shards) and sliced for every rank of
+    the new mesh (``distributed.sharding.place``). Returns (new_state,
+    new_mesh)."""
+    old_data = old_mesh.shape["data"]
+    new_data = old_data - lost_nodes
+    assert new_data >= 1, "cannot shrink below one data shard"
+    new_mesh = make_mesh(new_data)
+    specs = sharding_fn(state, new_mesh)
+
+    def move(x, spec):
+        if spec is None:
+            return x
+        whole = x.gather() if isinstance(x, Placed) else x.detach().cpu()
+        return place(whole, spec, new_mesh)
+    return map_tree(move, state, specs), new_mesh

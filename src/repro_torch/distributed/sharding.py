@@ -10,13 +10,22 @@ model=16 while its mlp and vocab dims shard). One rule table so stays
 valid for every architecture.
 
 A mesh here is its axis sizes: a mapping of axis name to size, or any
-object with such a ``.shape`` (``launch.mesh.production_mesh_shape``).
-Process groups and the tensors they place come with the sharded serving
-path (ROADMAP item 11).
+object with such a ``.shape`` (``launch.mesh.production_mesh_shape``, a
+``launch.mesh.Mesh``). The port has no partitioner: a sharded program
+places every tensor by hand, slicing each leaf to a rank's shard from its
+``spec_for`` entries (``shard_slice``), and ``constrain`` is the identity.
+``Placed`` holds a tensor as the shards of every rank of a mesh (the
+elastic shrink gathers and re-slices it).
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple, Union
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import (Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
+
+import torch
 
 Axes = Tuple[Optional[str], ...]
 Entry = Union[None, str, Tuple[str, ...]]
@@ -110,14 +119,42 @@ def axis_size(mesh, phys: Entry) -> int:
     return n
 
 
+class _State(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: dict = dict(DEFAULT_RULES)
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def global_mesh(mesh, rules: Optional[dict] = None):
+    """Activate a mesh (and rule overrides) for ``sharding_for`` and
+    ``spec_for`` on this thread (two replicas' threads keep their own)."""
+    prev_mesh, prev_rules = _STATE.mesh, _STATE.rules
+    _STATE.mesh = mesh
+    if rules is not None:
+        _STATE.rules = {**DEFAULT_RULES, **rules}
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.rules = prev_mesh, prev_rules
+
+
+def get_mesh():
+    """The mesh ``global_mesh`` activated on this thread, or None."""
+    return _STATE.mesh
+
+
 def spec_for(shape: Sequence[int], axes: Axes, mesh,
              rules: Optional[dict] = None) -> Tuple[Entry, ...]:
     """One entry per dim of ``shape`` given its logical ``axes``: None
     (replicated), a physical axis name, or a tuple of names. It honours
     divisibility (trailing physical axes are dropped until the dim
     divides) and never uses a physical axis twice. ``rules`` defaults to
-    DEFAULT_RULES."""
-    rules = rules or DEFAULT_RULES
+    the thread's (DEFAULT_RULES outside ``global_mesh``)."""
+    rules = rules or _STATE.rules
     sizes = mesh_sizes(mesh)
     used: set = set()
     entries = []
@@ -149,3 +186,101 @@ def shard_bytes(shape: Sequence[int], spec: Sequence[Entry], mesh,
     for entry in spec:
         n /= axis_size(mesh, entry)
     return n
+
+
+def sharding_for(shape: Sequence[int], axes: Axes, mesh=None
+                 ) -> Optional[Tuple[Entry, ...]]:
+    """``spec_for`` over ``mesh`` (default the thread's ``global_mesh``),
+    or None without a mesh."""
+    mesh = mesh if mesh is not None else _STATE.mesh
+    if mesh is None:
+        return None
+    return spec_for(shape, axes, mesh)
+
+
+def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """The identity. The reference pins an activation's placement for
+    XLA's partitioner here; the port has no partitioner, and its sharded
+    program computes each tensor where it is used (the engine's ranks
+    slice their parameters and caches by hand, and the layers call the
+    collectives themselves)."""
+    return x
+
+
+def local_shape(shape: Sequence[int], spec: Sequence[Entry],
+                mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` leaf placed by
+    ``spec``."""
+    return tuple(d // axis_size(mesh, e) for d, e in zip(shape, spec))
+
+
+def _index(entry: Entry, sizes: Mapping[str, int],
+           coords: Mapping[str, int]) -> int:
+    """Which of a dim's ``axis_size`` chunks the rank at ``coords`` holds:
+    row-major over the entry's axes, as the reference's
+    ``NamedSharding`` splits a dim over a tuple of axes."""
+    idx = 0
+    for a in ((entry,) if isinstance(entry, str) else entry):
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def shard_slice(x: torch.Tensor, spec: Sequence[Entry], mesh,
+                coords: Mapping[str, int]) -> torch.Tensor:
+    """The shard of ``x`` (a whole leaf) that the rank at ``coords`` (axis
+    -> index) holds under ``spec``. A copy of its own when anything is
+    sliced, so the whole leaf can be freed; ``x`` itself when the spec
+    replicates it."""
+    sizes = mesh_sizes(mesh)
+    out = x
+    for dim, e in enumerate(spec):
+        if e is not None:
+            n = x.shape[dim] // axis_size(sizes, e)
+            out = out.narrow(dim, _index(e, sizes, coords) * n, n)
+    return out if out is x else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def rank_coords(mesh) -> List[Dict[str, int]]:
+    """Every rank's coordinates of a mesh, in rank order (row-major)."""
+    sizes = mesh_sizes(mesh)
+    out: List[Dict[str, int]] = [{}]
+    for a, n in sizes.items():
+        out = [{**c, a: i} for c in out for i in range(n)]
+    return out
+
+
+@dataclass
+class Placed:
+    """A tensor placed on a mesh: every rank's shard under ``spec``, in
+    rank order (the port's counterpart of a ``jax.Array`` with a
+    ``NamedSharding``, on the host)."""
+    spec: Tuple[Entry, ...]
+    mesh_shape: Dict[str, int]
+    shards: List[torch.Tensor]
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor, assembled from the shards on the host."""
+        whole = None
+        for coords, shard in zip(rank_coords(self.mesh_shape),
+                                 self.shards):
+            if whole is None:
+                shape = [d * axis_size(self.mesh_shape, e)
+                         for d, e in zip(shard.shape, self.spec)]
+                whole = torch.empty(shape, dtype=shard.dtype)
+            view = whole
+            for dim, e in enumerate(self.spec):
+                if e is not None:
+                    n = shard.shape[dim]
+                    view = view.narrow(
+                        dim, _index(e, self.mesh_shape, coords) * n, n)
+            view.copy_(shard.cpu())
+        return whole
+
+
+def place(x: torch.Tensor, spec: Sequence[Entry], mesh) -> Placed:
+    """``x`` sliced for every rank of ``mesh`` under ``spec``."""
+    sizes = dict(mesh_sizes(mesh))
+    return Placed(tuple(spec), sizes,
+                  [shard_slice(x, spec, sizes, c)
+                   for c in rank_coords(sizes)])

@@ -5,11 +5,15 @@ Every ``csrc/*.cu`` under ``repro_torch/kernels`` is compiled for Hopper
 linked into one shared library with a plain C interface that ``ctypes``
 loads (no PyTorch headers, so a build takes seconds). The library lands in
 ``kernels/.build/<hash of the sources>/``, so an edited source is rebuilt
-and an unchanged one is loaded as it is.
+and an unchanged one is loaded as it is. Processes that build at once (the
+ranks of a sharded engine on a fresh checkout) take turns on an exclusive
+lock file beside that directory: the first compiles and links, the others
+then find the library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -93,11 +97,20 @@ def build() -> Path:
     srcs = sources()
     if len({p.stem for p in srcs}) != len(srcs):
         raise RuntimeError(f"kernel sources must have distinct names: {srcs}")
-    out_dir = BUILD_ROOT / _digest(srcs)
+    digest = _digest(srcs)
+    out_dir = BUILD_ROOT / digest
     lib = out_dir / "libkernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / f"{digest}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when closed
+        if not lib.exists():
+            _compile_and_link(srcs, out_dir, lib)
+    return lib
+
+
+def _compile_and_link(srcs, out_dir: Path, lib: Path) -> None:
     nvcc = _nvcc()
     objs, procs = [], []
     for src in srcs:
@@ -117,7 +130,6 @@ def build() -> Path:
     subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                    check=True, capture_output=True, text=True)
     os.replace(tmp, lib)
-    return lib
 
 
 @functools.cache

@@ -20,8 +20,9 @@ packages. What differs:
   per device, summed from each tensor's placement on the production mesh
   (``launch.specs``). There is no ``temp_size_in_bytes``, because the
   meta device allocates nothing;
-- ``collectives`` is null (the port issues none before ROADMAP item 11)
-  and ``hlo_bytes`` is null (there is no HLO); ``t_lower_s`` is the time
+- ``collectives`` is null: the run is unpartitioned, on the meta device,
+  and issues no collective (ROADMAP item 16, the dry run's collective
+  bytes); ``hlo_bytes`` is null (there is no HLO); ``t_lower_s`` is the time
   of the meta run and ``t_compile_s`` 0.
 """
 from __future__ import annotations

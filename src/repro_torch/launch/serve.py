@@ -19,8 +19,10 @@ The reference's flags, with these differences:
 - ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
   The weights are seeded f32 (``torch.Generator`` seed 0 on the device).
 - no ``--pallas``: on the card the port's kernels always run.
-- ``--mesh-model`` above 1 raises ``NotImplementedError`` (sharded
-  serving is ROADMAP item 11).
+- ``--mesh-model N`` (N > 1) starts N - 1 worker processes for each
+  engine (``serving.sharded.spawn_mesh``; gloo, on the same device as
+  this process, so on one card N ranks share it) and each rank draws its
+  own shard of the seeded weights.
 - an encoder-decoder ``--arch`` (whisper-small) exits at once with the
   engine's refusal (``engine.check_servable``): a request carries no
   audio frames. The reference's engine fails at the first admission.
@@ -46,7 +48,9 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions
 from repro_torch.serving import (AsyncFrontend, Backpressure, Request,
                                  ServingEngine)
-from repro_torch.serving.engine import check_servable
+from repro_torch.launch.mesh import Mesh
+from repro_torch.serving.engine import check_mesh, check_servable
+from repro_torch.serving.sharded import SeededWeights, spawn_mesh
 
 
 def _engine_snapshot(eng):
@@ -125,7 +129,13 @@ def main(argv=None):
                         "plain PyTorch path)")
     p.add_argument("--mesh-model", type=int, default=1,
                    help="shard the engine over a model=N serving mesh: "
-                        "not ported yet (ROADMAP item 11); only 1 runs")
+                        "attention heads, MLP width, vocab and the KV "
+                        "pool's heads partition across N ranks (N - 1 "
+                        "worker processes an engine, joined over gloo; "
+                        "ranks may share one card), with two all-reduces "
+                        "a layer and one lm-head all-gather a step; heads "
+                        "replicate when N does not divide both head "
+                        "counts; the tick runs eagerly")
     p.add_argument("--paged", action="store_true",
                    help="paged KV cache (shared page pool + per-slot page "
                         "tables, prefix caching) instead of dense per-slot "
@@ -230,9 +240,6 @@ def main(argv=None):
                         "queue-limit minus this (requires --frontend)")
     args = p.parse_args(argv)
 
-    if args.mesh_model > 1:
-        raise NotImplementedError("sharded serving (--mesh-model > 1) is "
-                                  "ROADMAP item 11")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -242,11 +249,26 @@ def main(argv=None):
     except ValueError as e:
         p.error(str(e))
     opts = ModelOptions(prefill_band=args.prefill_band)
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           torch.float32, device=dev)
+    sharded = args.mesh_model > 1
+    if sharded:         # the engine's refusals, before any worker starts
+        check_mesh(cfg, Mesh({"model": args.mesh_model}))
+    # sharded: every rank draws the same seeded leaves and keeps its slice
+    params = (SeededWeights(0, torch.float32) if sharded else
+              M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            torch.float32, device=dev))
 
     def make_engine():
+        mesh = spawn_mesh(args.mesh_model, device=dev) if sharded else None
+        try:
+            return _engine(mesh)
+        except BaseException:
+            if mesh is not None:
+                mesh.shutdown()
+            raise
+
+    def _engine(mesh):
         return ServingEngine(cfg, opts, params, n_slots=args.slots,
+                             mesh=mesh,
                              max_seq=args.max_seq, eos=-1,
                              fused=not args.reference,
                              tick_tokens=args.tick_tokens,
@@ -279,7 +301,10 @@ def main(argv=None):
                                 dtype=np.int32),
             max_tokens=args.max_tokens,
             priority=args.priority, deadline_s=deadline))
-    done = eng.run()
+    try:
+        done = eng.run()
+    finally:
+        eng.close()
     wall = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[serve] {len(done)} requests, {toks} tokens in {wall:.2f}s "
@@ -315,6 +340,10 @@ def main(argv=None):
               f"pages_hwm={st.pages_hwm} "
               f"cache_bytes_hwm={st.cache_bytes_hwm} "
               f"prefix_hits={st.prefix_hits}")
+    if st.mesh_shape:
+        print(f"[serve] mesh: "
+              f"{'x'.join(f'{a}={n}' for a, n in st.mesh_shape)} "
+              f"cache_bytes_hwm_shard={st.cache_bytes_hwm_shard}")
     if args.spec_decode:
         print(f"[serve] speculative: K={args.spec_k} "
               f"draft_quant={args.draft_quant} "

@@ -13,11 +13,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig
+from repro_torch.distributed.collectives import ShardGroup
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
 from repro_torch.kernels.chunk_prefill.paged import (
     paged_chunk_prefill_attention)
@@ -60,6 +62,15 @@ class ModelOptions:
     remat_sublayers: bool = False      # and, inside a body of more than one
     #                                    sublayer, each sublayer: the peak
     #                                    is one sublayer's activations
+    shard: Optional[ShardGroup] = None  # the reference's shard_axis: the
+    #                                    rank's group when its parameters
+    #                                    and caches are one shard of a
+    #                                    serving mesh; the attention and MLP
+    #                                    output projections all-reduce
+    #                                    their partial sums over it and the
+    #                                    lm head all-gathers, only where a
+    #                                    leaf is sharded (a replicated
+    #                                    fallback stays collective-free)
 
 
 # ---------------------------------------------------------------------------
@@ -811,6 +822,10 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
                                  k_pos=positions)
     wo = p[pre + "wo"]
     out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    if opts.shard is not None and not pre and wo.shape[0] != cfg.num_heads:
+        # head-sharded: this rank's heads give a partial sum over the
+        # whole d_model (the row-parallel reduction point)
+        out = opts.shard.all_reduce_sum(out)
     return out, cache
 
 
@@ -818,13 +833,18 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp(p, x, cfg: ModelConfig):
+def mlp(p, x, cfg: ModelConfig, shard: Optional[ShardGroup] = None):
+    """The dense FFN; with ``shard`` and a width-sharded ``wo_mlp`` (fewer
+    than ``d_ff`` rows) the partial sums are all-reduced."""
     h = x @ p["wi"]
     if cfg.act in ("silu", "gelu"):
         h = _act(h, x @ p["wg"], cfg.act)
     else:
         h = _act(h, None, cfg.act)
-    return h @ p["wo_mlp"]
+    out = h @ p["wo_mlp"]
+    if shard is not None and p["wo_mlp"].shape[0] != cfg.d_ff:
+        out = shard.all_reduce_sum(out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -90,10 +90,23 @@ def _check_params(params, dev):
                          f"the call asked for {dev}")
 
 
-def _embed_tokens(params, tokens, cfg: ModelConfig, positions=None):
+def _embed_tokens(params, tokens, cfg: ModelConfig, positions=None,
+                  shard=None):
     """Token embeddings [B,S,d], plus the absolute position table's rows
-    at ``positions`` (default 0..S-1) for ``pos == "absolute"``."""
-    x = params["embed"][tokens]
+    at ``positions`` (default 0..S-1) for ``pos == "absolute"``. With
+    ``shard`` and a vocab-sharded table (rank i holds rows [i*vl,
+    (i+1)*vl)), each rank looks up its own rows, zeroes the ids it does
+    not hold and the ranks sum: exactly one contributes each token."""
+    emb = params["embed"]
+    if shard is not None and emb.shape[0] != cfg.vocab_size:
+        vl = emb.shape[0]
+        loc = tokens - shard.rank * vl
+        ok = (loc >= 0) & (loc < vl)
+        x = emb[torch.where(ok, loc, 0)]
+        x = shard.all_reduce_sum(torch.where(ok[..., None], x,
+                                             torch.zeros_like(x)))
+    else:
+        x = emb[tokens]
     if cfg.pos == "absolute":
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=x.device)
@@ -137,18 +150,24 @@ def encode_vision(cfg: ModelConfig, opts: ModelOptions, params, patches, *,
     return stacks.apply_tower(params["vision"], patches, cfg.vision)
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, shard=None):
+    """The lm head's logits; with ``shard`` and a vocab-sharded head (the
+    embedding when tied) each rank's [B, S, V/n] slice is gathered to the
+    whole vocab, the sharded program's one all-gather."""
     x = apply_norm(params, x, cfg, "final_norm")
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.T                                     # head [V, D]
+    logits = x @ head.T                                   # head [V, D]
+    if shard is not None and head.shape[0] != cfg.vocab_size:
+        logits = shard.all_gather_last(logits)
+    return logits
 
 
-def _sequence(params, batch, cfg, dev):
+def _sequence(params, batch, cfg, dev, shard=None):
     """Token embeddings for full-sequence passes (vision prefix folded in),
     their positions [B, S] and the cross-attention context (or None)."""
     tokens = _on(batch["tokens"], dev, torch.long)
     ctx, prefix = _encode_context(params, batch, cfg, dev)
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, shard=shard)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
@@ -159,8 +178,9 @@ def _sequence(params, batch, cfg, dev):
 def _refuse_ssm_resume(cfg: ModelConfig):
     if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
         raise NotImplementedError(
-            f"{cfg.name}: Mamba2 layers prefill from position 0 only (the "
-            "SSM prefill state is not chunk-resumable; ROADMAP item 12)")
+            f"{cfg.name}: Mamba2 layers prefill from position 0 only: the "
+            "SSD scan starts from a zero state, and the reference has no "
+            "chunk-resumable SSM prefill either")
 
 
 def _positions(index, B: int, S: int, dev):
@@ -176,10 +196,10 @@ def forward(cfg: ModelConfig, opts: ModelOptions, params, batch,
     ``opts.remat`` checkpoint the decoder's layers."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    x, positions, ctx = _sequence(params, batch, cfg, dev)
+    x, positions, ctx = _sequence(params, batch, cfg, dev, opts.shard)
     x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions,
                                 ctx=ctx, train=train)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, opts.shard)
 
 
 def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
@@ -207,7 +227,7 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
         or not (isinstance(cache_index, int) and cache_index == 0)
     ctx = None
     if not positioned:
-        x, positions, ctx = _sequence(params, batch, cfg, dev)
+        x, positions, ctx = _sequence(params, batch, cfg, dev, opts.shard)
         caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype, opts,
                              device=dev)
         if ctx is not None:
@@ -231,7 +251,7 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
         tokens = _on(batch["tokens"], dev, torch.long)
         B, S = tokens.shape
         positions = _positions(cache_index, B, S, dev)
-        x = _embed_tokens(params, tokens, cfg, positions)
+        x = _embed_tokens(params, tokens, cfg, positions, opts.shard)
         if page_table is not None:
             page_table = _on(page_table, dev, torch.int32)
         if live_len is None and isinstance(cache_index, int):
@@ -241,7 +261,7 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
                                      cache_index=cache_index,
                                      live_len=live_len,
                                      page_table=page_table, ctx=ctx)
-    return _logits(params, x[:, -1:], cfg), caches
+    return _logits(params, x[:, -1:], cfg, opts.shard), caches
 
 
 def embed_prompt(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
@@ -256,7 +276,7 @@ def embed_prompt(cfg: ModelConfig, opts: ModelOptions, params, batch, *,
                          "models (whole-sequence cross-attention context)")
     dev = resolve_device(device)
     _check_params(params, dev)
-    return _sequence(params, batch, cfg, dev)[0]
+    return _sequence(params, batch, cfg, dev, opts.shard)[0]
 
 
 def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
@@ -288,7 +308,8 @@ def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
                                      live_len=live_len)
     last = torch.as_tensor(C if n_valid is None else n_valid, device=dev,
                            dtype=torch.long).reshape(1) - 1
-    return _logits(params, x.index_select(1, last), cfg), caches
+    return _logits(params, x.index_select(1, last), cfg,
+                   opts.shard), caches
 
 
 def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
@@ -304,14 +325,14 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     token = _on(token, dev, torch.long)
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
-    x = _embed_tokens(params, token, cfg, positions)
+    x = _embed_tokens(params, token, cfg, positions, opts.shard)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
                                      positions, caches=caches,
                                      cache_index=index,
                                      page_table=page_table)
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, opts.shard), caches
 
 
 def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
@@ -330,7 +351,7 @@ def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
     token = _on(token, dev, torch.long)
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
-    x = _embed_tokens(params, token, cfg, positions)
+    x = _embed_tokens(params, token, cfg, positions, opts.shard)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -338,7 +359,7 @@ def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
                                      cache_index=index,
                                      page_table=page_table, n_valid=n_valid,
                                      n_blocks=draft_blocks)
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, opts.shard), caches
 
 
 def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
@@ -361,7 +382,7 @@ def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
     tokens = _on(tokens, dev, torch.long)
     B, K = tokens.shape
     positions = _positions(cache_index, B, K, dev)
-    x = _embed_tokens(params, tokens, cfg, positions)
+    x = _embed_tokens(params, tokens, cfg, positions, opts.shard)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -369,7 +390,7 @@ def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
                                      cache_index=cache_index,
                                      page_table=page_table, n_valid=n_valid,
                                      live_len=live_len)
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, opts.shard), caches
 
 
 class DecodeGraph:

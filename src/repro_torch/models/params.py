@@ -6,8 +6,11 @@ axes + init); the parameters are the same nested dict with tensors at the
 leaves, in the reference's layout (stacked layers on a leading ``"layers"``
 axis), so a parameter tree of the reference maps onto the port leaf for
 leaf. The logical axes name each dim for the rule tables of
-``distributed.sharding`` (the dry run's placements and the analytic cost
-model's per-device bytes).
+``distributed.sharding`` (the dry run's placements, the analytic cost
+model's per-device bytes, and each rank's slice of a sharded serving
+engine: ``shard_params``, ``shard_template``, and the ``shard`` hook of
+``init_params`` / ``from_jax``, which slices each leaf as it is made so
+that no rank holds the whole tree).
 """
 from __future__ import annotations
 
@@ -20,6 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import (local_shape, rank_coords,
+                                              shard_slice, spec_for)
+
+# the towers run as plain stacks with no collective in them, so every
+# shard keeps them whole (the reference's engine does the same)
+WHOLE = ("vision", "encoder", "action_dit")
 
 
 @dataclass(frozen=True)
@@ -120,20 +129,72 @@ def _draw(spec: PSpec, shape, gen, device):
 
 
 def init_params(template, generator: torch.Generator,
-                dtype=torch.float32, device="cuda"):
+                dtype=torch.float32, device="cuda", shard=None):
     """Random parameters for a template: normal * 1/sqrt(fan_in), ``ones``,
     ``zeros``, normal * 0.02 for ``pos``, or the Mamba2 ``ssm_a`` /
     ``ssm_dt`` draws (see ``_draw``), leaf by leaf on
     ``device`` from ``generator`` (which must live on that device). The
     draws differ from the reference's ``jax.random``; use ``from_jax`` for
-    the reference's own weights."""
+    the reference's own weights. ``shard(path, spec, leaf)`` (e.g.
+    ``shard_fn``) replaces each leaf as soon as it is drawn: the draws are
+    the unsharded ones, and only one whole leaf exists at a time."""
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     params: Dict = {}
     for path, spec in leaves(template):
-        set_leaf(params, path, _init_leaf(spec, generator, dtype, dev))
+        leaf = _init_leaf(spec, generator, dtype, dev)
+        set_leaf(params, path, shard(path, spec, leaf) if shard else leaf)
     return params
+
+
+def shard_fn(mesh, rules: dict, rank: int, whole=WHOLE):
+    """``shard(path, spec, leaf)`` for ``init_params`` / ``from_jax`` /
+    ``shard_params``: the rank's slice of a whole leaf under
+    ``spec_for(spec.shape, spec.axes, mesh, rules)``; leaves under the
+    top-level keys ``whole`` stay whole."""
+    coords = rank_coords(mesh)[rank]
+
+    def fn(path, spec, leaf):
+        if path.split("/")[0] in whole:
+            return leaf
+        return shard_slice(leaf, spec_for(spec.shape, spec.axes, mesh,
+                                          rules), mesh, coords)
+    return fn
+
+
+def shard_template(template, mesh, rules: dict, whole=WHOLE):
+    """The template of one rank's shard: every leaf at its local shape
+    (``whole`` top-level keys as they are)."""
+    out: Dict = {}
+    for path, spec in leaves(template):
+        if path.split("/")[0] not in whole:
+            spec = dataclasses.replace(spec, shape=local_shape(
+                spec.shape, spec_for(spec.shape, spec.axes, mesh, rules),
+                mesh))
+        set_leaf(out, path, spec)
+    return out
+
+
+def shard_params(template, params, mesh, rules: dict, rank: int,
+                 whole=WHOLE):
+    """Rank ``rank``'s shard of ``params``, leaf by leaf: a leaf at the
+    template's (whole) shape is sliced; one already at the rank's local
+    shape is taken as it is; any other shape raises."""
+    fn = shard_fn(mesh, rules, rank, whole)
+    local = dict(leaves(shard_template(template, mesh, rules, whole)))
+    src = dict(leaves(params))
+    out: Dict = {}
+    for path, spec in leaves(template):
+        x = src[path]
+        if tuple(x.shape) == tuple(spec.shape):
+            x = fn(path, spec, x)
+        elif tuple(x.shape) != tuple(local[path].shape):
+            raise ValueError(f"{path}: shape {tuple(x.shape)} is neither "
+                             f"the whole {spec.shape} nor the shard "
+                             f"{local[path].shape}")
+        set_leaf(out, path, x)
+    return out
 
 
 def meta_params(template, dtype=torch.bfloat16):
@@ -147,11 +208,12 @@ def meta_params(template, dtype=torch.bfloat16):
     return params
 
 
-def from_jax(template, tree, dtype=None, device="cuda"):
+def from_jax(template, tree, dtype=None, device="cuda", shard=None):
     """Map the reference's parameter pytree (a nested dict of numpy arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) onto the port's parameters.
-    Every leaf of ``tree`` must be consumed and every leaf of ``template``
-    filled, with equal shapes; anything else raises."""
+    e.g. ``jax.tree.map(np.asarray, params)``, or a flat dict keyed by
+    "/"-joined paths) onto the port's parameters. Every leaf of ``tree``
+    must be consumed and every leaf of ``template`` filled, with equal
+    shapes; anything else raises. ``shard`` as in ``init_params``."""
     dev = resolve_device(device)
     src = dict(leaves(tree))
     params: Dict = {}
@@ -165,7 +227,8 @@ def from_jax(template, tree, dtype=None, device="cuda"):
             raise ValueError(f"{path}: reference shape {arr.shape}, port "
                              f"shape {spec.shape}")
         t = torch.from_numpy(np.array(arr))       # a writable copy
-        set_leaf(params, path, t.to(device=dev, dtype=dtype or t.dtype))
+        t = t.to(device=dev, dtype=dtype or t.dtype)
+        set_leaf(params, path, shard(path, spec, t) if shard else t)
     if src:
         raise KeyError(f"reference leaves the port does not use: "
                        f"{sorted(src)}")

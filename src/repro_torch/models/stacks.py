@@ -20,9 +20,11 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig, VisionConfig
+from repro_torch.distributed.sharding import serving_rules
 from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
-from repro_torch.models.params import PSpec, leaves, set_leaf, stack
+from repro_torch.models.params import (PSpec, leaves, set_leaf,
+                                       shard_template, stack)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +261,8 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
     x = x + a
     if kind.ffn != "none":
         h = L.apply_norm(p, x, cfg, "ln2")
-        y = L.mlp(p, h, cfg) if kind.ffn in ("dense", "moe+dense") else 0.0
+        y = (L.mlp(p, h, cfg, opts.shard)
+             if kind.ffn in ("dense", "moe+dense") else 0.0)
         if kind.ffn in ("moe", "moe+dense"):
             y = y + L.moe(p, h, cfg, opts)
         x = x + y
@@ -371,7 +374,7 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
     [batch, T, K, h], and a Mamba2 sub-layer holds its recurrent state
     ``ssm`` [batch, H, P, N] and the conv's last inputs ``conv``
     [batch, ssm_conv - 1, conv_ch]: these are batched by slot in either
-    layout."""
+    layout. Under ``opts.shard`` the shapes are one rank's shard."""
     period, nblocks, ntail = stack_plan(cfg)
     kinds = sub_kinds(cfg)
     opts = opts or L.ModelOptions()
@@ -426,6 +429,13 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
                          nblocks, "layers")}
     if ntail:
         t["tail"] = {f"tail{j}": sub(kinds[j]) for j in range(ntail)}
+    if opts.shard is not None:
+        # one rank's shard of a serving mesh: the KV head axis splits by
+        # the serving rules (GQA-atomic), everything else is whole
+        n = opts.shard.size
+        t = shard_template(t, {opts.shard.axis: n},
+                           serving_rules(n, cfg.num_heads, cfg.num_kv_heads),
+                           whole=())
     return t
 
 

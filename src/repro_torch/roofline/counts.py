@@ -17,8 +17,10 @@ nothing else:
   two attention products, for one), and a 3xTF32 body's three products
   per product of the function are never seen.
 
-Collective bytes have no counterpart while the port issues no collective
-(ROADMAP item 11).
+Collective bytes are not counted here: the dry run runs unpartitioned on
+the meta device and issues no collective (ROADMAP item 16, the dry run's
+collective bytes). The sharded serving path counts its own
+(``distributed.collectives.ShardGroup.counts``).
 """
 from __future__ import annotations
 

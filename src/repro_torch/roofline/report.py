@@ -125,9 +125,10 @@ def to_terms(row: Dict, use_analytic: bool = True,
 
     use_analytic=True (default) prices with the operator-IR model
     (``roofline.analytic``); False takes the row's own counts, which needs
-    measured collective bytes: the port's rows have none until it issues
-    collectives (ROADMAP item 11), and then this raises rather than
-    report a zero."""
+    counted collective bytes (``row["collectives"]["total"]``, e.g. a
+    sharded engine's ``ShardGroup.counts()``). The dry run's rows carry
+    none (ROADMAP item 16), and then this raises rather than report a
+    zero."""
     an = row.get("analytic") if use_analytic else None
     if an:
         flops, bts, coll = (an["flops_per_dev"], an["hbm_bytes_per_dev"],
@@ -135,9 +136,10 @@ def to_terms(row: Dict, use_analytic: bool = True,
     else:
         if row.get("collectives") is None:
             raise ValueError(
-                f"{row['arch']} x {row['shape']}: the row has no measured "
-                "collective bytes (the port issues no collective before "
-                "ROADMAP item 11); price it with use_analytic=True")
+                f"{row['arch']} x {row['shape']}: the row has no counted "
+                "collective bytes (the dry run runs unpartitioned on the "
+                "meta device: ROADMAP item 16, the dry run's collective "
+                "bytes); price it with use_analytic=True")
         flops = row["cost"].get("flops", 0.0)
         bts = row["cost"].get("bytes accessed", 0.0)
         coll = row["collectives"].get("total", 0.0)

@@ -66,31 +66,45 @@ speculative decode refuse them, as in the reference. Encoder-decoder
 models (whisper) are refused at construction: a ``Request`` carries no
 encoder input (``check_servable``).
 
-Not ported yet, and refused with ``NotImplementedError``: a device mesh
-(ROADMAP item 11).
+Sharded serving (``mesh=``, a ``launch.mesh`` serving mesh of N ranks,
+one process each): tensor parallelism over the mesh's ``model`` axis. Each
+rank holds its slice of the parameters and of the KV pool (attention
+heads, MLP width and vocab by ``serving_rules`` + ``spec_for``; the towers
+whole), and the model all-reduces the attention and MLP outputs and
+gathers the lm head's logits (``ModelOptions.shard``). Rank 0 runs this
+engine whole: the scheduler, the pool, sampling and every host decision,
+none of which sees the mesh; each device stage goes through ``_dev``,
+which sends its name and host arguments to ranks 1..N-1 in one broadcast
+(``serving.sharded`` runs their loop) and runs it here, so no rank decides
+anything from its own clock. The tick runs eagerly: a gloo collective
+cannot be captured in a CUDA graph.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import ShardWorkerError
+from repro_torch.distributed.sharding import serving_rules
 from repro_torch.kernels.decode_attention.paged import PAGE_SIZE
 from repro_torch.kernels.ssd.ops import Q_MAX, chunk_len
 from repro_torch.models import kv_quant
 from repro_torch.models import model as M
 from repro_torch.models.graphs import StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, band_len
-from repro_torch.models.params import leaves
-from repro_torch.models.stacks import (cache_batch_axis, is_paged_leaf,
+from repro_torch.models.params import leaves, shard_fn, shard_params
+from repro_torch.models.stacks import (cache_batch_axis, cache_dtype,
+                                       cache_template, is_paged_leaf,
                                        is_recurrent_leaf, is_scale_leaf,
                                        stack_plan)
 from repro_torch.serving import sampler as S
@@ -130,8 +144,7 @@ class Request:
 @dataclass
 class EngineStats:
     """Host-sync contract + phase + cache accounting for one engine
-    lifetime (the reference's fields, less those of sharded serving, which
-    come with ROADMAP item 11).
+    lifetime (the reference's fields).
 
     A "sync" is a device->host readback that blocks the Python loop: the
     fused path pays one per tick, the per-token path one per token. The
@@ -139,7 +152,11 @@ class EngineStats:
     ``pages_hwm`` count pool pages held by live slots, ``cache_bytes_hwm``
     is the high-water of their device bytes at the pool's storage dtype
     (codes plus scales for a quantized pool), ``prefix_hits`` counts pages
-    served from the prefix cache."""
+    served from the prefix cache. Under a mesh, ``mesh_shape`` names its
+    axes (``(("model", N),)``) and ``cache_bytes_hwm_shard`` is the byte
+    high-water of one rank's own buffers: each rank stores its KV heads'
+    slice of every page, so it is ``cache_bytes_hwm / N`` when the heads
+    shard and equal to it when they replicate."""
     decode_syncs: int = 0       # blocking readbacks on the decode path
     prefill_syncs: int = 0      # blocking readbacks at admission
     ticks: int = 0              # engine ticks (fused or per-token)
@@ -156,6 +173,8 @@ class EngineStats:
     pages_hwm: int = 0          # paged: high-water pages in use
     cache_bytes_hwm: int = 0    # paged: high-water KV bytes actually held
     prefix_hits: int = 0        # paged: pages reused via the prefix cache
+    mesh_shape: Optional[Tuple] = None   # sharded: (("model", N),)
+    cache_bytes_hwm_shard: int = 0       # sharded: one rank's KV high-water
     # speculative decode: a verify pass is one slot's row block of a
     # full-model verify chunk (spec_k positions), the weight and cache
     # pass speculation shares; spec_accept_hist[n] counts passes that
@@ -229,6 +248,14 @@ class EngineStats:
             rep["pages_hwm"] = float(self.pages_hwm)
             rep["cache_bytes_hwm"] = float(self.cache_bytes_hwm)
             rep["prefix_hits"] = float(self.prefix_hits)
+        if self.mesh_shape:
+            for ax, sz in self.mesh_shape:
+                rep[f"mesh_{ax}"] = float(sz)
+            if self.pages_hwm:
+                rep["cache_bytes_hwm_shard"] = float(
+                    self.cache_bytes_hwm_shard)
+                # every rank holds a slice of the same pages
+                rep["pages_in_use_shard"] = float(self.pages_in_use)
         if self.spec_verify_passes:
             emitted = sum(n * c for n, c in enumerate(self.spec_accept_hist))
             rep["spec_verify_passes"] = float(self.spec_verify_passes)
@@ -547,6 +574,30 @@ def check_servable(cfg: ModelConfig) -> None:
             "encoder (run it through model.prefill / decode_loop)")
 
 
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """The reference's refusals of a mesh, in its words: the engine shards
+    over a ``model`` axis only, and serves neither encoder-decoders, SSM
+    layers nor MoE layers on one."""
+    if "model" not in mesh.axis_names:
+        raise ValueError("ServingEngine mesh needs a 'model' axis "
+                         "(launch.mesh.make_serving_mesh)")
+    if any(mesh.shape[a] != 1 for a in mesh.axis_names if a != "model"):
+        raise ValueError("ServingEngine shards over 'model' only; "
+                         "every other mesh axis must have size 1")
+    if cfg.encoder is not None:
+        raise ValueError("mesh serving does not support encoder-decoder "
+                         "models (cross-attention context has no serving "
+                         "shard rule)")
+    if not all(cfg.is_attn_layer(i) for i in range(cfg.num_layers)):
+        raise ValueError("mesh serving requires attention-only decoders "
+                         "(SSM state has no head axis to partition the "
+                         "cache on)")
+    if cfg.num_experts:
+        raise ValueError("mesh serving does not support MoE layers "
+                         "(expert-parallel serving is not wired into the "
+                         "sharded program)")
+
+
 def _fused_tick(cfg: ModelConfig, opts: ModelOptions, K: int, eos: int,
                 temperature: float, top_k: int, params, tokens, caches,
                 index, budget, done, keys, max_steps: int, page_table=None,
@@ -580,10 +631,9 @@ class ServingEngine:
                  draft_layers: Optional[int] = None,
                  draft_quant: Optional[str] = None,
                  slo_hz: float = 0.0, mesh=None,
-                 *, device="cuda", graphs: bool = True):
-        """The reference's engine options, less those of the parts not
-        ported yet: ``mesh`` is accepted only to be refused, and ``slo_hz``
-        is refused without chunked prefill, as in the reference. The
+                 *, device="cuda", graphs: Optional[bool] = None):
+        """The reference's engine options; ``slo_hz`` is refused without
+        chunked prefill, as in the reference. The
         reference's ``stop_on_finish`` and ``prefix_cache`` are fixed on: a
         tick stops when a slot finishes, and full prompt pages are always
         shared. ``reserve_pages`` (paged) is the decode headroom admission
@@ -595,12 +645,46 @@ class ServingEngine:
         default turns to them. ``graphs`` (the card only): each fused-tick
         step, or speculative round, replays one captured CUDA graph
         (``DecodeTick``, ``SpecTick``); False runs the same body eagerly,
-        the oracle the graphed engine is held to."""
+        the oracle the graphed engine is held to; the default is True
+        without a mesh.
+
+        ``mesh`` (``launch.mesh.make_serving_mesh``): shard over its
+        ``model`` axis. ``params`` is then a picklable function
+        ``weights(cfg, device, shard)`` returning the parameter tree, with
+        ``shard(path, spec, leaf)`` applied to each leaf as it is made
+        (``models.params.shard_fn``) or None for the whole tree (a
+        quantized draft is rounded whole before it is sliced). Rank 0's
+        engine sends its arguments and ``weights`` to ranks 1..N-1, which
+        build their shards of it (``serving.sharded``). A mesh runs the
+        tick eagerly: ``graphs=True`` is refused."""
+        init_kw = {k: v for k, v in locals().items()
+                   if k not in ("self", "cfg", "opts", "params", "mesh",
+                                "device") and not k.startswith("__")}
         if tick_tokens < 1:
             raise ValueError(f"tick_tokens must be >= 1, got {tick_tokens}")
         if mesh is not None:
-            raise NotImplementedError("sharded serving (mesh=) is ROADMAP "
-                                      "item 11")
+            check_mesh(cfg, mesh)
+            if graphs:
+                raise ValueError(
+                    f"graphs=True with a {mesh.backend} mesh: a gloo "
+                    "collective cannot be captured in a CUDA graph, so a "
+                    "sharded engine runs its tick eagerly (graphs=False); "
+                    "the graph-captured sharded tick on NCCL is not "
+                    "ported")
+            if not callable(params):
+                raise ValueError(
+                    "a sharded engine takes its weights as a picklable "
+                    "function weights(cfg, device, shard) (e.g. "
+                    "serving.sharded.SeededWeights), which every rank "
+                    "calls for its own shard")
+            if mesh.size > 1 and mesh.group is None:
+                raise ValueError(
+                    f"a mesh of {mesh.size} ranks without a process group "
+                    "(axis sizes only, as make_dev_mesh and "
+                    "make_elastic_mesh make) cannot serve: build it with "
+                    "serving.sharded.spawn_mesh or "
+                    "launch.mesh.make_serving_mesh")
+        graphs = mesh is None if graphs is None else graphs
         check_servable(cfg)
         if slo_hz < 0:
             raise ValueError(f"slo_hz must be >= 0, got {slo_hz}")
@@ -685,6 +769,14 @@ class ServingEngine:
                     "accepted rows on the same page, so speculative streams "
                     "cannot stay bit-equal to the per-token reference")
         self.device = dev = resolve_device(device)
+        self.mesh, self._ctl = mesh, None
+        self.rank = 0 if mesh is None else mesh.rank
+        weights, base_opts, draft_params = params, opts, None
+        if mesh is not None:
+            opts, params, draft_params = self._shard_weights(
+                cfg, opts, weights, spec_decode, draft_quant)
+            if mesh.rank == 0 and mesh.size > 1:
+                self._ctl = mesh.group
         if params["embed"].device.type != dev.type:
             raise ValueError(f"parameters are on {params['embed'].device}, "
                              f"the engine on {dev}")
@@ -727,7 +819,12 @@ class ServingEngine:
         self.paged, self.page_size = paged, page_size
         self.kv_dtype = kv_dtype
         self.pool: Optional[KVPool] = None
-        self._bytes_per_page = 0
+        self._bytes_per_page = self._bytes_per_page_shard = 0
+        # device state that lives between stages: a stage's vision prefix,
+        # each slot's batch-1 prefill cache and prompt embeddings
+        self._prefix = None
+        self._cache1: Dict[int, dict] = {}
+        self._embeds: Dict[int, torch.Tensor] = {}
         if paged:
             if max_seq % page_size:
                 raise ValueError(f"max_seq {max_seq} must divide by "
@@ -741,7 +838,19 @@ class ServingEngine:
                 cfg, n_slots, max_seq, torch.float32, opts, paged=True,
                 num_pages=num_pages, page_size=page_size, kv_dtype=kv_dtype,
                 scale_granularity=scale_granularity or "head", device=dev)
+            # the summed figure (the whole pool) and one rank's own
+            # buffers, which differ under a mesh whose heads shard
             self._bytes_per_page = sum(
+                math.prod(spec.shape) * cache_dtype(
+                    path.split("/")[-1], torch.float32,
+                    kv_dtype).itemsize // num_pages
+                for path, spec in leaves(cache_template(
+                    cfg, n_slots, max_seq, base_opts, paged=True,
+                    num_pages=num_pages, page_size=page_size,
+                    kv_dtype=kv_dtype,
+                    scale_granularity=scale_granularity or "head"))
+                if is_paged_leaf(path))
+            self._bytes_per_page_shard = sum(
                 t.numel() * t.element_size() // num_pages
                 for path, t in leaves(self.caches) if is_paged_leaf(path))
         else:
@@ -753,9 +862,9 @@ class ServingEngine:
         npg = max_seq // page_size if paged else 0
         if spec_decode:
             # the weight-quantized draft: a second tree of the same dtypes
-            self.draft_params = (
-                kv_quant.fake_quantize_tree(params, draft_quant)
-                if draft_quant in ("int8", "fp8") else params)
+            self.draft_params = draft_params if draft_params is not None \
+                else (kv_quant.fake_quantize_tree(params, draft_quant)
+                      if draft_quant in ("int8", "fp8") else params)
             self._tick = SpecTick(
                 cfg, opts, params, self.draft_params, self.caches, n_slots,
                 tick_tokens, spec_k, self.draft_blocks, eos, max_seq, npg,
@@ -765,6 +874,9 @@ class ServingEngine:
                 cfg, opts, params, self.caches, n_slots, tick_tokens, eos,
                 temperature, top_k, npg, device=dev, graphs=graphs)
         self.stats = EngineStats()
+        if mesh is not None:
+            self.stats.mesh_shape = tuple((a, int(mesh.shape[a]))
+                                          for a in mesh.axis_names)
         self.masked_steps = 0       # fused-tick steps (speculative:
         #                             rounds) run after go fell
         self.generator = torch.Generator().manual_seed(seed)
@@ -783,6 +895,190 @@ class ServingEngine:
                 reserve_pages = n_slots if chunked_prefill else 0
             self.pool.set_reserve(min(reserve_pages,
                                       max(0, self.pool.num_pages - 2)))
+        if self._ctl is not None:
+            # ranks 1..N-1 build the same engine on their shards
+            self._ctl.broadcast_object(("engine", cfg, base_opts, init_kw,
+                                        weights))
+
+    # -- sharded serving ----------------------------------------------------
+    def _shard_weights(self, cfg, opts, weights, spec_decode, draft_quant):
+        """This rank's options, parameters and draft parameters (None: the
+        default draft) under the mesh. Leaves are sliced as ``weights``
+        makes them, unless a quantized draft needs the whole tree first
+        (its per-channel scales span the sharded axes)."""
+        mesh = self.mesh
+        n = mesh.shape["model"]
+        if n == 1:
+            return opts, weights(cfg, self.device, None), None
+        rules = serving_rules(n, cfg.num_heads, cfg.num_kv_heads)
+        templ = M.model_template(cfg)
+        quant = spec_decode and draft_quant in ("int8", "fp8")
+        whole = weights(cfg, self.device, None if quant else
+                        shard_fn(mesh, rules, mesh.rank))
+        params = shard_params(templ, whole, mesh, rules, mesh.rank)
+        draft = (shard_params(templ, kv_quant.fake_quantize_tree(
+            whole, draft_quant), mesh, rules, mesh.rank) if quant else None)
+        return dataclasses.replace(opts, shard=mesh.group), params, draft
+
+    def _dev(self, name: str, *args):
+        """Run device stage ``name`` (``_stage_<name>``, which reads only
+        its host arguments and this rank's device state). On a mesh rank
+        0 first sends the stage to the other ranks, which run it on their
+        shards; a failure there (a worker that raised or stopped
+        answering) raises here with the worker's report."""
+        stage = getattr(self, "_stage_" + name)
+        if self._ctl is None:
+            return stage(*args)
+        try:
+            self._ctl.broadcast_object(("stage", name, args))
+            return stage(*args)
+        except RuntimeError as e:
+            err = self.mesh.worker_error()
+            if err is not None:
+                raise ShardWorkerError(err) from e
+            raise
+
+    def close(self, workers: bool = True) -> None:
+        """End this engine on every rank of its mesh; with ``workers`` also
+        stop and join the worker processes that ``sharded.spawn_mesh``
+        started (False leaves them waiting for the next engine on the
+        same mesh). Nothing to do without a mesh."""
+        if self._ctl is not None:
+            ctl, self._ctl = self._ctl, None
+            try:
+                ctl.broadcast_object(("close",))
+            except RuntimeError as e:
+                err = self.mesh.worker_error()
+                raise ShardWorkerError(err or str(e)) from e
+        if workers and self.mesh is not None:
+            self.mesh.shutdown()
+
+    def rank_memory(self) -> List[int]:
+        """Each rank's peak of allocated device memory (bytes; 0 off the
+        card), read through the mesh's store: the per-rank figure of a
+        mesh whose ranks may share one card."""
+        if self.mesh is None:
+            return [torch.cuda.max_memory_allocated(self.device)
+                    if self.device.type == "cuda" else 0]
+        self._dev("memory")
+        return [int(self.mesh.store.get(f"memory/{r}"))
+                for r in range(self.mesh.size)]
+
+    # -- device stages (every rank runs each one; see _dev) -----------------
+    def _stage_memory(self):
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        self.mesh.store.set(f"memory/{self.rank}", str(peak))
+
+    def _stage_vision(self, patches):
+        self._prefix = M.encode_vision(self.cfg, self.opts, self.params,
+                                       patches[None], device=self.device)
+        return self._prefix
+
+    def _stage_prefill(self, slot: int, prompt, with_prefix: bool):
+        """Admit-stall prefill of one prompt into a fresh batch-1 cache,
+        kept for ``_stage_scatter``; returns the last row's logits."""
+        batch = {"tokens": prompt[None, :]}
+        if with_prefix:
+            batch["prefix"] = self._prefix
+        self._prefix = None
+        logits, self._cache1[slot] = M.prefill(
+            self.cfg, self.opts, self.params, batch, self.max_seq,
+            cache_dtype=torch.float32, device=self.device)
+        return logits
+
+    def _stage_scatter(self, slot: int, dest):
+        """Slot ``slot``'s batch-1 cache into the slot caches: page-wise
+        into ``dest`` pages (paged), else into the slot's batch row."""
+        cache1 = self._cache1.pop(slot)
+        if dest is not None:
+            _scatter_pages_impl(self.caches, cache1, dest, self.page_size)
+            _scatter_slot(self.caches, cache1, slot, skip_paged=True)
+        else:
+            _scatter_slot(self.caches, cache1, slot)
+
+    def _stage_embed(self, slot: int, prompt, prefix: Optional[str]):
+        """A chunked admission's prompt embeddings (``prefix`` "vision":
+        the stage's vision output; "zeros": a prefix whose KV is all in
+        shared pages), and a dense engine's fresh batch-1 cache."""
+        batch = {"tokens": prompt[None, :]}
+        if prefix == "vision":
+            batch["prefix"] = self._prefix
+        elif prefix == "zeros":
+            batch["prefix"] = torch.zeros(
+                1, self.cfg.vision.num_tokens, self.cfg.d_model,
+                dtype=self.params["embed"].dtype, device=self.device)
+        self._prefix = None
+        self._embeds[slot] = M.embed_prompt(self.cfg, self.opts,
+                                            self.params, batch,
+                                            device=self.device)
+        if not self.paged:
+            self._cache1[slot] = self._fresh_cache1()
+
+    def _stage_chunk(self, slot: int, start: int, n_tok: int, pt_row,
+                     live: int, last: bool):
+        """One prefill chunk of slot ``slot``'s embeddings, padded to
+        ``chunk_size`` rows, with its start and valid count on the device;
+        returns the last valid row's logits."""
+        emb = self._embeds.pop(slot) if last else self._embeds[slot]
+        chunk = torch.zeros(1, self.chunk_size, emb.shape[-1],
+                            dtype=emb.dtype, device=self.device)
+        chunk[:, :n_tok] = emb[:, start:start + n_tok]
+        caches = self.caches if self.paged else self._cache1[slot]
+        logits, _ = M.prefill_chunk(
+            self.cfg, self.opts, self.params, chunk, caches,
+            self._device(start, torch.int32),
+            n_valid=self._device(n_tok, torch.int32),
+            page_table=(None if pt_row is None
+                        else self._device(pt_row, torch.int32)),
+            live_len=live, device=self.device)
+        return logits
+
+    def _stage_drop(self, slot: int):
+        self._cache1.pop(slot, None)
+        self._embeds.pop(slot, None)
+
+    def _release(self, slot: int):
+        """Drop slot ``slot``'s batch-1 cache and prompt embeddings on
+        every rank, where its request leaves before the stage that
+        consumes them (it finished at prefill, was deferred, cancelled or
+        preempted mid-prefill)."""
+        if slot in self._cache1 or slot in self._embeds:
+            self._dev("drop", slot)
+
+    def _stage_copy_pages(self, src, dst):
+        _copy_pages_impl(self.caches, self._device(src, torch.long),
+                         self._device(dst, torch.long))
+
+    def _stage_reset_scales(self, page_ids):
+        _reset_page_scales_impl(self.caches,
+                                self._device(page_ids, torch.long))
+
+    def _stage_decode(self, tokens, index, page_table):
+        """One per-token decode step; returns its logits."""
+        pt = None
+        if page_table is not None:
+            pt = self._tick.page_table
+            pt.copy_(torch.from_numpy(page_table))
+        logits, _ = M.decode_step(
+            self.cfg, self.opts, self.params,
+            self._device(tokens, torch.long), self.caches,
+            self._device(index, torch.int32), pt, device=self.device)
+        return logits
+
+    def _stage_tick(self, tokens, index, budget, done, keys, page_table,
+                    cap: int):
+        """Load the fused tick's carry and run ``cap`` steps."""
+        tick = self._tick
+        tick.load(tokens, index, budget, done, keys, page_table)
+        tick.run(cap)
+
+    def _stage_spec_load(self, tokens, index, budget, done, cap: int,
+                         page_table):
+        self._tick.load(tokens, index, budget, done, cap, page_table)
+
+    def _stage_spec_run(self, rounds: int):
+        self._tick.run(rounds)
 
     # -- queue -----------------------------------------------------------
     def _sync(self):
@@ -803,7 +1099,7 @@ class ServingEngine:
         (dense engines): its chunks write it in place, and the finished
         prefill is scattered into the slot's batch row."""
         return M.init_caches(self.cfg, 1, self.max_seq, torch.float32,
-                             device=self.device)
+                             self.opts, device=self.device)
 
     def submit(self, req: Request):
         """Queue ``req``. A stack with Mamba2 layers refuses, here and
@@ -878,6 +1174,7 @@ class ServingEngine:
             for s, t in list(self.scheduler.tasks.items()):
                 if t.req.uid == uid:
                     self.scheduler.tasks.pop(s)
+                    self._release(s)
                     if self.paged:
                         self.pool.free_slot(s)
                         self._update_cache_stats()
@@ -912,22 +1209,25 @@ class ServingEngine:
         st.cache_bytes_hwm = max(
             st.cache_bytes_hwm,
             pool.byte_stats(self._bytes_per_page)["bytes_in_use"])
+        st.cache_bytes_hwm_shard = max(
+            st.cache_bytes_hwm_shard,
+            pool.byte_stats(self._bytes_per_page_shard)["bytes_in_use"])
         st.prefix_hits = pool.prefix_hits
 
-    def _page_table_device(self):
-        """The page table for the decode tick. Done slots' rows are all
-        null page (``free_slot`` reset them), so their writes sink. A
+    def _decode_page_table(self) -> np.ndarray:
+        """The page table for the decode tick (host). Done slots' rows are
+        all null page (``free_slot`` reset them), so their writes sink. A
         mid-prefill slot's row is live (its chunks need it), so it is
         nulled in this snapshot only: the tick's write at that slot's stale
-        index must not land on chunk rows already written. It is copied
-        into the decode tick's one table buffer, which its graph reads."""
+        index must not land on chunk rows already written. The stage
+        copies it into the decode tick's one table buffer, which its graph
+        reads."""
         pt = self.pool.page_table
         if self.scheduler is not None and self.scheduler.tasks:
             pt = pt.copy()
             for s in self.scheduler.tasks:
                 pt[s, :] = 0
-        self._tick.page_table.copy_(torch.from_numpy(pt))
-        return self._tick.page_table
+        return pt
 
     def _slot_req(self, s: int) -> Optional[Request]:
         """The request holding slot ``s``, decoding or mid-prefill."""
@@ -954,6 +1254,7 @@ class ServingEngine:
             else:
                 insert_by_class(self.queue, req, front=True)
         elif self.scheduler is not None:
+            self._release(s)
             task = self.scheduler.requeue_task(s)
             if task is not None:
                 self.stats.record_preemption(task.req)
@@ -1023,9 +1324,8 @@ class ServingEngine:
         """Materialize copy-on-write (src, dst) page pairs on the device."""
         if not copies:
             return
-        src, dst = (torch.as_tensor(c, device=self.device)
-                    for c in zip(*copies))
-        _copy_pages_impl(self.caches, src, dst)
+        src, dst = (np.asarray(c, np.int64) for c in zip(*copies))
+        self._dev("copy_pages", src, dst)
 
     def _reset_fresh_scales(self, fresh: List[int]):
         """Quantized pools: zero the scale rows of pages just handed to a
@@ -1034,8 +1334,7 @@ class ServingEngine:
         if not fresh or kv_quant.quant_dtype(self.kv_dtype) is None:
             return
         # the null page too, as the reference's zero-padded id list does
-        _reset_page_scales_impl(self.caches, torch.as_tensor(
-            [0] + list(fresh), device=self.device))
+        self._dev("reset_scales", np.asarray([0] + list(fresh), np.int64))
 
     def _clamped_budget(self, req: Request, pos: int) -> int:
         """Clamp generation to cache capacity: decode writes positions
@@ -1091,19 +1390,13 @@ class ServingEngine:
                 t0 = time.perf_counter()
                 req.queue_s = t0 - req.t_submit
                 self.stats.queue_s.append(req.queue_s)
-                batch = {"tokens": req.prompt[None, :]}
                 if n_prefix:
-                    batch["prefix"] = M.encode_vision(
-                        self.cfg, self.opts, self.params, req.patches[None],
-                        device=self.device)
+                    self._dev("vision", req.patches)
                     self._sync()
                     t1 = time.perf_counter()
                     self.stats.vision_time += t1 - t0
                     t0 = t1
-                logits, cache1 = M.prefill(self.cfg, self.opts, self.params,
-                                           batch, self.max_seq,
-                                           cache_dtype=torch.float32,
-                                           device=self.device)
+                logits = self._dev("prefill", s, req.prompt, bool(n_prefix))
                 tok = int(self._sample(logits, [req.sample_key],
                                        [pos - 1])[0])
                 self.stats.prefill_syncs += 1
@@ -1122,6 +1415,7 @@ class ServingEngine:
                     req.t_done = req.t_prefill
                     self.stats.record_deadline(req)
                     self.finished.append(req)
+                    self._release(s)
                     continue
                 if self.paged:
                     try:
@@ -1129,6 +1423,7 @@ class ServingEngine:
                     except PoolExhausted:
                         # can_admit() raced a cached-page eviction: defer,
                         # rolling this attempt's stats back
+                        self._release(s)
                         self.queue.insert(0, req)
                         req.out_tokens.pop()
                         self.stats.queue_s.pop()
@@ -1143,12 +1438,10 @@ class ServingEngine:
                     # shared pages already hold this prefix's KV
                     dest = np.zeros(self.pool.pages_per_slot, np.int32)
                     dest[n_shared:len(pages)] = pages[n_shared:]
-                    _scatter_pages_impl(self.caches, cache1, dest,
-                                        self.page_size)
-                    _scatter_slot(self.caches, cache1, s, skip_paged=True)
+                    self._dev("scatter", s, dest)
                     self._update_cache_stats()
                 else:
-                    _scatter_slot(self.caches, cache1, s)
+                    self._dev("scatter", s, None)
                 self.index[s] = pos
                 self.budget[s] = budget
                 self.tokens[s, 0] = tok
@@ -1183,12 +1476,9 @@ class ServingEngine:
         if not active:
             self._end_tick(t_tick, pf0, kl0)
             return 0
-        pt = self._page_table_device() if self.paged else None
+        pt = self._decode_page_table() if self.paged else None
         t0 = time.perf_counter()
-        logits, _ = M.decode_step(
-            self.cfg, self.opts, self.params,
-            self._device(self.tokens, torch.long), self.caches,
-            self._device(self.index, torch.int32), pt, device=self.device)
+        logits = self._dev("decode", self.tokens, self.index, pt)
         nxt = self._sample(logits, self.keys, self.index).tolist()
         now = time.perf_counter()
         self.stats.decode_syncs += 1
@@ -1234,23 +1524,24 @@ class ServingEngine:
         if not active:
             return 0
         cap = min(max_steps, self.tick_tokens)
+        pt = None
         if self.paged:
             self._ensure_pages(cap, extra=self.spec_k - 1
                                if self.spec_decode else 0)
-            self._page_table_device()
+            pt = self._decode_page_table()
             # growth may have preempted a slot under pool pressure
             active = [s for s in range(self.n_slots)
                       if self.slots[s] is not None]
             if not active:
                 return 0
         if self.spec_decode:
-            return self._decode_tick_spec(cap, active)
+            return self._decode_tick_spec(cap, active, pt)
         t0 = time.perf_counter()
         done0 = np.asarray([self.slots[s] is None
                             for s in range(self.n_slots)])
         tick = self._tick
-        tick.load(self.tokens, self.index, self.budget, done0, self.keys)
-        tick.run(cap)
+        self._dev("tick", self.tokens, self.index, self.budget, done0,
+                  self.keys, pt, cap)
         B, K = tick.out.shape
         host = torch.cat([tick.out.reshape(-1), tick.n_emit.long(),
                           tick.index.long(), tick.budget.long(),
@@ -1291,7 +1582,8 @@ class ServingEngine:
         self.stats.tokens_decoded += emitted
         return emitted
 
-    def _decode_tick_spec(self, cap: int, active: List[int]) -> int:
+    def _decode_tick_spec(self, cap: int, active: List[int],
+                          page_table=None) -> int:
         """The speculative decode stage: draft -> verify -> accept rounds
         (``SpecTick``, one graph replay a round on the card) until no slot
         has room or one newly finished. Each live slot emits at least one
@@ -1311,11 +1603,12 @@ class ServingEngine:
         bounds = {s: band_len(min(int(idx0[s]) + cap + K - 1, self.max_seq),
                               self.opts.prefill_band, self.max_seq)
                   for s in active}
-        tick.load(self.tokens, self.index, self.budget, done0, cap)
+        self._dev("spec_load", self.tokens, self.index, self.budget, done0,
+                  cap, page_table)
         left, run = cap, 0
         while True:
             n = -(-left // K)
-            tick.run(n)
+            self._dev("spec_run", n)
             run += n
             host = torch.cat([
                 tick.out[:, :T].reshape(-1), tick.e.long(),
@@ -1437,32 +1730,25 @@ class ServingEngine:
                 t0 = time.perf_counter()
                 req.queue_s = t0 - req.t_submit
                 self.stats.queue_s.append(req.queue_s)
-                batch = {"tokens": req.prompt[None, :]}
+                prefix = None
                 if n_prefix:
                     if n_skip < n_prefix:
-                        batch["prefix"] = M.encode_vision(
-                            self.cfg, self.opts, self.params,
-                            req.patches[None], device=self.device)
+                        self._dev("vision", req.patches)
                         self._sync()
                         t1 = time.perf_counter()
                         self.stats.vision_time += t1 - t0
                         t0 = t1
+                        prefix = "vision"
                     else:
                         # the whole vision prefix is shared: its KV is in
                         # pool pages, so the tower does not run (no chunk
                         # reads these rows)
-                        batch["prefix"] = torch.zeros(
-                            1, n_prefix, self.cfg.d_model,
-                            dtype=self.params["embed"].dtype,
-                            device=self.device)
-                embeds = M.embed_prompt(self.cfg, self.opts, self.params,
-                                        batch, device=self.device)
+                        prefix = "zeros"
+                self._dev("embed", s, req.prompt, prefix)
                 req.prefill_skipped = n_skip
                 self.stats.prefill_skipped += n_skip
                 sched.start_task(PrefillTask(
                     req=req, slot=s, total=total, n_skip=n_skip,
-                    embeds=embeds,
-                    cache1=None if self.paged else self._fresh_cache1(),
                     prefix_keys=keys, t_start=t0))
                 self._last_active[s] = t0
 
@@ -1498,22 +1784,13 @@ class ServingEngine:
                 p for p in self.pool.slot_pages[s] if p not in held0))
             if stalled:
                 return
-            pt_row = self._device(self.pool.page_table[s:s + 1], torch.int32)
-        emb = task.embeds
-        chunk = torch.zeros(1, self.chunk_size, emb.shape[-1],
-                            dtype=emb.dtype, device=self.device)
-        chunk[:, :cp.n_tok] = emb[:, cp.start:cp.start + cp.n_tok]
-        start = self._device(cp.start, torch.int32)
-        n_valid = self._device(cp.n_tok, torch.int32)
+            pt_row = self.pool.page_table[s:s + 1].copy()
         # the chunk attends the live prefix [0, start + n_tok), rounded up
         # to whole bands
         live = band_len(cp.start + cp.n_tok, self.opts.prefill_band,
                         self.max_seq)
-        caches = self.caches if self.paged else task.cache1
-        logits, _ = M.prefill_chunk(self.cfg, self.opts, self.params, chunk,
-                                    caches, start, n_valid=n_valid,
-                                    page_table=pt_row, live_len=live,
-                                    device=self.device)
+        logits = self._dev("chunk", s, cp.start, cp.n_tok, pt_row, live,
+                           cp.start + cp.n_tok >= task.total)
         if self.paged:
             self.pool.register_prefix_pages(s, task.prefix_keys or (),
                                             cp.start + cp.n_tok)
@@ -1553,12 +1830,12 @@ class ServingEngine:
                 self.pool.free_slot(s)
                 self._update_cache_stats()
             self.finished.append(req)
+            self._release(s)
             return
         if self.paged:
             req.pages_used = len(self.pool.slot_pages[s])
         else:
-            _scatter_slot(self.caches, task.cache1, s)
-            task.cache1 = None
+            self._dev("scatter", s, None)
         self.index[s] = pos
         self.budget[s] = budget
         self.tokens[s, 0] = tok

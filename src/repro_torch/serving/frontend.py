@@ -274,6 +274,9 @@ class AsyncFrontend:
             for stream in live.values():
                 stream._chan.put_nowait(_DONE)
             live.clear()
+        for eng in self.engines:    # a sharded replica's workers end here
+            if eng.mesh is not None:
+                eng.close()
         for r in results:
             if isinstance(r, BaseException) \
                     and not isinstance(r, asyncio.CancelledError):
@@ -309,7 +312,11 @@ class AsyncFrontend:
         (``replica{i}_deadline_attainment_realtime`` / ``_best_effort``
         and ``replica{i}_preemptions_*`` counters); paged replicas report
         cache gauges (``replica{i}_pages_in_use`` / ``_pages_hwm`` /
-        ``_cache_bytes_hwm``). All values are floats, the snapshot is safe to take before
+        ``_cache_bytes_hwm``), and sharded replicas their mesh's axis sizes
+        (``replica{i}_mesh_model``) and one rank's own figures
+        (``replica{i}_cache_bytes_hwm_shard`` / ``_pages_in_use_shard``):
+        the summed ``cache_bytes_hwm`` is not a per-device number once the
+        pool is partitioned. All values are floats, the snapshot is safe to take before
         ``start()`` (gauges read zero), and nothing here blocks on a
         tick."""
         snap: Dict[str, float] = {}
@@ -325,7 +332,8 @@ class AsyncFrontend:
             ph = eng.stats.phase_report()
             for k, v in ph.items():
                 if k.startswith(("deadline_attainment_", "deadline_total_",
-                                 "preemptions_", "pages_", "cache_bytes_")) \
+                                 "preemptions_", "pages_", "cache_bytes_",
+                                 "mesh_")) \
                         or k == "spec_accept_per_pass":
                     snap[f"replica{i}_{k}"] = float(v)
         return snap

@@ -479,6 +479,37 @@ def test_cancel_mid_prefill(paged):
         assert eng.stats.pages_in_use == 0
 
 
+@pytest.mark.parametrize("case", ["admit-stall-finish", "chunked-finish",
+                                  "cancel", "cancel-paged", "preempt"])
+def test_slot_device_state_freed(case):
+    """A request that leaves before the stage that consumes its batch-1
+    cache or prompt embeddings (it finishes at prefill, is cancelled or is
+    preempted mid-prefill) leaves neither behind in the engine."""
+    chunked = dict(chunked_prefill=True, chunk_size=8, token_budget=12)
+    if case.endswith("finish"):
+        reqs = [(p, 1) for p, _ in _prompts(6, [(13, 1), (9, 1)])]
+        _, eng = _streams(reqs, **(chunked if case.startswith("chunked")
+                                   else {}))
+    else:
+        cfg, params = port_params("smollm-135m")
+        kw = (dict(paged=True, page_size=8) if case != "cancel" else {})
+        eng = ServingEngine(cfg, TOpts(), params, n_slots=2, max_seq=64,
+                            eos=-999, tick_tokens=4, device="cpu",
+                            **chunked, **kw)
+        for i, (p, m) in enumerate(_prompts(5, [(30, 6), (9, 6)])):
+            eng.submit(Request(uid=i, prompt=p.copy(), max_tokens=m))
+        eng.step_fused()
+        assert 0 in eng.scheduler.tasks and 0 in eng._embeds
+        if case == "preempt":
+            eng._preempt_slot(0)
+            assert sum(eng.stats.preemptions.values()) == 1
+        else:
+            assert eng.cancel(0)
+        assert 0 not in eng._embeds and 0 not in eng._cache1
+        eng.run()
+    assert eng._cache1 == {} and eng._embeds == {}
+
+
 def test_slo_engine_bit_equal_on_best_effort_workload():
     reqs = _prompts(10, [(13, 6), (29, 4), (7, 7)])
     kw = dict(chunked_prefill=True, chunk_size=16, token_budget=16,

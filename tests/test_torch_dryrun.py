@@ -117,7 +117,7 @@ def test_full_size_meta_dry_run(arch, shape, ratio):
     t = to_terms(row)
     assert t.flops_per_dev == row["analytic"]["flops_per_dev"] > 0
     assert t.bound_time > 0
-    with pytest.raises(ValueError, match="ROADMAP item 11"):
+    with pytest.raises(ValueError, match="ROADMAP item 16"):
         to_terms(row, use_analytic=False)
 
     cfg, sh = get_config(arch), SHAPES[shape]

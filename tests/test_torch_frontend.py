@@ -358,5 +358,9 @@ def test_serve_driver_tokens_equal_direct_engine(mode, tmp_path):
 
 
 def test_serve_driver_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        serve.main(["--device", "cpu", "--reduced", "--mesh-model", "2"])
+    """``--mesh-model`` is ported (tests/test_torch_sharded.py runs it);
+    the driver refuses a mesh the engine cannot shard, an SSM stack, with
+    the reference engine's words, before any worker process starts."""
+    with pytest.raises(ValueError, match="attention-only decoders"):
+        serve.main(["--device", "cpu", "--reduced", "--mesh-model", "2",
+                    "--arch", "mamba2-780m"])

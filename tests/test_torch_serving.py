@@ -21,6 +21,7 @@ from repro.models.layers import ModelOptions as JOpts
 from repro.serving import Request as JReq
 from repro.serving import ServingEngine as JEngine
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import model as TM
 from repro_torch.models import params as TP
 from repro_torch.models.layers import ModelOptions as TOpts
@@ -73,6 +74,7 @@ def run_port(name, reqs, n_slots=2, max_seq=48, tick_tokens=4, opts=None,
              **kw):
     """``opts``: ModelOptions fields the two frameworks share."""
     cfg, params = port_params(name)
+    params = kw.pop("weights", params)
     eng = ServingEngine(cfg, TOpts(**(opts or {})), params, n_slots=n_slots,
                         max_seq=max_seq, eos=kw.pop("eos", -999),
                         tick_tokens=tick_tokens, device="cpu", **kw)
@@ -252,12 +254,22 @@ def test_sampled_streams_do_not_depend_on_masked_steps(layout):
                                   **LAYOUTS[layout])[0]
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(mesh=object()), "item 11")])
-def test_unported_options_name_their_roadmap_item(option, item):
+@pytest.mark.parametrize("option", [dict(mesh=1)], ids=["mesh"])
+def test_unported_options_name_their_roadmap_item(option):
+    """No engine option is left unported: the last one refused, ``mesh``
+    (sharded serving), now serves. A one-rank serving mesh (no worker)
+    gives the unsharded streams and reports its shape; more ranks are
+    tests/test_torch_sharded.py's."""
     cfg, params = port_params("smollm-135m")
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(cfg, TOpts(), params, device="cpu", **option)
+    reqs = _requests(cfg, 2, MIXED)
+    kw = dict(LAYOUTS["paged-bf16"])
+    want = run_port("smollm-135m", reqs, **kw)[0]
+    mesh = make_serving_mesh(option["mesh"])
+    got, eng = run_port("smollm-135m", reqs, mesh=mesh, graphs=False,
+                        weights=lambda c, device, shard: params, **kw)
+    assert got == want
+    assert eng.stats.mesh_shape == (("model", 1),)
+    assert eng.stats.cache_bytes_hwm_shard == eng.stats.cache_bytes_hwm
 
 
 def test_chunked_prefill_option_is_accepted():
