@@ -2318,12 +2318,16 @@ def sharded_serving_full(cfg, params, streams, serving):
     chunked, dense) ``serve_engine``'s gates on rank 0 (every request
     finishes, each kernel's launches per layer and step), one rank's
     cache bytes half the pool's, and a decode step's counted collective
-    bytes equal to the formula (``shard_step_bytes``). Reported: the share
+    bytes equal to the formula (``shard_step_bytes``) and to the dry
+    run's count of the same step (``launch.dryrun.
+    serving_decode_collectives``: the step traced as DTensors on a fake
+    ('model',) mesh on the meta device, on the host). Reported: the share
     of greedy tokens equal to phase 5's streams (bf16 near-ties may flip
     as the sums change order), tokens/s and decode-tick p50 of two ranks
     sharing one card (not a multi-card figure), rank 0's time in a decode
     step's all-reduces and all-gather, and each rank's peak memory."""
     import torch
+    from repro_torch.launch.dryrun import serving_decode_collectives
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.sharded import SeededWeights, spawn_mesh
@@ -2384,6 +2388,13 @@ def sharded_serving_full(cfg, params, streams, serving):
             st = eng.stats
             counted, want, sec, n_ar = shard_step_bytes(cut, eng, mesh)
             gates[f"collective bytes a step == {want}"] = counted == want
+            t0 = time.perf_counter()
+            traced = serving_decode_collectives(
+                cut, mesh.shape["model"], eng.n_slots, SERVE_MAX_SEQ,
+                eng.params["embed"].dtype)
+            t_trace = time.perf_counter() - t0
+            gates[f"the dry run's count of the step {traced} == the "
+                  f"counted bytes"] = traced == counted
             if eng.paged:
                 gates["cache_bytes_hwm_shard x 2 == cache_bytes_hwm"] = \
                     st.cache_bytes_hwm_shard * 2 == st.cache_bytes_hwm
@@ -2404,7 +2415,9 @@ def sharded_serving_full(cfg, params, streams, serving):
                   f"{p5['decode_tick_p50'] * 1e3:.2f} ms); collective "
                   f"bytes a step {counted['total']:.0f} (all-reduce "
                   f"{counted['all-reduce']:.0f}, all-gather "
-                  f"{counted['all-gather']:.0f}) = the formula; one decode "
+                  f"{counted['all-gather']:.0f}) = the formula = the dry "
+                  f"run's trace of the step ({traced['total']:.0f}; "
+                  f"{t_trace:.1f} s on the host); one decode "
                   f"step {sec['step'] * 1e3:.2f} ms by host clock, of it "
                   f"{n_ar} all-reduces {sec['all-reduce'] * 1e3:.2f} ms "
                   f"({sec['all-reduce'] / max(n_ar, 1) * 1e3:.3f} ms each)"

@@ -9,17 +9,22 @@ in one leaf: otherwise it replicates (smollm's 9 heads replicate over
 model=16 while its mlp and vocab dims shard). One rule table so stays
 valid for every architecture.
 
-A mesh here is its axis sizes: a mapping of axis name to size, or any
+A mesh here is its axis sizes: a mapping of axis name to size, any
 object with such a ``.shape`` (``launch.mesh.production_mesh_shape``, a
-``launch.mesh.Mesh``). The port has no partitioner: a sharded program
-places every tensor by hand, slicing each leaf to a rank's shard from its
-``spec_for`` entries (``shard_slice``), and ``constrain`` is the identity.
-``Placed`` holds a tensor as the shards of every rank of a mesh (the
-elastic shrink gathers and re-slices it).
+``launch.mesh.Mesh``), or a torch ``DeviceMesh`` with named dims. The
+serving engine places every tensor by hand, slicing each leaf to a rank's
+shard from its ``spec_for`` entries (``shard_slice``). The dry run places
+its tensors as DTensors on a ``DeviceMesh`` (``dtensor_placements``) and
+lets DTensor's sharding propagation partition the step; there
+``constrain`` pins an activation's placement, as the reference's
+``with_sharding_constraint`` does for XLA's partitioner. ``Placed`` holds
+a tensor as the shards of every rank of a mesh (the elastic shrink
+gathers and re-slices it).
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from dataclasses import dataclass
 from typing import (Dict, List, Mapping, Optional, Sequence, Tuple,
@@ -103,9 +108,14 @@ def serving_rules(n_model: int, num_heads: int, num_kv_heads: int) -> dict:
 
 
 def mesh_sizes(mesh) -> Mapping[str, int]:
-    """Axis name -> size of a mesh given as a mapping or by its
-    ``.shape``."""
-    return mesh if isinstance(mesh, Mapping) else mesh.shape
+    """Axis name -> size of a mesh given as a mapping, by its ``.shape``
+    or as a ``DeviceMesh`` (named dims)."""
+    if isinstance(mesh, Mapping):
+        return mesh
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return mesh.shape
 
 
 def axis_size(mesh, phys: Entry) -> int:
@@ -198,13 +208,162 @@ def sharding_for(shape: Sequence[int], axes: Axes, mesh=None
     return spec_for(shape, axes, mesh)
 
 
+def dtensor_placements(spec: Sequence[Entry], mesh) -> tuple:
+    """DTensor placements, one per dim of the ``DeviceMesh`` ``mesh``, of a
+    tensor placed by ``spec_for`` entries: ``Shard(d)`` on each mesh dim
+    that dim ``d``'s entry names, ``Replicate()`` on the others.
+
+    A tuple entry shards one dim over several mesh dims (INFERENCE_RULES'
+    ``mlp: ("model", "data")``). DTensor splits such a dim in mesh-dim
+    order (data-major on a ``data`` x ``model`` mesh) where the
+    reference's ``NamedSharding`` follows the entry's order (model-major):
+    a rank holds other rows of the dim, as many bytes of it."""
+    from torch.distributed.tensor import Replicate, Shard
+    owner = {}
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            for a in ((entry,) if isinstance(entry, str) else entry):
+                owner[a] = dim
+    return tuple(Shard(owner[a]) if a in owner else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def _device_mesh():
+    """The ``DeviceMesh`` ``global_mesh`` activated on this thread, or
+    None (no mesh, or a mesh of axis sizes only)."""
+    mesh = _STATE.mesh
+    return mesh if hasattr(mesh, "mesh_dim_names") else None
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False without importing DTensor when
+    nothing has: the serving and training paths never do)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def local_call(fn, args: Sequence, placements: Sequence, out_placements,
+               grad_placements: Optional[Sequence] = None):
+    """``fn(*args)`` on each rank's local shards, through DTensor's
+    ``local_map``: each DTensor of ``args`` is redistributed to its entry
+    of ``placements`` (None for an argument that is not a DTensor), and
+    each tensor ``fn`` returns becomes a DTensor of its entry of
+    ``out_placements`` (a tuple with one placements tuple per output).
+    ``grad_placements`` places the gradients of the inputs' local shards
+    (default: as the inputs), e.g. ``Partial`` where each rank's shard of
+    the function reads only part of a whole input. Where DTensor has no
+    sharding rule for an op, this makes the partitioning explicit."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(placements),
+                     in_grad_placements=(None if grad_placements is None
+                                         else tuple(grad_placements)),
+                     redistribute_inputs=True)(*args)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations ``x`` [..., d] and a weight ``w`` [d, n]:
+    the product itself for plain tensors. For DTensors the partitioning
+    is explicit (``local_call``), as XLA's partitioner places a dot, mesh
+    dim by mesh dim:
+
+    - ``w`` sharded on ``d`` and ``x`` sharded on ``d`` too, or whole
+      (then sliced where it lies): partial sums (``Partial``; the
+      row-parallel product, which the next constraint all-reduces);
+    - ``w`` sharded on ``d`` where ``x`` is sharded on another dim (its
+      batch): ``w`` gathered (the FSDP weight all-gather);
+    - ``x`` sharded on ``d`` alone: ``x`` gathered;
+    - ``w`` sharded on ``n`` (column-parallel): kept, unless ``x`` is
+      sharded (or partial) on the same mesh dim, which gathers ``w``;
+    - ``x`` sharded on another dim, or partial with ``w`` whole: kept.
+
+    Each input's gradient is placed as its local product makes it (a
+    weight's is partial over the mesh dims that shard the batch, so the
+    backward of the weight gather is its reduce-scatter)."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x, w = replicated_like(x, w), replicated_like(w, x)
+    nd = x.dim()
+    px, pw, po, gx, gw = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        xs = a.dim % nd if a.is_shard() else None
+        xp = a.is_partial()
+        ws = b.dim % 2 if b.is_shard() else None
+        if ws == 0 and (xs == nd - 1 or (xs is None and not xp)):
+            px.append(Shard(nd - 1)), pw.append(b), po.append(Partial())
+            gx.append(Shard(nd - 1)), gw.append(b)
+            continue
+        if xs == nd - 1 or (xp and ws is not None):
+            xs, xp, a = None, False, Replicate()
+        if ws == 0 or (ws == 1 and (xs is not None or xp)) or b.is_partial():
+            ws, b = None, Replicate()
+        px.append(a), pw.append(b)
+        if xs is not None:
+            po.append(Shard(xs)), gx.append(a), gw.append(Partial())
+        elif xp:
+            po.append(Partial()), gx.append(Replicate()), gw.append(Partial())
+        elif ws == 1:
+            po.append(Shard(nd - 1)), gx.append(Partial()), gw.append(b)
+        else:
+            po.append(Replicate()), gx.append(a), gw.append(b)
+    return local_call(torch.matmul, (x, w), (tuple(px), tuple(pw)),
+                      (tuple(po),), (tuple(gx), tuple(gw)))
+
+
+def replicated_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """``t`` as a DTensor replicated on DTensor ``ref``'s mesh (a tensor
+    the model built, e.g. positions or a mask), or ``t`` itself when it
+    is a DTensor already or ``ref`` is not one."""
+    if is_dtensor(t) or not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def zeros(shape: Sequence[int], axes: Axes, dtype, device) -> torch.Tensor:
+    """A zero tensor; under a ``global_mesh`` holding a ``DeviceMesh`` (the
+    dry run), a DTensor placed by its logical ``axes``, each rank holding
+    its zeroed shard."""
+    mesh = _device_mesh()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    spec = spec_for(shape, axes, mesh)
+    local = torch.zeros(local_shape(shape, spec, mesh_sizes(mesh)),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, dtensor_placements(spec, mesh),
+                              run_check=False)
+
+
+def shard_start(placements, mesh, dim: int, size: int) -> int:
+    """Where this rank's shard of a dim of ``size`` starts under DTensor
+    ``placements`` on ``mesh``: its coordinates on the mesh dims that
+    shard ``dim``, in mesh-dim order (DTensor's split order), times the
+    shard's length."""
+    idx, n = 0, 1
+    for m, p in enumerate(placements):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+    return idx * (size // n)
+
+
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
-    """The identity. The reference pins an activation's placement for
-    XLA's partitioner here; the port has no partitioner, and its sharded
-    program computes each tensor where it is used (the engine's ranks
-    slice their parameters and caches by hand, and the layers call the
-    collectives themselves)."""
-    return x
+    """Pin activation ``x``'s placement to its logical ``axes`` (the
+    reference's ``with_sharding_constraint``): under a ``global_mesh``
+    holding a ``DeviceMesh``, a DTensor ``x`` is redistributed to the
+    placements of ``spec_for(x.shape, axes, mesh)`` (the collectives that
+    takes are issued here). The identity for a plain tensor or without
+    such a mesh: the serving engine's ranks compute on their own shards
+    and call the collectives themselves."""
+    mesh = _device_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    return x.redistribute(mesh, dtensor_placements(
+        spec_for(x.shape, axes, mesh), mesh))
 
 
 def local_shape(shape: Sequence[int], spec: Sequence[Entry],

@@ -1,8 +1,10 @@
 """Dry run of one (arch x shape) cell on the meta device: the cell's step
-runs once at its global shapes with no storage behind any tensor, under a
-count of its matrix products, and the cell's row is written for the
-roofline (the port's counterpart of the reference's ``launch/dryrun.py``,
-which lowers and compiles the cell for a 256- or 512-device mesh).
+runs once at its global shapes with no storage behind any tensor; then
+once more partitioned, as DTensors on a fake 256- or 512-rank mesh, under
+a count of one device's matrix products and of the collectives it
+issues; and the cell's row is written for the roofline (the port's
+counterpart of the reference's ``launch/dryrun.py``, which lowers and
+compiles the cell for a 256- or 512-device mesh).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-27b \\
         --shape train_4k [--multi-pod] [--out artifacts/dryrun_torch]
@@ -13,17 +15,32 @@ Runs on the CPU in seconds and needs no card and no JAX. Rows go to
 ``roofline.load_artifacts`` / ``to_terms`` read the rows of both
 packages. What differs:
 
-- ``cost.flops`` counts the matrix products of the plain function the
-  port computes (``roofline.counts``), for the whole global batch: one
-  device's count, not a per-device share of a partitioned program;
+- ``cost.flops`` counts the matrix products one device runs in the
+  partitioned trace (``roofline.counts.DotCounter(local=True)``: each
+  product on a rank's shards, the function's plain versions on the meta
+  device), where the reference reads its compiled program's cost
+  analysis; ``roofline.counts.dot_flops`` counts the whole step's;
 - ``memory`` holds ``argument_size_in_bytes`` and ``output_size_in_bytes``
   per device, summed from each tensor's placement on the production mesh
   (``launch.specs``). There is no ``temp_size_in_bytes``, because the
   meta device allocates nothing;
-- ``collectives`` is null: the run is unpartitioned, on the meta device,
-  and issues no collective (ROADMAP item 16, the dry run's collective
-  bytes); ``hlo_bytes`` is null (there is no HLO); ``t_lower_s`` is the time
-  of the meta run and ``t_compile_s`` 0.
+- ``collectives`` holds one device's bytes by kind and their ``total``
+  (``roofline.counts.CollectiveCounter``: each collective's result bytes,
+  the reference's ``hlo.collective_bytes`` convention) of the step traced
+  as DTensors on a fake mesh of the production mesh's size
+  (``launch.mesh.fake_device_mesh``, rank 0 of 256 or 512 in this one
+  process). Every argument is placed by its ``spec_for`` tuple, the
+  activations are pinned at the reference's ``constrain`` sites, and
+  DTensor's sharding propagation partitions the rest, with the weight
+  products, attention cores, cache writes, the MoE dispatch and the
+  loss's target pick partitioned explicitly (``distributed.sharding.
+  dense`` / ``local_call``). Each layer's collectives are counted (the
+  reference's scanned layers count once in its HLO); DTensor's
+  resharding differs from XLA's in places (two all-gathers in sequence
+  for a dim sharded over two mesh dims, no collective-permute). A trace
+  that fails raises: the cell has no row;
+- ``hlo_bytes`` is null (there is no HLO); ``t_lower_s`` is the time of
+  the meta run and ``t_compile_s`` that of the partitioned trace.
 """
 from __future__ import annotations
 
@@ -38,13 +55,15 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config, shape_supported
 from repro_torch.distributed.sharding import (DEFAULT_RULES, INFERENCE_RULES,
-                                              SEQ_PARALLEL_RULES, spec_for)
+                                              SEQ_PARALLEL_RULES, global_mesh,
+                                              serving_rules, spec_for)
 from repro_torch.launch import specs as SP
-from repro_torch.launch.mesh import production_mesh_shape
+from repro_torch.launch.mesh import fake_device_mesh, production_mesh_shape
 from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions
+from repro_torch.models.params import map_tree
 from repro_torch.roofline.analytic import analytic_cell
-from repro_torch.roofline.counts import DotCounter
+from repro_torch.roofline.counts import CollectiveCounter, DotCounter
 from repro_torch.roofline.report import model_flops_for
 from repro_torch.training import (AdamWConfig, TrainConfig, init_train_state,
                                   make_train_step)
@@ -52,7 +71,8 @@ from repro_torch.training import (AdamWConfig, TrainConfig, init_train_state,
 META = SP.META
 
 
-def build_step(cfg, shape, opts: ModelOptions, tcfg: TrainConfig):
+def build_step(cfg, shape, opts: ModelOptions, tcfg: TrainConfig,
+               cache_dtype=SP.CACHE_DTYPE):
     """Returns (fn, argument names) for the cell, on the meta device."""
     if shape.kind == "train":
         step = make_train_step(cfg, opts, tcfg, device=META)
@@ -60,13 +80,102 @@ def build_step(cfg, shape, opts: ModelOptions, tcfg: TrainConfig):
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             return M.prefill(cfg, opts, params, batch, shape.seq_len,
-                             cache_dtype=SP.CACHE_DTYPE, device=META)
+                             cache_dtype=cache_dtype, device=META)
         return prefill_step, ("params", "batch")
 
     def serve_step(params, token, caches, index):
         return M.decode_step(cfg, opts, params, token, caches, index,
                              device=META)
     return serve_step, ("params", "token", "caches", "index")
+
+
+def partitioned(fn, placed_args, sizes, rules):
+    """Trace ``fn(*placed_args(mesh))`` partitioned: ``placed_args`` makes
+    the step's arguments as DTensors on ``mesh``, a fake mesh of axis
+    ``sizes``; the trace runs under the sharding ``rules`` (which
+    ``constrain`` reads), with the constants the model builds (positions,
+    masks) taken as replicated. Returns (the ``CollectiveCounter``, with
+    its counts; a ``DotCounter`` of one device's matrix products; the
+    seconds the trace took)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    t0 = time.time()
+    with fake_device_mesh(sizes) as mesh, global_mesh(mesh, rules):
+        args = placed_args(mesh)
+        with CollectiveCounter() as counter, DotCounter(local=True) as dots, \
+                implicit_replication():
+            fn(*args)
+    return counter, dots, time.time() - t0
+
+
+def step_collectives(cfg, shape, sizes, rules, opts=None, tcfg=None,
+                     dtype=None):
+    """(collective bytes by kind and ``total``, one device's matrix-product
+    FLOPs, seconds) of the cell's step partitioned over a fake mesh of
+    axis ``sizes`` (``partitioned``): the parameters, inputs and caches
+    placed by their ``spec_for`` tuples under ``rules``; a train step's
+    AdamW state made from the placed parameters (moments placed as they
+    are, the count replicated). ``dtype`` (default: the dry run's bf16
+    parameters and caches) gives every floating tensor another type."""
+    opts = opts or ModelOptions()
+    tcfg = tcfg or TrainConfig(opt=AdamWConfig())
+    params, params_pl = SP.model_specs_and_placements(
+        cfg, sizes, dtype or SP.PARAM_DTYPE, rules=rules)
+    inputs = SP.input_specs(cfg, shape, opts)
+    if dtype is not None:
+        inputs = map_tree(lambda t: (torch.empty(t.shape, dtype=dtype,
+                                                 device=META)
+                                     if t.is_floating_point() else t),
+                          inputs)
+    in_pl = SP.input_placements(cfg, shape, sizes, opts, rules)
+    fn, order = build_step(cfg, shape, opts, tcfg,
+                           cache_dtype=dtype or SP.CACHE_DTYPE)
+
+    def placed(mesh):
+        out = []
+        for name in order:
+            if name == "params":
+                out.append(SP.as_dtensors(params, params_pl, mesh))
+            elif name == "opt_state":
+                out.append(init_train_state(cfg, tcfg, out[0]))
+            else:
+                out.append(SP.as_dtensors(inputs[name], in_pl[name], mesh))
+        return out
+    counter, dots, seconds = partitioned(fn, placed, sizes, rules)
+    return counter.counts(), dots.total, seconds
+
+
+def serving_decode_collectives(cfg, n_model: int, batch: int, max_seq: int,
+                               dtype=torch.float32) -> dict:
+    """Collective bytes one device issues in one decode step of the sharded
+    serving engine (``ServingEngine(mesh=...)`` over a ``model`` mesh of
+    ``n_model`` ranks, ``serving_rules``), from the dry run's trace: the
+    step as DTensors on a fake ('model',) mesh with parameters in
+    ``dtype``, a dense cache of ``max_seq`` rows and ``batch`` slots, and
+    the logits gathered whole for sampling, as the engine's rank 0
+    samples them. ``ShardGroup.counts()`` of the engine's step should
+    equal it."""
+    from torch.distributed.tensor import Replicate
+    opts = ModelOptions()
+    sizes = {"model": n_model}
+    rules = serving_rules(n_model, cfg.num_heads, cfg.num_kv_heads)
+    params, params_pl = SP.model_specs_and_placements(cfg, sizes, dtype,
+                                                      rules=rules)
+    caches = M.init_caches(cfg, batch, max_seq, dtype, opts, device=META)
+    caches_pl = SP.cache_placements(cfg, batch, max_seq, sizes, opts, rules)
+    token = torch.empty((batch, 1), dtype=torch.int32, device=META)
+    index = torch.empty((batch,), dtype=torch.int32, device=META)
+
+    def step(params, token, caches, index):
+        logits, _ = M.decode_step(cfg, opts, params, token, caches, index,
+                                  device=META)
+        return logits.redistribute(placements=[Replicate()])
+
+    def placed(mesh):
+        return (SP.as_dtensors(params, params_pl, mesh),
+                SP.as_dtensors(token, (None, None), mesh),
+                SP.as_dtensors(caches, caches_pl, mesh),
+                SP.as_dtensors(index, (None,), mesh))
+    return partitioned(step, placed, sizes, rules)[0].counts()
 
 
 def _output_bytes(cfg, shape, opts, out, mesh, rules, params_pl) -> float:
@@ -145,10 +254,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                                mesh)
 
     t0 = time.time()
-    with DotCounter() as counter:
-        out = fn(*args)
+    out = fn(*args)
     t_lower = time.time() - t0
     out_bytes = _output_bytes(cfg, shape, opts, out, mesh, rules, params_pl)
+
+    collectives, flops, t_part = step_collectives(cfg, shape, mesh, rules,
+                                                  opts, tcfg)
 
     ac = analytic_cell(cfg, shape, multi_pod=multi_pod,
                        causal_pairs=opts.causal_pairs,
@@ -158,10 +269,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     row = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name, "tag": tag,
         "kind": shape.kind,
-        "cost": {"flops": counter.total},
+        "cost": {"flops": flops},
         "memory": {"argument_size_in_bytes": arg_bytes,
                    "output_size_in_bytes": out_bytes},
-        "collectives": None,
+        "collectives": collectives,
         "analytic": {"flops_per_dev": ac.flops_per_dev,
                      "hbm_bytes_per_dev": ac.hbm_bytes_per_dev,
                      "coll_bytes_per_dev": ac.coll_bytes_per_dev,
@@ -169,16 +280,18 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "model_flops": model_flops_for(cfg, shape),
         "params_total": counts["total"],
         "params_active": counts["active"],
-        "t_lower_s": t_lower, "t_compile_s": 0.0,
+        "t_lower_s": t_lower, "t_compile_s": t_part,
         "hlo_bytes": None,
     }
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: "
-              f"flops={counter.total:.6e} (counted, global) "
+              f"flops/dev={flops:.6e} (counted) "
               f"args/dev={arg_bytes / 2**30:.3f}GiB "
               f"out/dev={out_bytes / 2**30:.3f}GiB "
+              f"coll/dev={collectives['total']:.6e} "
               f"analytic flops/dev={ac.flops_per_dev:.6e} "
-              f"(meta run {t_lower:.1f}s)")
+              f"(meta run {t_lower:.1f}s, partitioned trace "
+              f"{t_part:.1f}s)")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         suffix = f"-{tag}" if tag else ""

@@ -9,9 +9,15 @@ and, for a serving mesh, the ``ShardGroup`` its ranks share. A rank is a
 process: ``serving.sharded.spawn_mesh`` starts ranks 1..N-1 and makes
 rank 0's mesh. With ``backend="gloo"`` several ranks may share one card
 (or run on the CPU); ``"nccl"`` takes one card a rank.
+
+``fake_device_mesh`` is the dry run's mesh: a torch ``DeviceMesh`` of the
+production mesh's size whose process group is torch's fake backend, so
+one process traces the partitioned step as rank 0 and no collective
+moves a byte.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -45,6 +51,42 @@ def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:
     sizes = dict(zip(axes, shape))
     _validate_axes(**sizes)
     return sizes
+
+
+@contextlib.contextmanager
+def fake_device_mesh(sizes):
+    """A ``DeviceMesh`` of axis ``sizes`` (a mapping of name to size, as
+    ``production_mesh_shape`` or a dev mesh's ``.shape`` gives) backed by
+    torch's fake process group: this process is rank 0 of prod(sizes)
+    ranks, and the collectives it issues complete at once without moving
+    data. Its device type is ``cuda``, the production mesh's: on a
+    ``cpu`` mesh DTensor replaces each all-to-all by an all-gather, as
+    gloo has none. It touches no card (the fake group moves nothing and
+    the dry run's tensors live on the meta device), so it needs none.
+    The fake group is the process's default group while the context
+    lasts and is destroyed at its end; a process that already has a
+    default group is refused (run the trace in a child process). A
+    serving mesh's groups are never the default group
+    (``collectives.make_group``), so they are left as they were."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    sizes = dict(sizes)
+    _validate_axes(**sizes)
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh needs a process without a "
+                           "default process group: run the trace in a "
+                           "child process")
+    world = 1
+    for n in sizes.values():
+        world *= n
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        yield DeviceMesh("cuda", torch.arange(world).reshape(
+            tuple(sizes.values())), mesh_dim_names=tuple(sizes))
+    finally:
+        dist.destroy_process_group()
 
 
 @dataclass

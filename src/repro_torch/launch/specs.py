@@ -10,7 +10,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import shard_bytes, spec_for
+from repro_torch.distributed.sharding import (dtensor_placements, local_shape,
+                                              mesh_sizes, shard_bytes,
+                                              spec_for)
 from repro_torch.models import model as M
 from repro_torch.models import stacks
 from repro_torch.models.layers import ModelOptions
@@ -114,3 +116,21 @@ def tree_bytes_per_dev(tree, placements, mesh) -> float:
     items = leaves(tree) if isinstance(tree, dict) else [("", tree)]
     return sum(shard_bytes(t.shape, place[path], mesh, t.element_size())
                for path, t in items)
+
+
+def as_dtensors(tree, placements, mesh):
+    """A tree of meta tensors as DTensors on the ``DeviceMesh`` ``mesh``,
+    each placed by its ``spec_for`` tuple in ``placements`` (a tree of the
+    same layout, or one tuple for a single tensor): each rank's shard is a
+    meta tensor of its local shape."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: as_dtensors(v, placements[k], mesh)
+                for k, v in tree.items()}
+    local = torch.empty(local_shape(tree.shape, placements,
+                                    mesh_sizes(mesh)),
+                        dtype=tree.dtype, device=META)
+    return DTensor.from_local(local, mesh,
+                              dtensor_placements(placements, mesh),
+                              run_check=False, shape=tree.shape,
+                              stride=tree.stride())

@@ -5,9 +5,10 @@ repro_torch.launch.dryrun``), on the CPU and the meta device.
     PYTHONPATH=src python -m repro_torch.launch.sweep --out artifacts/dryrun_torch
 
 Cells ``configs.shape_supported`` refuses are listed as skipped; a cell
-whose row already exists in ``--out`` is not run again. The summary goes
-to ``_sweep_summary.json`` in ``--out``; the exit code is 1 if any cell
-failed.
+whose row already exists in ``--out`` is not run again. The sweep prints
+its wall time and, for every row in ``--out``, one device's FLOPs and
+collective bytes by kind. The summary goes to ``_sweep_summary.json`` in
+``--out``; the exit code is 1 if any cell failed.
 """
 from __future__ import annotations
 
@@ -81,12 +82,21 @@ def main(argv=None):
                 except subprocess.TimeoutExpired:
                     failed.append((arch, shape, mesh, "timeout"))
                     print(f"TIMEOUT {arch} x {shape} x {mesh}", flush=True)
-    print(f"\n=== sweep done in {(time.time()-t00)/60:.1f} min: "
+    wall = time.time() - t00
+    print(f"\n=== sweep done in {wall / 60:.1f} min ({wall:.1f} s): "
           f"{len(ok)} ok, {len(failed)} failed, {len(skipped)} skipped ===")
     for f in failed:
         print("FAILED:", f)
     for s in skipped:
         print("SKIPPED:", s)
+    for arch, shape, mesh, _ in ok:
+        with open(os.path.join(args.out,
+                               f"{arch}__{shape}__{mesh}.json")) as f:
+            row = json.load(f)
+        coll = row["collectives"]
+        print(f"ROW {arch} {shape} {mesh} flops/dev="
+              f"{row['cost']['flops']:.6e} trace={row['t_compile_s']:.1f}s "
+              + " ".join(f"{k}={v:.6e}" for k, v in sorted(coll.items())))
     with open(os.path.join(args.out, "_sweep_summary.json"), "w") as f:
         json.dump({"ok": ok, "failed": failed, "skipped": skipped}, f, indent=1)
     return 1 if failed else 0

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.collectives import ShardGroup
 from repro_torch.kernels.chunk_prefill.ops import chunk_prefill_attention
 from repro_torch.kernels.chunk_prefill.paged import (
@@ -27,7 +28,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       slot_index)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.moe_gmm.ops import grouped_mlp
+from repro_torch.kernels.moe_gmm.ops import gmm_down, grouped_mlp
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models import kv_quant
 
@@ -120,7 +121,7 @@ def _act(h, g, kind: str):
 
 def _proj(x, w):
     """x [..., d] times a weight [d, ...] -> [..., *w.shape[1:]]."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+    return SH.dense(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
                                                    *w.shape[1:])
 
 
@@ -344,6 +345,8 @@ def update_cache_ring(cache, new, index):
     cache no write is dropped, as in the reference: a masked tick step
     writes what its slot's next real step writes there, and a retired
     slot's ring is replaced whole at its next admission."""
+    if SH.is_dtensor(cache):
+        return _sharded_row_write(cache, new, index, ring=True)
     B, W = cache.shape[:2]
     slot = slot_index(index, B, cache.device).long() % W
     cache[torch.arange(B, device=cache.device), slot] = \
@@ -386,11 +389,65 @@ def update_cache_chunk(cache, new, index, n_valid=None, plan=None):
     its budget cut to the cache) writes nothing. A dropped row rewrites
     the value its target already holds (``chunk_write_plan``; ``plan``:
     one computed already)."""
+    if SH.is_dtensor(cache):
+        return _sharded_row_write(cache, new, index, n_valid)
     B, C = new.shape[:2]
     rows, pos, keep = plan or chunk_write_plan(index, n_valid, B, C,
                                                cache.shape[1], cache.device)
     cache[rows, pos] = torch.where(keep[..., None, None],
                                    new.to(cache.dtype), cache[rows, pos])
+    return cache
+
+
+def _sharded_row_write(cache, new, index, n_valid=None, ring=False):
+    """A dense (``update_cache_chunk``) or ring (``update_cache_ring``)
+    write into a DTensor cache [B, Smax, K, h] (the dry run), on each
+    rank's shard (``local_call``): DTensor has no sharding rule for the
+    in-place ``index_put_``. ``new`` [B, C, K, h] takes the cache's batch
+    and head shards and is whole on every other dim; the cache keeps its
+    placements. A cache sharded on its rows (``kv_seq``) takes one row a
+    slot (decode), written by the rank whose rows hold its position (a
+    row past the cache, or masked by ``n_valid``, by none): no collective
+    beyond ``new``'s redistribution."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = cache.placements
+    rows_sharded = any(p.is_shard(1) for p in pl)
+    smax = cache.shape[1]
+    off = SH.shard_start(pl, cache.device_mesh, 1, smax)
+
+    def like_cache(t):
+        if not SH.is_dtensor(t):
+            return None
+        if t.dim() == 0:
+            return (Replicate(),) * len(pl)
+        return tuple(p if p.is_shard(0) or (t.dim() == 4 and p.is_shard(2))
+                     else Replicate() for p in pl)
+
+    def write(c, n, idx, nv):
+        if not rows_sharded:
+            return (update_cache_ring(c, n, idx) if ring
+                    else update_cache_chunk(c, n, idx, nv))
+        B, C = n.shape[:2]
+        if C != 1:
+            raise NotImplementedError(
+                f"a cache sharded on its rows takes one row a slot, got "
+                f"{C}")
+        pos = slot_index(idx, B, c.device).long()
+        ok = pos < smax
+        if ring:
+            pos, ok = pos % smax, torch.ones_like(ok)
+        if nv is not None:
+            ok &= slot_index(nv, B, c.device) > 0
+        pos = pos - off
+        ok &= (pos >= 0) & (pos < c.shape[1])
+        b, pos = torch.arange(B, device=c.device), pos.clamp(0, c.shape[1] - 1)
+        c[b, pos] = torch.where(ok[:, None, None], n[:, 0].to(c.dtype),
+                                c[b, pos])
+        return c
+
+    SH.local_call(write, (cache, new, index, n_valid),
+                  [pl] + [like_cache(a) for a in (new, index, n_valid)],
+                  (pl,))
     return cache
 
 
@@ -586,6 +643,83 @@ def update_cache_paged_chunk(pages, new, page_table, start, n_valid=None,
 # unified attention dispatch
 # ---------------------------------------------------------------------------
 
+def _decode_partial(q, k, v, idx, window: int, off: int):
+    """One shard's part of a decode: q [B,N,h] against cache rows [B,L,K,h]
+    at positions ``off .. off+L-1``, rows up to ``idx`` [B] (and within
+    ``window``) live. Returns the f32 running max [B,N], sum [B,N] and
+    unnormalised output [B,N,h] that the shards combine (the split-key
+    decode kernel's partials)."""
+    B, N, h = q.shape
+    L, K = k.shape[1], k.shape[2]
+    kpos = off + torch.arange(L, device=q.device)
+    valid = kpos[None] <= idx[:, None]
+    if window != GLOBAL_WINDOW:
+        valid &= (idx[:, None] - kpos[None]) < window
+    s = torch.einsum("bkgh,btkh->bkgt", q.float().reshape(B, K, N // K, h),
+                     k.float()) * (1.0 / math.sqrt(h))
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * valid[:, None, None]
+    acc = torch.einsum("bkgt,btkh->bkgh", p, v.float())
+    return m.reshape(B, N), p.sum(-1).reshape(B, N), acc.reshape(B, N, h)
+
+
+def sharded_attention(core, q, k, v, *rest, decode=None):
+    """``core(q, k, v, *rest)`` (an attention core: q [B,S,N,h], k and v
+    [B,Skv,K,h]) on each rank's shard of DTensors (the dry run), through
+    ``local_call``: attention is independent across sequences and heads,
+    so q keeps its batch shards, and its head shards when they split the
+    KV heads evenly too (else the heads are gathered); k and v follow q
+    and are whole along their rows. ``rest``'s DTensors (positions, the
+    decode index) are replicated.
+
+    ``decode`` = (window, ring) marks a decode core over a cache sharded
+    on its rows (``kv_seq``, where the batch does not divide): each rank
+    attends to its own rows (``_decode_partial``) and the ranks combine
+    the partial softmax with three all-reduces over the row shards (a
+    max, two sums), as the split-key decode kernel combines its splits,
+    rather than gathering the cache."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    K, n_heads = k.shape[2], 1
+    for m, p in enumerate(q.placements):
+        if p.is_shard(2):
+            n_heads *= mesh.size(m)
+    heads = K % n_heads == 0
+    pq = tuple(Shard(0) if p.is_shard(0) else
+               Shard(2) if p.is_shard(2) and heads else Replicate()
+               for p in q.placements)
+    rows = [m for m, p in enumerate(k.placements)
+            if p.is_shard(1)] if decode else []
+    pk = tuple(Shard(1) if m in rows else p for m, p in enumerate(pq))
+    rep = [None if not SH.is_dtensor(t) else (Replicate(),) * mesh.ndim
+           for t in rest]
+    fn = core
+    if rows:
+        window, ring = decode
+        smax = k.shape[1]
+        off = SH.shard_start(k.placements, mesh, 1, smax)
+
+        def fn(q, k, v, q_pos, k_pos, index):
+            import torch.distributed._functional_collectives as funcol
+            B = q.shape[0]
+            idx = slot_index(index, B, q.device).long()
+            if ring:
+                idx = idx.clamp(max=smax - 1)
+            m, l, acc = _decode_partial(q[:, 0], k, v, idx, window, off)
+            top = m
+            for d in rows:
+                top = funcol.all_reduce(top, "max", (mesh, d))
+            w = torch.exp(m - top)
+            l, acc = l * w, acc * w[..., None]
+            for d in rows:
+                l = funcol.all_reduce(l, "sum", (mesh, d))
+                acc = funcol.all_reduce(acc, "sum", (mesh, d))
+            out = acc / torch.clamp(l, min=1e-30)[..., None]
+            return out.to(q.dtype)[:, None]
+    return SH.local_call(fn, (q, k, v) + rest, [pq, pk, pk] + rep, (pq,))
+
+
 def attention_route(mode: str, layout: str, *, S: int, Skv: int, window: int,
                     opts: ModelOptions, causal: bool = True) -> str:
     """The routing decision of every attention dispatch of the port:
@@ -644,7 +778,24 @@ def run_attention_core(route: str, q, k, v, *, opts: ModelOptions,
     chunk start (int or per-slot [B]); ``live_len`` bounds the chunk
     cores' key axis (see ``band_len``). ``decode_dense`` and
     ``chunk_banded`` are the plain cores, kept as the reference's
-    fallbacks."""
+    fallbacks. DTensor arguments (the dry run) run the core on each rank's
+    shard (``sharded_attention``)."""
+    if SH.is_dtensor(q):
+        if page_table is not None:
+            raise NotImplementedError("attention through a page table has "
+                                      "no DTensor partitioning")
+
+        def core(q, k, v, q_pos, k_pos, index):
+            return run_attention_core(route, q, k, v, opts=opts,
+                                      window=window, causal=causal,
+                                      q_pos=q_pos, k_pos=k_pos, index=index,
+                                      live_len=live_len)
+        decode = None
+        if route in ("decode_flash", "decode_ring"):
+            decode = (GLOBAL_WINDOW if route == "decode_ring" else window,
+                      route == "decode_ring")
+        return sharded_attention(core, q, k, v, q_pos, k_pos, index,
+                                 decode=decode)
     if route == "decode_flash":
         return decode_attention(q[:, 0], k, v, index, window=window)[:, None]
     if route == "decode_ring":
@@ -739,6 +890,7 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
     if cfg.pos == "rope" and ctx is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = SH.constrain(q, "batch", "act_seq", "act_heads", None)
 
     if ctx is not None:
         route = attention_route("cross", "none", S=S, Skv=k.shape[1],
@@ -821,7 +973,10 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
                                  causal=causal, q_pos=positions,
                                  k_pos=positions)
     wo = p[pre + "wo"]
-    out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = SH.dense(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
+    # DTensors: the row-parallel product's partial sums reduced once, here
+    # (where the sharded serving path all-reduces them)
+    out = SH.constrain(out, "batch", "act_seq", "act_embed")
     if opts.shard is not None and not pre and wo.shape[0] != cfg.num_heads:
         # head-sharded: this rank's heads give a partial sum over the
         # whole d_model (the row-parallel reduction point)
@@ -836,12 +991,14 @@ def attention(p, x, cfg: ModelConfig, opts: ModelOptions, window: int,
 def mlp(p, x, cfg: ModelConfig, shard: Optional[ShardGroup] = None):
     """The dense FFN; with ``shard`` and a width-sharded ``wo_mlp`` (fewer
     than ``d_ff`` rows) the partial sums are all-reduced."""
-    h = x @ p["wi"]
+    h = SH.dense(x, p["wi"])
     if cfg.act in ("silu", "gelu"):
-        h = _act(h, x @ p["wg"], cfg.act)
+        h = _act(h, SH.dense(x, p["wg"]), cfg.act)
     else:
         h = _act(h, None, cfg.act)
-    out = h @ p["wo_mlp"]
+    h = SH.constrain(h, "batch", "act_seq", "act_mlp")
+    out = SH.constrain(SH.dense(h, p["wo_mlp"]), "batch", "act_seq",
+                       "act_embed")
     if shard is not None and p["wo_mlp"].shape[0] != cfg.d_ff:
         out = shard.all_reduce_sum(out)
     return out
@@ -857,7 +1014,7 @@ def _route(xt, router, cfg: ModelConfig):
     experts are masked out. Ties go to the lower expert id, as in
     ``jax.lax.top_k`` (``torch.topk`` promises no order)."""
     E = router.shape[-1]
-    logits = (xt @ router).float()
+    logits = SH.dense(xt, router).float()
     if E > cfg.num_experts:
         pad = torch.arange(E, device=xt.device) >= cfg.num_experts
         logits = torch.where(pad[None], NEG_INF, logits)
@@ -897,44 +1054,189 @@ def moe(p, x, cfg: ModelConfig, opts: ModelOptions):
         out = (he.reshape(T, K, D) * gates[..., None].to(he.dtype)).sum(1)
         return out.reshape(B, S, D)
 
-    E_real = cfg.num_experts   # capacity sizes from the real expert count
+    C, Cs = _capacity(cfg, opts, B, S, T)
+    if SH.is_dtensor(xt):
+        out = _sharded_moe(p, xt, gates, expert_idx, cfg, opts, B, S)
+        return SH.constrain(out.reshape(B, S, D), "batch", "act_seq",
+                            "act_embed")
+    rows = _moe_rows(expert_idx, B, S, K, E, C, Cs, opts)
+    xe = _moe_dispatch(xt, rows, E, C, K)
+    he = grouped_mlp(xe, p["moe_wi"], p["moe_wg"], p["moe_wo"], cfg.act)
+    return _moe_combine(he, rows, gates).reshape(B, S, D)
+
+
+def _capacity(cfg: ModelConfig, opts: ModelOptions, B: int, S: int,
+              T: int):
+    """(C, C_seq): the capacity buffer's slots an expert, from the real
+    expert count; ``moe_per_seq_dispatch`` gives each of the B sequences
+    C_seq of them (C = B * C_seq)."""
+    K, E_real = cfg.top_k, cfg.num_experts
     if opts.moe_per_seq_dispatch and B > 1:
         Cs = max(1, math.ceil(K * S / E_real * opts.moe_capacity_factor))
-        C = B * Cs
+        return B * Cs, Cs
+    C = max(1, math.ceil(K * T / E_real * opts.moe_capacity_factor))
+    return C, C
+
+
+def _moe_rows(expert_idx, B: int, S: int, K: int, E: int, C: int, Cs: int,
+              opts: ModelOptions, e0: int = 0, c0: int = 0, El=None,
+              Cl=None):
+    """Where each of the T*K assignments lands: its row in the capacity
+    buffer's block of experts [e0, e0+El) x slots [c0, c0+Cl) (the whole
+    buffer by default), or -1 (dropped, or outside the block). Expert e
+    takes its first C assignments in token-major order (an exclusive
+    cumsum over the assignments), or, under ``moe_per_seq_dispatch``, its
+    first C_seq within each sequence."""
+    El, Cl = El or E, Cl or C
+    if opts.moe_per_seq_dispatch and B > 1:
         e_seq = expert_idx.reshape(B, S * K)
         onehot = F.one_hot(e_seq, E)
         pos = onehot.cumsum(1) - onehot                  # local prefix sum
         slot_s = pos.gather(2, e_seq[..., None])[..., 0]
         keep = (slot_s < Cs).reshape(-1)
-        b_of = torch.arange(B, device=x.device).repeat_interleave(S * K)
+        b_of = torch.arange(B, device=expert_idx.device).repeat_interleave(
+            S * K)
         slot = b_of * Cs + slot_s.reshape(-1)
         flat_e = e_seq.reshape(-1)
     else:
-        C = max(1, math.ceil(K * T / E_real * opts.moe_capacity_factor))
         flat_e = expert_idx.reshape(-1)                  # [T*K]
         onehot = F.one_hot(flat_e, E)
         pos = onehot.cumsum(0) - onehot
         slot = pos.gather(1, flat_e[:, None])[:, 0]
         keep = slot < C
-    dest = torch.where(keep, flat_e * C + slot, E * C)   # E*C: the sink
+    if (El, Cl) == (E, C):
+        return torch.where(keep, flat_e * C + slot, -1)
+    keep = (keep & (flat_e >= e0) & (flat_e < e0 + El)
+            & (slot >= c0) & (slot < c0 + Cl))
+    return torch.where(keep, (flat_e - e0) * Cl + slot - c0, -1)
 
-    token_of = torch.arange(T, device=x.device).repeat_interleave(K)
-    buf_tokens = torch.zeros(E * C + 1, dtype=torch.long, device=x.device)
+
+def _moe_dispatch(xt, rows, El: int, Cl: int, K: int):
+    """The capacity buffer's block [El, Cl, D]: each assignment's token row
+    at its row (``_moe_rows``), zeros in the slots nobody took."""
+    T, D = xt.shape
+    dest = torch.where(rows >= 0, rows, El * Cl)         # El*Cl: the sink
+    token_of = torch.arange(T, device=xt.device).repeat_interleave(K)
+    buf_tokens = torch.zeros(El * Cl + 1, dtype=torch.long, device=xt.device)
     buf_tokens[dest] = token_of
-    buf_valid = torch.zeros(E * C + 1, dtype=x.dtype, device=x.device)
+    buf_valid = torch.zeros(El * Cl + 1, dtype=xt.dtype, device=xt.device)
     # index_fill_ takes the 1 as a scalar: an indexed assignment of a
     # Python number copies it to the device first, a host sync that a
     # CUDA graph cannot capture
     buf_valid.index_fill_(0, dest, 1.0)
-    xe = (xt[buf_tokens[:-1]].reshape(E, C, D)
-          * buf_valid[:-1].reshape(E, C, 1))
-    he = grouped_mlp(xe, p["moe_wi"], p["moe_wg"], p["moe_wo"], cfg.act)
-    he = he.reshape(E * C, D)
+    return (xt[buf_tokens[:-1]].reshape(El, Cl, D)
+            * buf_valid[:-1].reshape(El, Cl, 1))
 
-    src = torch.where(keep, flat_e * C + slot, 0)
-    picked = he[src] * keep[:, None].to(he.dtype)        # [T*K, D]
+
+def _moe_combine(he, rows, gates):
+    """Each token's gated sum [T, D] over its assignments whose rows the
+    buffer block ``he`` [El, Cl, D] holds."""
+    El, Cl, D = he.shape
+    T, K = gates.shape
+    keep = rows >= 0
+    picked = (he.reshape(El * Cl, D)[torch.where(keep, rows, 0)]
+              * keep[:, None].to(he.dtype))                  # [T*K, D]
     picked = picked.reshape(T, K, D) * gates[..., None].to(he.dtype)
-    return picked.sum(1).reshape(B, S, D)
+    return picked.sum(1)
+
+
+def _sharded_moe(p, xt, gates, expert_idx, cfg: ModelConfig,
+                 opts: ModelOptions, B: int, S: int):
+    """``moe``'s capacity dispatch on DTensors (the dry run), partitioned
+    explicitly (``local_call``; DTensor has no rule for its scatter and
+    gather). Returns the tokens' outputs [T, D] as partial sums.
+
+    The capacity buffer [E, C, D] is placed as the reference constrains it
+    (experts over ``act_experts``' mesh dims, slots over ``batch``'s).
+    Every rank gathers every token's row, expert ids and gates (the slots
+    are a prefix sum over all tokens, in token order), numbers the
+    assignments as ``moe`` does and fills its own slots; the grouped MLP
+    runs on them with the expert weights gathered but for their expert
+    shards; each rank's slots give partial sums of every token's output,
+    which the sub-layer's constraint reduces onto the tokens' shards.
+    Per layer that gathers the tokens [T, D] once, where routing each row
+    to its slot's rank (an all-to-all) would move about K x T / n_tokens
+    rows: with static shapes an all-to-all must be sized for the whole
+    slot range, which costs more than the gather."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = xt.device_mesh
+    T, D = xt.shape
+    E, K = p["router"].shape[-1], cfg.top_k
+    C, Cs = _capacity(cfg, opts, B, S, T)
+    xpl = SH.dtensor_placements(
+        SH.spec_for((E, C, D), ("act_experts", "batch", None), mesh), mesh)
+    n = dict.fromkeys((0, 1), 1)
+    for m, pl in enumerate(xpl):
+        if pl.is_shard():
+            n[pl.dim] *= mesh.size(m)
+    block = dict(e0=SH.shard_start(xpl, mesh, 0, E),
+                 c0=SH.shard_start(xpl, mesh, 1, C), El=E // n[0],
+                 Cl=C // n[1])
+
+    def dispatch(x, idx):
+        rows = _moe_rows(idx, B, S, K, E, C, Cs, opts, **block)
+        return _moe_dispatch(x, rows, block["El"], block["Cl"], K)
+
+    def combine(h, idx, g):
+        return _moe_combine(h, _moe_rows(idx, B, S, K, E, C, Cs, opts,
+                                         **block), g)
+
+    whole = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if pl.is_shard() else Replicate() for pl in xpl)
+    xe = SH.local_call(dispatch, (xt, expert_idx), (whole, whole), (xpl,),
+                       (part, whole))
+    xe = SH.constrain(xe, "act_experts", "batch", None)
+    he, split = _sharded_grouped_mlp(p, xe, cfg)
+    hpl = he.placements
+    out = tuple(Shard(1) if m in split else q for m, q in enumerate(part))
+    return SH.local_call(combine, (he, expert_idx, gates),
+                         (hpl, whole, whole), (out,),
+                         (hpl, whole, tuple(Partial() if m in split else q
+                                            for m, q in enumerate(part))))
+
+
+def _sharded_grouped_mlp(p, xe, cfg: ModelConfig):
+    """The experts' MLP on the DTensor capacity buffer ``xe`` [E, C, D]
+    (``_sharded_moe``): each rank runs its slots against its experts'
+    weights. On a mesh dim that shards the weights' ``D`` (FSDP) where the
+    slots are sharded too, the weights are gathered (``grouped_mlp``, the
+    kernel wrapper, on the shards). Where the slots are whole on it (a
+    decode of one sequence), the weights stay put: the gate and up
+    products run on ``D``'s slices and their partial sums are all-reduced,
+    and the down product leaves its output sharded on ``D``. Returns (the
+    outputs [E, C, D], the mesh dims that split ``D``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xpl = xe.placements
+    wi, wg, wo = p["moe_wi"], p["moe_wg"], p["moe_wo"]
+    split = [m for m, (q, w) in enumerate(zip(xpl, wi.placements))
+             if w.is_shard(1) and not q.is_shard()]
+    n = len(xpl)
+
+    def wpl(on_split):
+        return tuple(Shard(0) if xpl[m].is_shard(0) else
+                     on_split if m in split else Replicate()
+                     for m in range(n))
+
+    def wgrad(d_dim):
+        return tuple(Shard(0) if xpl[m].is_shard(0) else
+                     Shard(d_dim) if m in split else
+                     Partial() if xpl[m].is_shard(1) else Replicate()
+                     for m in range(n))
+    if not split:
+        w = wpl(Replicate())
+        he = SH.local_call(lambda x, a, b, c: grouped_mlp(x, a, b, c,
+                                                          cfg.act),
+                           (xe, wi, wg, wo), (xpl,) + (w,) * 3, (xpl,),
+                           (xpl,) + (wgrad(1),) * 3)
+        return he, split
+    xs = tuple(Shard(2) if m in split else q for m, q in enumerate(xpl))
+    hp = tuple(Partial() if m in split else q for m, q in enumerate(xpl))
+    h, g = (SH.local_call(gmm_down, (xe, w), (xs, wpl(Shard(1))), (hp,),
+                          (xs, wgrad(1))).redistribute(placements=xpl)
+            for w in (wi, wg))
+    return SH.local_call(gmm_down, (_act(h, g, cfg.act), wo),
+                         (xpl, wpl(Shard(2))), (xs,),
+                         (hp, wgrad(2))), split
 
 
 # ---------------------------------------------------------------------------
@@ -980,6 +1282,30 @@ def ssd_scan_ref(xs, dt, A_log, B_, C_):
     return torch.stack(ys, 1).to(xs.dtype), h
 
 
+def _sharded_ssd(xs, dt, A_log, B_, C_):
+    """``ssd`` (the kernel wrapper; its plain version on the meta device)
+    on each rank's shard of DTensors (the dry run), through
+    ``local_call``: the scan is independent across sequences and heads,
+    so xs [B,S,H,P] and dt [B,S,H] keep the batch shards they share and
+    the head shards they share, A_log [H] follows the heads, and B_, C_
+    [B,S,1,N] the batch; every other dim is whole. Returns (y, the final
+    state [B,H,P,N]) placed alike."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    keep = [Shard(0) if a.is_shard(0) and b.is_shard(0) else
+            Shard(2) if a.is_shard(2) and b.is_shard(2) else Replicate()
+            for a, b in zip(xs.placements, dt.placements)]
+    px = tuple(keep)
+    pa = tuple(Shard(0) if k.is_shard(2) else Replicate() for k in keep)
+    pb = tuple(k if k.is_shard(0) else Replicate() for k in keep)
+    ps = tuple(Shard(1) if k.is_shard(2) else k for k in keep)
+    ga = tuple(Shard(0) if k.is_shard(2) else
+               Partial() if k.is_shard(0) else Replicate() for k in keep)
+    gb = tuple(Partial() if k.is_shard(2) else k for k in pb)
+    return SH.local_call(ssd, (xs, dt, A_log, B_, C_),
+                         (px, px, pa, pb, pb), (px, ps),
+                         (px, px, ga, gb, gb))
+
+
 def mamba_block(p, x, cfg: ModelConfig, opts: ModelOptions, state=None,
                 conv_state=None, decode: bool = False):
     """Mamba2 mixer. Returns (out, new_state, new_conv_state).
@@ -994,9 +1320,9 @@ def mamba_block(p, x, cfg: ModelConfig, opts: ModelOptions, state=None,
     the skip term."""
     d_in, H, P, N, G, conv_ch = mamba_dims(cfg)
     B, S, _ = x.shape
-    z = x @ p["w_z"]
-    xBC = x @ p["w_xbc"]
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
+    z = SH.dense(x, p["w_z"])
+    xBC = SH.dense(x, p["w_xbc"])
+    dt = F.softplus(SH.dense(x, p["w_dt"]).float() + p["dt_bias"].float())
     Kc = p["conv_w"].shape[0]
     if decode:
         wdt = torch.promote_types(conv_state.dtype, xBC.dtype)
@@ -1022,9 +1348,13 @@ def mamba_block(p, x, cfg: ModelConfig, opts: ModelOptions, state=None,
              + xs[:, 0].float()[..., None] * db[:, :, None, :])
         y = torch.einsum("bhpn,bn->bhp", h, C_[:, 0, 0].float())[:, None]
         new_state = h
+    elif SH.is_dtensor(xs):
+        y, new_state = _sharded_ssd(xs, dt, p["A_log"], B_, C_)
     else:
         y, new_state = ssd(xs, dt, p["A_log"], B_, C_)
     y = (y.to(x.dtype)
          + xs.to(x.dtype) * p["d_skip"].to(x.dtype)[None, None, :, None])
     y = rms_norm(y.reshape(B, -1, d_in), p["mamba_norm_w"], cfg.norm_eps)
-    return (y * F.silu(z)) @ p["w_out"], new_state, new_conv_state
+    out = SH.constrain(SH.dense(y * F.silu(z), p["w_out"]), "batch",
+                       "act_seq", "act_embed")
+    return out, new_state, new_conv_state

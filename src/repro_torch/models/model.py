@@ -37,6 +37,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, dense, is_dtensor,
+                                              local_call, replicated_like,
+                                              shard_start)
 from repro_torch.models import action as A
 from repro_torch.models import params as P
 from repro_torch.models import stacks
@@ -105,6 +108,8 @@ def _embed_tokens(params, tokens, cfg: ModelConfig, positions=None,
         x = emb[torch.where(ok, loc, 0)]
         x = shard.all_reduce_sum(torch.where(ok[..., None], x,
                                              torch.zeros_like(x)))
+    elif is_dtensor(emb):
+        x = _sharded_lookup(emb, tokens)
     else:
         x = emb[tokens]
     if cfg.pos == "absolute":
@@ -112,6 +117,40 @@ def _embed_tokens(params, tokens, cfg: ModelConfig, positions=None,
             positions = torch.arange(tokens.shape[-1], device=x.device)
         x = x + params["pos"][positions].to(x.dtype)
     return x
+
+
+def _sharded_lookup(emb, tokens):
+    """``emb[tokens]`` on DTensors (the dry run), explicitly
+    (``local_call``): the ids keep their shards; the table keeps its vocab
+    shards, and its width shards where the ids are whole (else it is
+    gathered there). Each rank looks up the ids its rows hold and zeroes
+    the others, so the rows are partial sums over the vocab's mesh dims
+    (the sharded serving path's lookup, which the next constraint
+    reduces)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    tokens = replicated_like(tokens, emb)
+    vocab = [p.is_shard(0) and not q.is_shard()
+             for p, q in zip(emb.placements, tokens.placements)]
+    width = [p.is_shard(1) and not q.is_shard()
+             for p, q in zip(emb.placements, tokens.placements)]
+    epl = tuple(Shard(0) if v else Shard(1) if w else Replicate()
+                for v, w in zip(vocab, width))
+    tpl = tuple(Replicate() if v else q for v, q in zip(vocab,
+                                                        tokens.placements))
+    out = tuple(Partial() if v else Shard(tokens.dim()) if w else q
+                for v, w, q in zip(vocab, width, tpl))
+    grad = tuple(Shard(0) if v else Shard(1) if w else
+                 Partial() if q.is_shard() else Replicate()
+                 for v, w, q in zip(vocab, width, tpl))
+    v0 = shard_start(epl, emb.device_mesh, 0, emb.shape[0])
+
+    def lookup(e, t):
+        loc = t - v0
+        ok = (loc >= 0) & (loc < e.shape[0])
+        x = e[torch.where(ok, loc, 0)]
+        return torch.where(ok[..., None], x, torch.zeros_like(x))
+    return local_call(lookup, (emb, tokens), (epl, tpl), (out,),
+                      (grad, tpl))
 
 
 def _encode_context(params, batch, cfg: ModelConfig, dev):
@@ -156,10 +195,10 @@ def _logits(params, x, cfg: ModelConfig, shard=None):
     whole vocab, the sharded program's one all-gather."""
     x = apply_norm(params, x, cfg, "final_norm")
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.T                                   # head [V, D]
+    logits = dense(x, head.T)                             # head [V, D]
     if shard is not None and head.shape[0] != cfg.vocab_size:
         logits = shard.all_gather_last(logits)
-    return logits
+    return constrain(logits, "batch", "act_seq", "act_vocab")
 
 
 def _sequence(params, batch, cfg, dev, shard=None):
@@ -197,6 +236,7 @@ def forward(cfg: ModelConfig, opts: ModelOptions, params, batch,
     dev = resolve_device(device)
     _check_params(params, dev)
     x, positions, ctx = _sequence(params, batch, cfg, dev, opts.shard)
+    x = constrain(x, "batch", "act_seq", "act_embed")
     x, _ = stacks.apply_decoder(params["decoder"], x, cfg, opts, positions,
                                 ctx=ctx, train=train)
     return _logits(params, x, cfg, opts.shard)
@@ -301,7 +341,8 @@ def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
     positions = _positions(cache_index, B, C, dev)
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
-    x, caches = stacks.apply_decoder(params["decoder"], embeds, cfg, opts,
+    x = constrain(embeds, "batch", "act_seq", "act_embed")
+    x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
                                      positions, caches=caches,
                                      cache_index=cache_index,
                                      page_table=page_table, n_valid=n_valid,
@@ -326,6 +367,7 @@ def decode_step(cfg: ModelConfig, opts: ModelOptions, params, token,
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
     x = _embed_tokens(params, token, cfg, positions, opts.shard)
+    x = constrain(x, "batch", "act_seq", "act_embed")
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -352,6 +394,7 @@ def draft_step(cfg: ModelConfig, opts: ModelOptions, params, token, caches,
     B = token.shape[0]
     positions = _positions(index, B, 1, dev)
     x = _embed_tokens(params, token, cfg, positions, opts.shard)
+    x = constrain(x, "batch", "act_seq", "act_embed")
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,
@@ -383,6 +426,7 @@ def verify_chunk(cfg: ModelConfig, opts: ModelOptions, params, tokens,
     B, K = tokens.shape
     positions = _positions(cache_index, B, K, dev)
     x = _embed_tokens(params, tokens, cfg, positions, opts.shard)
+    x = constrain(x, "batch", "act_seq", "act_embed")
     if page_table is not None:
         page_table = _on(page_table, dev, torch.int32)
     x, caches = stacks.apply_decoder(params["decoder"], x, cfg, opts,

@@ -20,7 +20,8 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GLOBAL_WINDOW, ModelConfig, VisionConfig
-from repro_torch.distributed.sharding import serving_rules
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import constrain, dense, serving_rules
 from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
 from repro_torch.models.params import (PSpec, leaves, set_leaf,
@@ -266,7 +267,7 @@ def apply_sublayer(p, x, cfg: ModelConfig, opts: L.ModelOptions,
         if kind.ffn in ("moe", "moe+dense"):
             y = y + L.moe(p, h, cfg, opts)
         x = x + y
-    return x
+    return constrain(x, "batch", "act_seq", "act_embed")
 
 
 def apply_decoder(params, x, cfg: ModelConfig, opts: L.ModelOptions,
@@ -335,20 +336,27 @@ def _checkpoint(fn, *args):
 def apply_tower(params, embeds, enc: VisionConfig):
     """Vision/audio tower over stubbed frontend embeddings
     [B,T,embed_dim]."""
-    x = embeds @ params["in_proj"]
+    x = dense(embeds, params["in_proj"])
     x = x + params["pos"].to(x.dtype)[None]
     pos = torch.arange(x.shape[1], device=x.device)
     for i in range(enc.num_layers):
         p = layer_slice(params["stack"], i)
         y = L.layer_norm(x, p["ln1_w"], p["ln1_b"])
         q, k, v = L._proj(y, p["wq"]), L._proj(y, p["wk"]), L._proj(y, p["wv"])
-        a = L.attention_dense(q, k, v, pos, pos, GLOBAL_WINDOW, causal=False)
-        x = x + a.reshape(*a.shape[:2], -1) @ p["wo"].reshape(-1, x.shape[-1])
+        a = (L.sharded_attention(L.attention_dense, q, k, v, pos, pos,
+                                 GLOBAL_WINDOW, False)
+             if SH.is_dtensor(q) else
+             L.attention_dense(q, k, v, pos, pos, GLOBAL_WINDOW,
+                               causal=False))
+        x = x + constrain(dense(a.reshape(*a.shape[:2], -1),
+                                p["wo"].reshape(-1, x.shape[-1])),
+                          "batch", "act_seq", "act_embed")
         y = L.layer_norm(x, p["ln2_w"], p["ln2_b"])
-        y = F.gelu(y @ p["wi"], approximate="tanh")
-        x = x + y @ p["wo_mlp"]
+        y = F.gelu(dense(y, p["wi"]), approximate="tanh")
+        x = x + constrain(dense(y, p["wo_mlp"]), "batch", "act_seq",
+                          "act_embed")
     x = L.layer_norm(x, params["final_ln_w"], params["final_ln_b"])
-    return x @ params["out_proj"]
+    return dense(x, params["out_proj"])
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +473,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 scale_granularity: str = "head", device="cuda"):
     """Zeroed caches on ``device`` (see ``cache_template``; ``opts``
     chooses ring caches); values in ``dtype`` (bf16 by default) unless the
-    pool stores codes."""
+    pool stores codes. Under a ``global_mesh`` holding a ``DeviceMesh``
+    (the dry run) each leaf is a DTensor placed by its logical axes."""
     dev = resolve_device(device)
     out: Dict = {}
     for path, spec in leaves(cache_template(
@@ -473,8 +482,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
             page_size=page_size, kv_dtype=kv_dtype,
             scale_granularity=scale_granularity)):
         leaf_dtype = cache_dtype(path.split("/")[-1], dtype, kv_dtype)
-        set_leaf(out, path, torch.zeros(spec.shape, dtype=leaf_dtype,
-                                        device=dev))
+        set_leaf(out, path, SH.zeros(spec.shape, spec.axes, leaf_dtype,
+                                     dev))
     return out
 
 

@@ -17,14 +17,18 @@ nothing else:
   two attention products, for one), and a 3xTF32 body's three products
   per product of the function are never seen.
 
-Collective bytes are not counted here: the dry run runs unpartitioned on
-the meta device and issues no collective (ROADMAP item 16, the dry run's
-collective bytes). The sharded serving path counts its own
-(``distributed.collectives.ShardGroup.counts``).
+``CollectiveCounter`` counts the collectives a partitioned run issues:
+the dry run traces its step on DTensors over a fake mesh
+(``launch.mesh.fake_device_mesh``), and DTensor's redistributions desugar
+into functional collectives on the local shards, which the counter files
+under the reference's kinds (``hlo.COLLECTIVES``) by their result bytes
+on one device. The sharded serving path counts its own
+(``distributed.collectives.ShardGroup.counts``), by the same convention.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from collections import defaultdict
+from typing import Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -57,10 +61,14 @@ class DotCounter(TorchDispatchMode):
     """A dispatch mode that prices each call of an op in
     ``flop_registry`` as it runs; an op without a formula that decomposes
     into ops with one is decomposed first (``FlopCounterMode``'s rule).
-    ``calls`` holds (flops, op and operand shapes) per call."""
+    ``calls`` holds (flops, op and operand shapes) per call. On DTensors
+    an op is priced at its global shapes; with ``local`` it is passed on
+    to DTensor and the ops on the local shards are priced: one device's
+    share of a partitioned program."""
 
-    def __init__(self):
+    def __init__(self, local: bool = False):
         super().__init__()
+        self.local = local
         self.calls: List[Tuple[float, str]] = []
 
     @property
@@ -74,6 +82,8 @@ class DotCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func in _PASS:
+            return NotImplemented
+        if self.local and _has_dtensor(types):
             return NotImplemented
         packet = func._overloadpacket
         if packet not in flop_registry \
@@ -117,3 +127,83 @@ def count_ops(fn, *args, opname: str, **kw) -> int:
     with _OpCounter(opname) as c:
         fn(*args, **kw)
     return c.n
+
+
+# the reference's kinds (``roofline/hlo.py``'s COLLECTIVES)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# functional collective (``torch.ops._c10d_functional``) -> kind
+_KIND = {"all_reduce": "all-reduce",
+         "all_reduce_coalesced": "all-reduce",
+         "all_gather_into_tensor": "all-gather",
+         "all_gather_into_tensor_coalesced": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "reduce_scatter_tensor_coalesced": "reduce-scatter",
+         "all_to_all_single": "all-to-all"}
+# DTensor's own collective ops (``torch.ops._dtensor``) -> kind
+_DTENSOR_KIND = {"shard_dim_alltoall": "all-to-all"}
+# functional ops that move nothing (waits and autograd wrappers)
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _bytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    return sum(_bytes(t) for t in out)
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """A dispatch mode that adds each functional collective's *result*
+    bytes on one device to its kind: the reference's definition
+    (``hlo.py``: the per-device wire traffic of a ring is (n-1)/n of it).
+    An op that reaches a DTensor is passed on (``NotImplemented``), so
+    DTensor runs it and the mode sees the collectives it desugars into,
+    on the local shards. A functional op of an unknown kind raises:
+    nothing is dropped from the count.
+
+    What DTensor issues is counted as it is issued. It gathers a dim
+    sharded over two mesh dims as two all-gathers in sequence (each
+    counted by its own result, the first of them a partial gather), where
+    XLA issues one all-gather over the flattened axes; it reshards
+    between two dims of one mesh dim with an all-to-all, and it never
+    issues a collective-permute."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: Dict[str, float] = defaultdict(float)
+        self.calls: List[Tuple[str, int, str]] = []
+
+    def counts(self) -> Dict[str, float]:
+        """Bytes by kind and ``total``: ``hlo.collective_bytes``'s dict."""
+        out = {k: float(v) for k, v in self.bytes.items()}
+        out["total"] = float(sum(self.bytes.values()))
+        return out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        ns = getattr(func, "namespace", "")
+        name = func._overloadpacket.__name__
+        kind = None
+        if ns in ("_c10d_functional", "c10d_functional") \
+                and name not in _NOT_COLLECTIVES:
+            kind = _KIND.get(name)
+        elif ns == "_dtensor" and name in _DTENSOR_KIND:
+            kind = _DTENSOR_KIND[name]
+        elif ns not in ("_c10d_functional", "c10d_functional", "_dtensor") \
+                or name in _NOT_COLLECTIVES:
+            return out
+        if kind is None:
+            raise NotImplementedError(f"CollectiveCounter: no kind for "
+                                      f"{func}")
+        n = _bytes(out)
+        self.bytes[kind] += n
+        self.calls.append((kind, n, _shapes(args)))
+        return out

@@ -124,11 +124,11 @@ def to_terms(row: Dict, use_analytic: bool = True,
     """Roofline terms of a dry-run row, the reference's or the port's.
 
     use_analytic=True (default) prices with the operator-IR model
-    (``roofline.analytic``); False takes the row's own counts, which needs
-    counted collective bytes (``row["collectives"]["total"]``, e.g. a
-    sharded engine's ``ShardGroup.counts()``). The dry run's rows carry
-    none (ROADMAP item 16), and then this raises rather than report a
-    zero."""
+    (``roofline.analytic``); False takes the row's own counts: its
+    per-device FLOPs and counted collective bytes
+    (``row["collectives"]["total"]``: the dry run's partitioned trace, or a
+    sharded engine's ``ShardGroup.counts()``). A row without counted
+    collectives raises rather than report a zero."""
     an = row.get("analytic") if use_analytic else None
     if an:
         flops, bts, coll = (an["flops_per_dev"], an["hbm_bytes_per_dev"],
@@ -137,9 +137,7 @@ def to_terms(row: Dict, use_analytic: bool = True,
         if row.get("collectives") is None:
             raise ValueError(
                 f"{row['arch']} x {row['shape']}: the row has no counted "
-                "collective bytes (the dry run runs unpartitioned on the "
-                "meta device: ROADMAP item 16, the dry run's collective "
-                "bytes); price it with use_analytic=True")
+                "collective bytes; price it with use_analytic=True")
         flops = row["cost"].get("flops", 0.0)
         bts = row["cost"].get("bytes accessed", 0.0)
         coll = row["collectives"].get("total", 0.0)

@@ -44,8 +44,9 @@ def lr_at(cfg: AdamWConfig, step):
 
 
 def init_opt_state(cfg: AdamWConfig, params):
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    def zeros(p):       # placed as ``p`` (a DTensor's moments too)
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                memory_format=torch.contiguous_format)
     dev = next(t for _, t in leaves(params)).device
     return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}

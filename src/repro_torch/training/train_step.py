@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.models.layers import ModelOptions
 from repro_torch.models.params import from_jax, leaves, map_tree, set_leaf
@@ -47,14 +48,66 @@ def lm_loss(cfg: ModelConfig, opts: ModelOptions, params, batch,
     targets = tokens[:, 1:]
     logits = logits[:, :-1].float()
     mask = (targets >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    picked = _pick(logits, targets.clamp(min=0))
     nll = (lse - picked) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
     if z_loss:
         loss = loss + z_loss * (torch.square(lse) * mask).sum() / denom
     return loss
+
+
+def _pick(logits, targets):
+    """``logits`` [B, S, V] at ``targets`` [B, S]. On DTensors (the dry
+    run) with the vocab sharded, explicitly (``local_call``): each rank
+    picks the targets its vocab shard holds and the picks are partial
+    sums over the vocab's mesh dims (DTensor's own rule for a gather on a
+    sharded dim does not trace on the meta device)."""
+    if not SH.is_dtensor(logits):
+        return logits.gather(-1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    V = logits.shape[-1]
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+               for p in logits.placements)
+    v0 = SH.shard_start(pl, logits.device_mesh, 2, V)
+    tpl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    out = tuple(Partial() if p.is_shard(2) else q for p, q in zip(pl, tpl))
+
+    def pick(lg, t):
+        t = t - v0
+        mine = (t >= 0) & (t < lg.shape[-1])
+        got = lg.gather(-1, t.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(mine, got, 0.0)
+    return SH.local_call(pick, (logits, SH.replicated_like(targets, logits)),
+                         (pl, tpl), (out,))
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over the vocab of ``logits`` [B, S, V]. On DTensors
+    (the dry run) with the vocab sharded, explicitly (``local_call``):
+    each rank reduces its vocab shard and the shards combine by an
+    all-reduce of the maxima and one of the rescaled sums over the
+    vocab's mesh dims, where DTensor's own rule gathers the logits."""
+    if not SH.is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    mesh = logits.device_mesh
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+               for p in logits.placements)
+    vocab = [m for m, p in enumerate(pl) if p.is_shard(2)]
+    out = tuple(Replicate() if p.is_shard(2) else p for p in pl)
+
+    def lse(lg):
+        top = lg.amax(-1).detach()
+        for m in vocab:
+            top = funcol.all_reduce(top, "max", (mesh, m))
+        total = torch.exp(lg - top[..., None]).sum(-1)
+        for m in vocab:
+            total = funcol.all_reduce(total, "sum", (mesh, m))
+        return top + torch.log(total)
+    return SH.local_call(lse, (logits,), (pl,), (out,))
 
 
 def _on_device(batch, dev):

@@ -1,10 +1,12 @@
 """The port's dry run, its FLOP count and its sweep, on the CPU.
 
 - Full-size dry runs on the meta device, one cell per family and kind:
-  the row carries the reference's keys, ``to_terms`` reads it, its
-  per-device argument bytes are the analytic pricer's parameter bytes
-  plus the inputs', and a forward cell's counted FLOPs are the analytic
-  model's, re-priced where the port computes a different function.
+  the row carries the reference's keys and counted collectives, ``to_terms``
+  reads it with either pricing, its per-device argument bytes are the
+  analytic pricer's parameter bytes plus the inputs', its per-device
+  FLOPs lie between the whole step's over the chips and the whole
+  step's, and a forward cell's whole-step FLOPs are the analytic model's,
+  re-priced where the port computes a different function.
 - At reduced size the count of the port's prefill and decode step equals
   the reference's ``hlo.dot_flops`` of an ``unroll_layers=True`` compile,
   plus the vision tower layers the reference's HLO counts once.
@@ -23,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import GLOBAL_WINDOW, SHAPES, get_config
 from repro_torch.launch import specs as SP
+from repro_torch.launch.dryrun import build_step
 from repro_torch.launch.dryrun import main as dryrun_main
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import production_mesh_shape
@@ -31,8 +34,9 @@ from repro_torch.models import model as TM
 from repro_torch.models.layers import ModelOptions
 from repro_torch.models.params import leaves, meta_params
 from repro_torch.roofline import analytic as TA
-from repro_torch.roofline.counts import count_ops, dot_flops
+from repro_torch.roofline.counts import COLLECTIVES, count_ops, dot_flops
 from repro_torch.roofline.report import to_terms
+from repro_torch.training import AdamWConfig, TrainConfig, init_train_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONE = {"pod": 1, "data": 1, "model": 1}
@@ -105,6 +109,19 @@ FULL_CELLS = [
 ]
 
 
+def _step_flops(cfg, shape):
+    """The whole step's matrix-product FLOPs (``dot_flops``) of the cell
+    as the dry run builds it, unpartitioned on the meta device."""
+    opts, tcfg = ModelOptions(), TrainConfig(opt=AdamWConfig())
+    fn, order = build_step(cfg, shape, opts, tcfg)
+    params = SP.model_specs_and_placements(cfg, ONE)[0]
+    inputs = SP.input_specs(cfg, shape, opts)
+    args = [params if n == "params" else
+            init_train_state(cfg, tcfg, params) if n == "opt_state" else
+            inputs[n] for n in order]
+    return dot_flops(fn, *args)[0]
+
+
 @pytest.mark.parametrize("arch,shape,ratio", FULL_CELLS,
                          ids=[f"{a}-{s}" for a, s, _ in FULL_CELLS])
 def test_full_size_meta_dry_run(arch, shape, ratio):
@@ -113,12 +130,20 @@ def test_full_size_meta_dry_run(arch, shape, ratio):
     assert set(row["cost"]) == {"flops"}
     assert set(row["memory"]) == {"argument_size_in_bytes",
                                   "output_size_in_bytes"}
-    assert row["collectives"] is None and row["t_compile_s"] == 0.0
+    coll = row["collectives"]
+    assert set(coll) <= set(COLLECTIVES) | {"total"}
+    assert coll["total"] == sum(v for k, v in coll.items()
+                                if k != "total") > 0
+    assert row["t_compile_s"] > 0
     t = to_terms(row)
     assert t.flops_per_dev == row["analytic"]["flops_per_dev"] > 0
     assert t.bound_time > 0
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        to_terms(row, use_analytic=False)
+    counted_t = to_terms(row, use_analytic=False)
+    assert counted_t.coll_bytes_per_dev == coll["total"]
+    assert counted_t.flops_per_dev == row["cost"]["flops"]
+    assert counted_t.t_collective > 0 and counted_t.bound_time > 0
+    with pytest.raises(ValueError, match="no counted collective bytes"):
+        to_terms(dict(row, collectives=None), use_analytic=False)
 
     cfg, sh = get_config(arch), SHAPES[shape]
     mesh = production_mesh_shape()
@@ -134,7 +159,9 @@ def test_full_size_meta_dry_run(arch, shape, ratio):
     assert row["memory"]["argument_size_in_bytes"] == \
         pytest.approx(params_b + in_b, rel=1e-12)
 
-    counted = row["cost"]["flops"]
+    counted = _step_flops(cfg, sh)
+    chips = math.prod(mesh.values())
+    assert counted / chips <= row["cost"]["flops"] <= counted
     one = TA.analytic_cell(cfg, sh, mesh=ONE)
     if sh.kind != "train":
         assert counted / one.breakdown["flops_fwd"] == \
@@ -300,6 +327,7 @@ def test_sweep_one_cell(tmp_path, capsys):
     row = json.loads((tmp_path / "whisper-small__decode_32k__single_pod"
                       ".json").read_text())
     assert row["cost"]["flops"] > 0 and row["mesh"] == "single_pod"
+    assert row["collectives"]["total"] > 0
     summary = json.loads((tmp_path / "_sweep_summary.json").read_text())
     assert [s[:2] for s in summary["skipped"]] == \
         [["whisper-small", "long_500k"]]

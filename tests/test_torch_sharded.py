@@ -263,7 +263,7 @@ def test_collective_bytes_of_a_decode_step(weights, mesh2):
            "collectives": got, "model_flops": 1e6, "memory": {}}
     t = to_terms(row, use_analytic=False)
     assert t.coll_bytes_per_dev == got["total"] and t.t_collective > 0
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
+    with pytest.raises(ValueError, match="no counted collective bytes"):
         to_terms(dict(row, collectives=None), use_analytic=False)
 
 
