@@ -21,16 +21,16 @@ weights and checks that each ran through the kernels: one VLA control step
 (B=4 robots) through ``vla_control_step``, and the serving engine answering
 16 robot requests on 8 slots, admit-stall (dense; paged f32, int8 and fp8
 pools) and chunked under the token-budget scheduler (dense; paged f32,
-int8 and fp8 pools; the serving engines on molmoact's first 8 layers).
+int8 and fp8 pools; the serving engines on molmoact's first SERVE_LAYERS layers).
 The MoE family follows: the grouped-expert kernels
 against their plain versions at granite-moe-3b-a800m's width, the reduced
 granite engine on card and CPU, and the full-width granite-moe-3b-a800m
-(its first 8 layers) serving the same 16-request shape through three
+(its first MOE_SERVE_LAYERS layers) serving the same 16-request shape through three
 engines (admit-stall dense and paged f32, chunked paged f32) with its
 decode breakdown. The Mamba2 family last: the SSD scan kernel against
 its plain version at mamba2-780m's width, reduced mamba2-780m and the
 reduced jamba hybrid on card and CPU, and the full-width mamba2-780m (its
-first 12 layers) serving the same shape admit-stall (dense and paged
+first SSM_SERVE_LAYERS layers) serving the same shape admit-stall (dense and paged
 f32) with its decode breakdown. Phase 12 serves molmoact-7b sharded,
 model=2, rank 0 and one spawned worker sharing the card over gloo. Every
 full-width decode path runs twice: its decode step replayed from a
@@ -73,7 +73,19 @@ scan again under autograd) to autograd through their plain versions;
 phase 3d trains reduced granite-moe-3b-a800m, arctic-480b, mamba2-780m
 and jamba on card and CPU with layer remat (launches as predicted from
 the layer pattern; remat on = off); phase 9b takes full-width f32 train
-steps of mamba2-780m and granite-moe-3b-a800m. Prints each
+steps of mamba2-780m and granite-moe-3b-a800m. The prefill stages as
+graphs and the tick that ends on the device: phase 4 runs PHASE_REPEATS
++ 1 control steps through one kept ``PrefillGraph`` (vision + prefill as
+one graph) and one kept ``DecodeGraph`` (one capture each; graphed
+prefill logits against eager ones, the prefill graph's kernels in
+order); the engines capture their tick, vision and chunk graphs first
+(``capture``: one vision graph, at most a slot's or the pool's chunk
+graphs; the admit-stall prefill runs kernel by kernel), their ticks'
+steps and rounds are guarded by a CUDA graph IF node (the replays that
+ran are the device steps; a replay with the guard false costs under a
+tenth of a live step; a speculative tick reads back once); phase 5d
+sends a prompt length first seen mid-run while both replicas tick, and
+nothing captures. Prints each
 phase's seconds, the card, the phase numbers, one JSON line describing
 each kernel and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, without that line, when there is no CUDA device or any phase
@@ -119,6 +131,9 @@ CPU_LOGIT_TOL = 1e-3               # f32 weights; summation order only
 SEED = 0
 FULL_B, FULL_TEXT = 4, 64          # robots per step, instruction tokens
 PHASE_REPEATS = 3                  # timed control steps after the first
+# the eager oracle's control step is host-bound (seconds at full width):
+# its split is timed on the first EAGER_REPEATS of them only
+EAGER_REPEATS = 1
 # full-width serving: 8 slots, 16 requests (8 observations, each sent
 # twice), 144 CoT + 48 action tokens + the prefill token per request
 SERVE_SLOTS, SERVE_OBS, SERVE_TOKENS = 8, 8, 193
@@ -1402,10 +1417,14 @@ def read_launches(kernels):
 
 
 def full_width(cfg, params):
-    """Phase 4: the full-width molmoact-7b control step, B=4, its decode
-    replayed from a CUDA graph (``M.DecodeGraph``, the main path) and run
-    eagerly (the oracle): the same tokens, the same kernels a step (by
-    name, in order), both modes timed phase by phase."""
+    """Phase 4: the full-width molmoact-7b control step, B=4: vision and
+    prefill one replay of a kept ``M.PrefillGraph``, the decode replayed
+    from a kept ``M.DecodeGraph`` (the main path), against both run
+    eagerly (the oracle): the same tokens, graphed prefill logits within
+    KERNEL_TOL of eager ones (bit-equality reported), the same kernels a
+    decode step and a prefill (by name, in order), PHASE_REPEATS + 1
+    control steps through the two kept graphs with one capture each, and
+    both modes timed phase by phase."""
     import torch
     from repro_torch.core import vla
     from repro_torch.models import model as M
@@ -1419,16 +1438,18 @@ def full_width(cfg, params):
                           device=dev).bfloat16()
     prompt, n_act, max_seq = vla.control_step_lengths(cfg, FULL_TEXT)
 
-    prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
-    batch = {"tokens": tokens, "prefix": prefix}
+    batch = {"tokens": tokens, "patches": patches}
     graphs = {"graphed": M.DecodeGraph(dev),
               "eager": M.DecodeGraph(dev, eager=True)}
+    prefills = {"graphed": M.PrefillGraph(dev),
+                "eager": M.PrefillGraph(dev, eager=True)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
     t0 = time.perf_counter()
     out = vla.vla_control_step(cfg, opts, params, batch, device=dev,
-                               graph=graphs["graphed"])
+                               graph=graphs["graphed"],
+                               prefill_graph=prefills["graphed"])
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = read_launches(kernels)
@@ -1449,26 +1470,71 @@ def full_width(cfg, params):
             raise AssertionError(f"{name}: shape {tuple(t.shape)}, range "
                                  f"[{int(t.min())}, {int(t.max())}]")
     eager = vla.vla_control_step(cfg, opts, params, batch, device=dev,
-                                 graph=graphs["eager"])
+                                 graph=graphs["eager"],
+                                 prefill_graph=prefills["eager"])
     if not (torch.equal(eager.cot_tokens, out.cot_tokens)
             and torch.equal(eager.action_tokens, out.action_tokens)):
         raise AssertionError("graphed and eager control steps give other "
                              "tokens")
     print(f"  graphed and eager control steps: the same {cfg.n_cot_tokens} "
           f"CoT and {n_act} action tokens per robot")
+    logits_g, _ = prefills["graphed"].run(cfg, opts, params, batch, max_seq)
+    logits_e, _ = prefills["eager"].run(cfg, opts, params, batch, max_seq)
+    check("vision + prefill logits, graphed vs eager", logits_g, logits_e,
+          KERNEL_TOL)
+    print(f"  vision + prefill logits graphed vs eager: bit-equal "
+          f"{torch.equal(logits_g, logits_e)}")
+    # more control steps through the same two kept graphs: neither
+    # captures again (the prefill graph's caches keep their address)
+    step_ms = [step_s * 1e3]
+    for _ in range(PHASE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = vla.vla_control_step(cfg, opts, params, batch, device=dev,
+                                     graph=graphs["graphed"],
+                                     prefill_graph=prefills["graphed"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(again.cot_tokens, out.cot_tokens)
+                and torch.equal(again.action_tokens, out.action_tokens)):
+            raise AssertionError("a later control step through the kept "
+                                 "graphs gives other tokens")
+    pre, dec = prefills["graphed"].runner, graphs["graphed"].runner
+    print(f"  {len(step_ms)} control steps through one kept PrefillGraph and "
+          f"one kept DecodeGraph: host-clock ms {[round(t, 2) for t in step_ms]};"
+          f" prefill graph captures {pre.captures} ({pre.capture_s * 1e3:.1f} "
+          f"ms), decode graph captures {dec.captures} "
+          f"({dec.capture_s * 1e3:.1f} ms); [{card_line()}]")
+    if (pre.captures, dec.captures) != (1, 1):
+        raise AssertionError(f"control steps captured the prefill graph "
+                             f"{pre.captures} and the decode graph "
+                             f"{dec.captures} times, not once each")
+    graph_step_checks("control-step vision + prefill", pre, lambda: None)
 
     # the same phases, timed one by one with CUDA events, in both modes
+    # (graphed: median of PHASE_REPEATS; eager: EAGER_REPEATS runs); the
+    # split runs vision and prefill as two graphs of its own, and decode
+    # graphs of its own, so the control step's graphs above keep their
+    # one capture each
     names = ("vision", "prefill", "cot_decode", "action_decode")
     runs = {mode: [] for mode in graphs}
+    split = {mode: (M.VisionGraph(dev, eager=mode == "eager"),
+                    M.PrefillGraph(dev, eager=mode == "eager"),
+                    M.DecodeGraph(dev, eager=mode == "eager"))
+             for mode in graphs}
+    joint_ms = {mode: [] for mode in graphs}
     for rep in range(PHASE_REPEATS):
-        for mode, graph in graphs.items():
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for mode in graphs:
+            if mode == "eager" and rep >= EAGER_REPEATS:
+                continue
+            vis_graph, pre_graph, graph = split[mode]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
             ev[0].record()
-            prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
+            prefix = vis_graph.run(cfg, opts, params, patches)
             ev[1].record()
-            logits, caches = M.prefill(cfg, opts, params,
-                                       {"tokens": tokens, "prefix": prefix},
-                                       max_seq, device=dev)
+            logits, caches = pre_graph.run(
+                cfg, opts, params, {"tokens": tokens, "prefix": prefix},
+                max_seq)
             tok = logits[:, -1].argmax(-1, keepdim=True)
             ev[2].record()
             cot, tok, caches = vla.decode_tokens(
@@ -1479,7 +1545,11 @@ def full_width(cfg, params):
                 cfg, opts, params, tok, caches, prompt + cfg.n_cot_tokens,
                 n_act, device=dev, graph=graph)
             ev[4].record()
+            ev[5].record()          # the control step's joint graph
+            prefills[mode].run(cfg, opts, params, batch, max_seq)
+            ev[6].record()
             torch.cuda.synchronize()
+            joint_ms[mode].append(ev[5].elapsed_time(ev[6]))
             if not (bool(torch.isfinite(logits).all())
                     and torch.equal(cot, out.cot_tokens)
                     and torch.equal(act, out.action_tokens)):
@@ -1499,18 +1569,23 @@ def full_width(cfg, params):
                                for r in rs])
         dec_share = np.median([(r["cot_decode"] + r["action_decode"])
                                / sum(r.values()) for r in rs])
-        print(f"  {mode}, median of {PHASE_REPEATS}: control step "
+        print(f"  {mode}, median of {len(rs)}: control step "
               f"{total:.2f} ms (" + ", ".join(
                   f"{n} {t:.2f}" for n, t in phase_ms[mode].items())
               + f"); action-generation share {act_share:.4f}; CoT+action "
               f"decode share {dec_share:.4f}")
+        print(f"  {mode}: vision + prefill as the control step runs it "
+              f"(one {'graph replay' if mode == 'graphed' else 'eager body'}"
+              f"), median {float(np.median(joint_ms[mode])):.2f} ms vs "
+              f"{phase_ms[mode]['vision'] + phase_ms[mode]['prefill']:.2f} "
+              f"as two stages; [{card_line()}]")
     simulated_split(cfg, phase_ms["graphed"])
     runner = graphs["graphed"].runner
-    print(f"  vla_control_step (graphed, vision precomputed, first call) "
-          f"{step_s * 1e3:.2f} ms by host clock; peak memory {peak_gb:.2f} "
-          f"GB; decode graph captures {runner.captures} (one a control "
-          f"step's caches), {runner.capture_s / runner.captures * 1e3:.1f} "
-          f"ms a capture")
+    print(f"  vla_control_step (graphed, vision + prefill one graph, first "
+          f"call) {step_s * 1e3:.2f} ms by host clock; peak memory "
+          f"{peak_gb:.2f} GB; decode graph captures {runner.captures} (one "
+          f"a control step's caches, over {len(step_ms)} control steps), "
+          f"{runner.capture_s / runner.captures * 1e3:.1f} ms a capture")
     graph = graphs["graphed"]
 
     def reset():
@@ -1560,7 +1635,202 @@ def simulated_split(cfg, measured):
           f"{measured['action_decode'] / total:.4f}")
 
 
-def graph_step_checks(label: str, runner, reset):
+def tick_bodies(eng) -> int:
+    """How many of an engine's fused-tick steps (speculative: rounds) ran
+    their body on the device: eagerly every step, masked ones too; graphed,
+    after ``capture()``, its masked warm-up step and each replay whose
+    guard held, which are the device steps the ticks counted
+    (``guard_gates`` holds the runner's ``ran`` to them)."""
+    g = eng._tick.graph
+    if g.eager:
+        return eng.stats.device_steps + eng.masked_steps
+    return g.captures + eng.stats.device_steps
+
+
+def capture_steps(eng) -> int:
+    """The masked steps (speculative: rounds) ``capture()`` ran as the tick
+    graph's warm-up: one graphed, none eagerly."""
+    g = eng._tick.graph
+    return 0 if g.eager else g.captures
+
+
+def guard_gates(eng):
+    """A graphed engine that ``capture()`` captured before its first tick:
+    its tick graph captured once, there, and sealed; the replays whose
+    guard held (the runner's ``ran``, read back on the device) are the
+    device steps (speculative: rounds) the ticks counted from the carry,
+    no more and no fewer."""
+    g, st = eng._tick.graph, eng.stats
+    if g.eager:
+        return {}
+    return {
+        "the tick graph captured once, by capture(), and sealed":
+            g.captures == 1 and g.sealed,
+        f"replays that ran the body ({g.replays_ran}) == device steps "
+        f"({st.device_steps})": g.replays_ran == st.device_steps,
+    }
+
+
+def launches_vs_eager(eng, eager, launches, launches_e, per_step,
+                      per_chunk):
+    """A graphed engine's launches held against the eager engine's, which
+    counted each kernel as it launched: the eager ticks ran their masked
+    steps in full (``eager.masked_steps``), the graphed ticks ran none of
+    them but ran ``capture()``'s warm-up step (one a tick capture) and its
+    masked chunks (``masked_chunks``). ``per_step`` / ``per_chunk``: each
+    kernel's launches a tick step (speculative: round) and a chunk. Both
+    engines must take the same device steps."""
+    g = eng._tick.graph
+    extra = g.captures - eager.masked_steps
+    want = {k: launches_e[k] + per_step.get(k, 0) * extra
+            + per_chunk.get(k, 0) * eng.masked_chunks for k in launches}
+    return {
+        "graphed device steps == eager device steps":
+            eng.stats.device_steps == eager.stats.device_steps,
+        f"graphed launches == eager launches + a step's x ({g.captures} "
+        f"capture warm-up - {eager.masked_steps} eager masked steps) + a "
+        f"chunk's x {eng.masked_chunks} masked capture chunks":
+            launches == want,
+    }
+
+
+def chunk_warmups(eng) -> int:
+    """The masked chunks a chunked engine's ``capture()`` ran as its chunk
+    graphs' warm-up steps (none eagerly; a chunk graph captured at first
+    use warms up on that real chunk)."""
+    return eng.masked_chunks
+
+
+def live_carry(eng):
+    """A reset for a drained engine's tick whose step (or round) must run:
+    the tick's carry with every slot live and no quota spent, positions
+    (kept LIVE_MARGIN steps or rounds inside the cache), current tokens
+    and Mamba2 states back where the reset was made, counters zero (its
+    buffers take only so many steps), a paged slot's table on pages of
+    its own, so the guard holds and the step does a slot's work, the same
+    after every reset."""
+    import torch
+    tick = eng._tick
+    margin = LIVE_MARGIN * (tick.K if eng.spec_decode else 1) + 1
+    index = tick.index.clamp(max=eng.max_seq - margin).clone()
+    tokens = tick.tokens.clone()
+    states = [t.clone() for t in getattr(tick, "recurrent", ())]
+    if tick.page_table is not None:
+        # pages of its own for each slot (a drained pool's, free): through
+        # the null page the slots' writes would collide, and which one
+        # lands is not fixed
+        B, npg = tick.page_table.shape
+        if eng.pool.num_pages < 1 + B * npg:
+            raise AssertionError("live_carry needs a page a slot position")
+        tick.page_table.copy_(torch.arange(
+            1, 1 + B * npg, dtype=torch.int32,
+            device=tick.page_table.device).reshape(B, npg))
+
+    def reset():
+        tick.index.copy_(index)
+        tick.tokens.copy_(tokens)
+        for t, held in zip(getattr(tick, "recurrent", ()), states):
+            t.copy_(held)
+        tick.done.zero_()
+        tick.entry_done.zero_()
+        tick.budget.fill_(1 << 20)
+        tick.out.fill_(-1)
+        if hasattr(tick, "counter"):                 # DecodeTick
+            tick.counter.zero_()
+            tick.n_emit.zero_()
+            tick.steps.zero_()
+        else:                                        # SpecTick
+            tick.cap.fill_(tick.T)
+            for buf in (tick.e, tick.passes, tick.hist, tick.rounds):
+                buf.zero_()
+        tick.graph.ran.zero_()
+    return reset
+
+
+def carry(tick):
+    """The tensors of a tick's carry that the host reads back."""
+    names = (("out", "n_emit", "index", "budget", "done", "tokens", "steps")
+             if hasattr(tick, "counter") else
+             ("out", "e", "index", "budget", "done", "tokens", "passes",
+              "hist", "rounds"))
+    return [getattr(tick, n) for n in names]
+
+
+LIVE_MARGIN = 6      # steps a reset of live_carry serves at most
+CHUNK_CHECKED = "paged-f32-chunked"   # the chunk graph graph_step_checks
+
+
+# a spin of ~0.1 s of the card's clock, long enough for the host to queue
+# every timed call of ``queued_ms`` behind it
+SPIN_CYCLES = 200_000_000
+
+
+def queued_ms(fn, iters: int, warmup: int = 3):
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events,
+    the calls queued behind a spin kernel (``torch.cuda._sleep``) so that
+    the device reaches them only once the host has launched them all:
+    where a call's device work is shorter than its launch, ``time_ms``
+    times the host's launches instead. Returns (ms a call, host ms to
+    queue the calls, spin ms): a queue time past the spin means the host
+    still bounded the figure (from above)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queued = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (ev[1].elapsed_time(ev[2]) / iters, queued,
+            ev[0].elapsed_time(ev[1]))
+
+
+def masked_vs_live(label: str, eng, reps: int = 20):
+    """A guarded tick step replayed with its guard false (every slot done)
+    against the same step live, on the device (``queued_ms``, ``reps``
+    replays each): a live replay follows ``live_carry``'s reset (a few
+    small kernels, in its time), so it never runs past its buffers or its
+    cache; a replay with the guard false changes nothing and needs none.
+    Also printed: the guarded-off replays timed back to back
+    (``time_ms``), which the host's graph launches bound. Returns (masked
+    ms, live ms), the device's."""
+    tick = eng._tick
+    reset = live_carry(eng)
+    g = tick.graph
+
+    def live_step():
+        reset()
+        g.step(g.key)
+    live, q_live, spin = queued_ms(live_step, reps)
+    ran_live = int(g.ran)            # each reset zeroes it: the last ran
+    reset()
+    tick.done.fill_(True)
+    tick.entry_done.fill_(True)
+    masked, q_masked, _ = queued_ms(lambda: g.step(g.key), reps)
+    launched = time_ms(lambda: g.step(g.key), reps)
+    ran_masked = int(g.ran)
+    reset()
+    print(f"  {label}: a replay with the guard false {masked:.4f} ms on "
+          f"the device, a live step {live:.4f} ms ({masked / live:.4f} of "
+          f"it; {reps} replays each, queued in {q_masked:.1f} / "
+          f"{q_live:.1f} ms behind a {spin:.1f} ms spin); back to back, "
+          f"bound by the host's launches, {launched:.4f} ms a guarded-off "
+          f"replay; [{card_line()}]")
+    if (ran_live, ran_masked) != (1, 0):
+        raise AssertionError(f"{label}: the last live replay ran the step "
+                             f"{ran_live} times, the {2 * reps + 6} "
+                             f"guarded-off ones {ran_masked} times, not 1 "
+                             f"and 0")
+    return masked, live
+
+
+def graph_step_checks(label: str, runner, reset, state=None):
     """One step replayed from ``runner``'s graph against the same step run
     eagerly: the same kernels by name in the order the device ran them
     (both traced in one profiler session), and at most
@@ -1568,9 +1838,42 @@ def graph_step_checks(label: str, runner, reset):
     runtime events over 4 replays; the eager step's are printed beside).
     ``reset`` puts the step's counter (and any position that would leave
     its cache) back before each traced run: its buffers take only so many
-    steps."""
+    steps.
+
+    A guarded runner's replay is its guard, the kernel that sets its IF
+    node's condition and, in the node, a copy of its body's graph (the
+    body and the ``ran`` count); ``reset`` must let the guard hold
+    (``live_carry``). The profiler neither keeps the order of the kernels
+    a conditional node runs among the graph's others nor, now and then,
+    sees all of them, so the order is held on the body's own graph,
+    replayed alone (the same nodes as the copy in the IF node), against
+    the eager body; that the guarded replay ran the whole body is held on
+    what it wrote: ``state()`` (the tensors the step writes that the
+    host reads) after a guarded replay equals it after the eager step, bit
+    for bit."""
     import difflib
+    import torch
     replay = (lambda: runner.step(runner.key))
+    guarded = runner.guard is not None
+    if not guarded:
+        eager_step, order_fn = runner.body, replay
+    else:
+        body_graph = runner.graphs[runner.key][2][0]
+
+        def eager_step():
+            runner.body()
+            runner.ran.add_(1)
+        order_fn = body_graph.replay
+        reset()
+        replay()
+        after_replay = [t.clone() for t in state()]
+        reset()
+        runner.guard()
+        eager_step()
+        if not all(torch.equal(a, b) for a, b in zip(after_replay,
+                                                       state())):
+            raise AssertionError(f"{label}: a guarded replay did not write "
+                                 f"what the eager step writes")
     # the profiler has now and then left a few of a long step's device
     # events (or a marker) out of a trace: a trace with a missing marker
     # or a difference is taken again, up to TRACE_ATTEMPTS times in all,
@@ -1578,7 +1881,7 @@ def graph_step_checks(label: str, runner, reset):
     # kernels when replayed differs in every attempt.
     graphed = eager = None
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        seqs = step_sequences([(reset, replay), (reset, runner.body)])
+        seqs = step_sequences([(reset, order_fn), (reset, eager_step)])
         if seqs is not None:
             graphed, eager = seqs
             if graphed and graphed == eager:
@@ -1589,10 +1892,13 @@ def graph_step_checks(label: str, runner, reset):
             f"{len(seqs[1])} eager, not the same"))
     if graphed is None:
         raise AssertionError(f"{label}: every trace lost a marker kernel")
+    if guarded:
+        print(f"  {label}: a guarded replay wrote what the eager step "
+              f"writes; the order is held on the body's own graph")
     reset()
     calls = launch_calls(replay, steps=4)
     reset()
-    e_calls = launch_calls(runner.body)
+    e_calls = launch_calls(eager_step)
     n_calls = sum(calls.values())
     print(f"  {label}: a step runs {len(graphed)} kernels graph-replayed, "
           f"{len(eager)} eagerly; host launch calls a step: graphed "
@@ -1783,14 +2089,16 @@ def observations(cfg, vocab: int, seed: int):
 
 
 def run_engine(cfg, params, obs, kw, device, max_tokens=SERVE_TOKENS):
-    """The 16 requests (each observation twice in a row) on one engine;
-    returns (engine, {uid: tokens}, wall seconds)."""
+    """The 16 requests (each observation twice in a row) on one engine,
+    its graphs captured first as the front end captures them (``capture``:
+    nothing eagerly); returns (engine, {uid: tokens}, wall seconds)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(cfg, M.ModelOptions(), params, n_slots=SERVE_SLOTS,
                         max_seq=SERVE_MAX_SEQ, eos=-1,
                         tick_tokens=SERVE_TICK, device=device, **kw)
+    eng.capture()
     for i in range(2 * SERVE_OBS):
         prompt, px = obs[i // 2]
         eng.submit(Request(uid=i, prompt=prompt, max_tokens=max_tokens,
@@ -1811,7 +2119,7 @@ def plan_counts(eng):
     """The counters a chunked engine's host plan fixes: they follow from
     the requests' lengths and the pool alone (eos never fires)."""
     return {f: getattr(eng.stats, f) for f in PLAN_FIELDS} | {
-        "masked_steps": eng.masked_steps}
+        "masked_steps": eng.masked_steps - capture_steps(eng)}
 
 
 def host_plans(cfg):
@@ -1856,8 +2164,8 @@ def serving_full(cfg, params):
     Gates (``serve_engine``), and: the chunked engines' host plan counts
     (ticks, steps, prefix hits, pages) equal to its CPU replay's; paged-f32
     streams equal dense streams in each mode. The engines run the first
-    SERVE_LAYERS layers. Returns {engine: (launches, stats, masked
-    steps)}."""
+    SERVE_LAYERS layers. Returns {engine: (launches, stats, tick steps
+    run, masked capture chunks)}."""
     obs = observations(cfg, cfg.vocab_size, SEED + 3)
     plans = host_plans(cfg)
     cfg, params = first_layers(cfg, params, SERVE_LAYERS)
@@ -1873,7 +2181,8 @@ def serving_full(cfg, params):
         if failed:
             raise AssertionError(f"full-width serving ({name}): {failed}")
         streams[name] = out
-        results[name] = (launches, eng.stats, eng.masked_steps)
+        results[name] = (launches, eng.stats, tick_bodies(eng),
+                         chunk_warmups(eng))
         if name in ("dense", "paged-f32"):
             tick_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers, "
                                 f"{name})")
@@ -1908,22 +2217,29 @@ def spec_serving_full(cfg, params, fused):
     Reported, not gated: the share of tokens equal to phase 5's fused
     streams (``fused``): the verify chunk runs the chunk kernels and a
     wider GEMM than a decode step, and near-tie argmaxes of random weights
-    flip. Returns {engine: (launches, stats, masked rounds)}."""
+    flip. Graphed, the tick replays its cap of guarded rounds and reads
+    the carry back once: decode_syncs == ticks. Returns {engine:
+    (launches, stats, rounds run)}."""
     t0 = time.perf_counter()
     obs = observations(cfg, cfg.vocab_size, SEED + 3)
     cfg, params = first_layers(cfg, params, SERVE_LAYERS)
     results = {}
     for name, kw, ref in SPEC_ENGINES:
         kw = dict(kw, draft_layers=cfg.num_layers)
-        eng, out, launches, gates = serve_spec(cfg, params, obs, name, kw)
+        eng, out, launches, gates, per_round = serve_spec(cfg, params, obs,
+                                                          name, kw)
         tick = eng._tick
-        graph_step_checks(f"{name} round", tick.graph, reset=lambda: None)
-        eager, out_e, launches_e, gates_e = serve_spec(
+        graph_step_checks(f"{name} round", tick.graph,
+                          reset=live_carry(eng), state=lambda: carry(tick))
+        masked, live = masked_vs_live(f"{name} round", eng, reps=10)
+        gates["a guarded-off round costs under a tenth of a live one"] = \
+            masked < live / 10
+        eager, out_e, launches_e, gates_e, _ = serve_spec(
             cfg, params, obs, name, kw, graphs=False)
         gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
         gates["graphed streams equal eager streams"] = out == out_e
-        gates["graphed launches equal eager launches"] = \
-            launches == launches_e
+        gates.update(launches_vs_eager(eng, eager, launches, launches_e,
+                                       per_round, {}))
         failed = [k for k, ok in gates.items() if not ok]
         if failed:
             raise AssertionError(f"full-width speculative serving ({name}): "
@@ -1937,9 +2253,11 @@ def spec_serving_full(cfg, params, fused):
               f"{g.decode_time:.3f} vs {e.decode_time:.3f} s; one capture "
               f"{tick.graph.capture_s * 1e3:.1f} ms ({tick.graph.captures} "
               f"captures); share of tokens equal to phase 5's {ref} streams "
-              f"{stream_share(out, fused[ref]):.4f} (reported, not a gate)")
+              f"{stream_share(out, fused[ref]):.4f} (reported, not a gate); "
+              f"syncs {g.decode_syncs} vs {e.decode_syncs} over "
+              f"{g.ticks} ticks; [{card_line()}]")
         round_breakdown(eng, f"{cfg.name} ({SERVE_LAYERS} layers, {name})")
-        results[name] = (launches, eng.stats, eng.masked_steps)
+        results[name] = (launches, eng.stats, tick_bodies(eng))
         del eng, eager
     print(f"  phase 5c took {time.perf_counter() - t0:.1f} s")
     return results
@@ -1948,13 +2266,16 @@ def spec_serving_full(cfg, params, fused):
 def serve_spec(cfg, params, obs, name: str, kw, graphs: bool = True):
     """The 16 requests through one full-width speculative engine, its
     rounds replayed from a CUDA graph or (``graphs=False``) run eagerly;
-    prints its row and returns (engine, {uid: tokens}, launches, gates).
-    Gates: every request finishes with 193 tokens; a round (masked rounds
-    too) launches the decode kernel once a draft layer for each of its
-    spec_k - 1 draft steps and the layout's chunk kernel once a layer for
-    its verify chunk; each admission prefill the dense chunk kernel once a
-    layer; nothing else; one first-token readback per request and at least
-    one readback a tick; a paged pool drains to 0 pages."""
+    prints its row and returns (engine, {uid: tokens}, launches, gates,
+    each kernel's launches a round). Gates: every request finishes with
+    193 tokens; a round whose body ran (``tick_bodies``) launches the
+    decode kernel once a draft layer for each of its spec_k - 1 draft
+    steps and the layout's chunk kernel once a layer for its verify chunk;
+    each admission prefill the dense chunk kernel once a layer; nothing
+    else; one first-token readback per request; graphed, one readback a
+    tick (``decode_syncs == ticks``), ``guard_gates`` and
+    ``capture_gates``, eagerly at least one readback a tick; a paged pool
+    drains to 0 pages."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1964,14 +2285,15 @@ def serve_spec(cfg, params, obs, name: str, kw, graphs: bool = True):
                                 "cuda")
     launches = read_launches(kernels)
     st, L = eng.stats, cfg.num_layers
-    rounds = st.device_steps + eng.masked_steps
+    rounds = tick_bodies(eng)
     rep = st.phase_report()
     n_tok = sum(map(len, out.values()))
     decode_kernel = ("paged_decode_attention" if eng.paged
                      else "decode_attention")
     verify_kernel = "paged_chunk_prefill" if eng.paged else "chunk_prefill"
-    expected = {decode_kernel: rounds * (SPEC_K - 1) * eng.draft_layers,
-                verify_kernel: rounds * L}
+    per_round = {decode_kernel: (SPEC_K - 1) * eng.draft_layers,
+                 verify_kernel: L}
+    expected = {k: n * rounds for k, n in per_round.items()}
     expected["chunk_prefill"] = expected.get("chunk_prefill", 0) \
         + 2 * SERVE_OBS * L
     print(f"  {name} ({'graphed' if graphs else 'eager'}): {len(out)} "
@@ -1982,7 +2304,7 @@ def serve_spec(cfg, params, obs, name: str, kw, graphs: bool = True):
           f"{st.decode_syncs} ({st.decode_syncs / st.ticks:.3f} a tick); "
           f"verify passes {st.spec_verify_passes}, accepted tokens a pass "
           f"{rep['spec_accept_per_pass']:.4f}, histogram "
-          f"{rep['spec_accept_hist']}, spec_draft_frac "
+          f"{rep['spec_accept_hist']}, rounds run {rounds}, spec_draft_frac "
           f"{rep['spec_draft_frac']:.4f}; decode tick p50/p99 "
           f"{rep['decode_tick_p50'] * 1e3:.2f}/"
           f"{rep['decode_tick_p99'] * 1e3:.2f} ms; TTFT p50 "
@@ -2009,22 +2331,28 @@ def serve_spec(cfg, params, obs, name: str, kw, graphs: bool = True):
         "a readback or more a tick": st.decode_syncs >= st.ticks,
         "verify passes counted": st.spec_verify_passes > 0,
     }
+    if graphs:
+        gates["decode_syncs == ticks"] = st.decode_syncs == st.ticks
+        gates.update(guard_gates(eng))
+        gates.update(capture_gates(eng))
     if eng.paged:
         gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
-    return eng, out, launches, gates
+    return eng, out, launches, gates, per_round
 
 
 def round_breakdown(eng, label: str):
     """``decode_breakdown`` of a speculative engine's round after it
-    drained (every round masked, but each a full draft and verify),
-    replayed from its graph and run eagerly; the wall by host clock over
-    4 rounds."""
+    drained (each round made live again: ``live_carry``, reset before
+    every round, so no slot runs out of room), replayed from its graph and
+    run eagerly; the wall by host clock over 4 rounds."""
     import torch
     tick = eng._tick
+    reset = live_carry(eng)
     for mode, step in (("graphed", lambda: tick.graph.step(tick.graph.key)),
                        ("eager", tick.graph.body)):
         def run_steps(n, step=step):
             for _ in range(n):
+                reset()
                 step()
         run_steps(2)
         torch.cuda.synchronize()
@@ -2059,12 +2387,17 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
     """The 16 requests through one full-width engine on the card, its tick
     step replayed from a CUDA graph or (``graphs=False``) run eagerly;
     prints its serving row and returns (engine, {uid: tokens}, launches,
-    gates). Launches count replays (``graphs.StepGraph``).
-    Gates: every request finishes with 193 tokens; each decode step (masked
-    steps too) launches the engine's decode kernel once an attention layer,
-    and each prefill run its chunk kernel once an attention layer
-    (admit-stall: one dense chunk prefill per request; chunked: one launch
-    of the layout's chunk kernel per chunk run); MoE layers launch
+    gates, (each kernel's launches a tick step, and a chunk run)).
+    Launches count replays (``graphs.StepGraph``).
+    Gates: every request finishes with 193 tokens; each decode step whose
+    body ran (``tick_bodies``: eagerly every step, masked ones too;
+    graphed, the capture's warm-up and each replay whose guard held, held
+    to the device steps by ``guard_gates``) launches the engine's decode
+    kernel once an attention layer, and each
+    prefill run its chunk kernel once an attention layer (admit-stall: one
+    dense chunk prefill per request; chunked: one launch of the layout's
+    chunk kernel per chunk run, and per masked chunk a chunk graph's
+    capture ran as its warm-up); MoE layers launch
     gmm_gated and gmm_down once a layer per prefill run and per decode
     step; Mamba2 layers launch the SSD scan once a layer per prefill run
     (decode runs the recurrence, no kernel); no other kernel runs; one
@@ -2072,9 +2405,12 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
     admit-stall: a readback every tick, and paged engines >= 8 x the
     prompt's pages of prefix hits; chunked: prefill_tokens +
     prefill_skipped = 16 x the prompt, no tick prefills more than the
-    token budget; a paged pool drains to 0 pages."""
+    token budget; a paged pool drains to 0 pages. Graphed:
+    ``guard_gates`` and ``capture_gates``."""
+    import gc
     import torch
     torch.cuda.synchronize()
+    gc.collect()            # an engine's graphs and buffers form cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
@@ -2085,7 +2421,8 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     L = cfg.num_layers
     n_tok = sum(map(len, out.values()))
-    steps = st.device_steps + eng.masked_steps
+    steps = tick_bodies(eng)
+    warm = chunk_warmups(eng)
     rep = st.phase_report()
     chunked = eng.scheduler is not None
     decode_kernel = ("paged_decode_attention" if eng.paged
@@ -2097,16 +2434,23 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
             if chunked else 2 * SERVE_OBS)
     n_attn = sum(cfg.is_attn_layer(i) for i in range(L))
     n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
-    expected = {decode_kernel: n_attn * steps, chunk_kernel: n_attn * runs,
-                "gmm_gated": n_moe * (runs + steps),
-                "gmm_down": n_moe * (runs + steps),
-                "ssd": (L - n_attn) * runs}
+    per_step = {decode_kernel: n_attn, "gmm_gated": n_moe,
+                "gmm_down": n_moe}
+    per_run = {chunk_kernel: n_attn, "gmm_gated": n_moe, "gmm_down": n_moe,
+               "ssd": L - n_attn}
+    # (Mamba2 stacks serve admit-stall only: no masked chunk runs the scan)
+    expected = {k: per_step.get(k, 0) * steps
+                + per_run.get(k, 0) * (runs + warm)
+                for k in set(per_step) | set(per_run)}
     idle = [k for k in launches if not expected.get(k)]
     print(f"  {name} ({'graphed' if graphs else 'eager'}): {len(out)} "
           f"requests, {n_tok} tokens in "
           f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); ticks "
           f"{st.ticks}, device steps {st.device_steps}, masked steps "
-          f"{eng.masked_steps}; TTFT p50/p99 "
+          f"{eng.masked_steps} ({st.device_steps + eng.masked_steps - steps}"
+          f" skipped by the guard); captures: tick "
+          f"{eng._tick.graph.captures}, vision {vision_graphs(eng)}, chunk "
+          f"{chunk_graphs(eng)}; TTFT p50/p99 "
           f"{rep['ttft_p50'] * 1e3:.2f}/{rep['ttft_p99'] * 1e3:.2f} ms; "
           f"decode tick p50/p99 {rep['decode_tick_p50'] * 1e3:.2f}/"
           f"{rep['decode_tick_p99'] * 1e3:.2f} ms; tick p50/p99 "
@@ -2126,7 +2470,8 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
             and all(len(t) == max_tokens for t in out.values()),
         f"{decode_kernel} launches == {n_attn} x tick steps":
             launches[decode_kernel] == expected[decode_kernel],
-        f"{chunk_kernel} launches == {n_attn} x {runs} prefill runs":
+        f"{chunk_kernel} launches == {n_attn} x ({runs} prefill runs + "
+        f"{warm} masked capture chunks)":
             launches[chunk_kernel] == expected[chunk_kernel],
         f"{idle} never launched": not any(launches[k] for k in idle),
         "one readback per decode tick":
@@ -2137,7 +2482,11 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
     if n_moe:
         for k in ("gmm_gated", "gmm_down"):
             gates[f"{k} launches == {n_moe} x ({runs} prefill runs + "
-                  f"{steps} tick steps)"] = launches[k] == expected[k]
+                  f"{warm} masked chunks + {steps} tick steps)"] = \
+                launches[k] == expected[k]
+    if graphs:
+        gates.update(guard_gates(eng))
+        gates.update(capture_gates(eng))
     if L > n_attn:
         gates[f"ssd launches == {L - n_attn} x {runs} prefill runs"] = \
             launches["ssd"] == expected["ssd"]
@@ -2157,29 +2506,94 @@ def serve_engine(cfg, params, obs, name: str, kw, prompt_len: int,
             pages = prompt_len // PAGE
             gates[f"prefix_hits >= {SERVE_OBS} x {pages}"] = \
                 st.prefix_hits >= SERVE_OBS * pages
-    return eng, out, launches, gates
+    return eng, out, launches, gates, (per_step, per_run)
+
+
+def chunk_graphs(eng):
+    return "-" if eng._chunk is None else eng._chunk.runner.captures
+
+
+def vision_graphs(eng):
+    return "-" if eng._vision is None else eng._vision.runner.captures
+
+
+def graph_captures(eng):
+    """(tick, vision, chunk) graph captures of an engine (0: none)."""
+    return tuple(0 if r is None else r.captures for r in (
+        eng._tick.graph, eng._vision and eng._vision.runner,
+        eng._chunk and eng._chunk.runner))
+
+
+def capture_ms(eng) -> float:
+    """Host ms of a graphed engine's vision and chunk captures."""
+    return sum(r.runner.capture_s for r in (eng._vision, eng._chunk)
+               if r is not None) * 1e3
+
+
+def capture_gates(eng):
+    """A graphed engine's captures over its life, all made by
+    ``capture()``: one vision graph (a config with a tower), and at most
+    one chunk graph a slot's staging cache (dense) or one (the pool),
+    chunked."""
+    gates = {}
+    if eng.scheduler is not None:
+        limit = 1 if eng.paged else eng.n_slots
+        gates[f"chunk graph captures {eng._chunk.runner.captures} <= "
+              f"{limit}"] = 1 <= eng._chunk.runner.captures <= limit
+    if eng._vision is not None:
+        gates["one vision graph capture"] = eng._vision.runner.captures == 1
+    return gates
 
 
 def serve_both(cfg, params, obs, name: str, kw, prompt_len: int):
-    """One engine of a serving phase in both modes: its tick step replayed
-    from a CUDA graph (the main path), then run eagerly (``graphs=False``,
-    the oracle). Each run holds ``serve_engine``'s gates; the graphed run's
-    streams and launches must equal the eager run's, and a replayed step
-    must run the eager step's kernels with at most a couple of host launch
-    calls (``graph_step_checks``). Prints the two runs' walls and tick
-    percentiles side by side. Returns (graphed engine, its streams, its
-    launches, gates, eager engine)."""
-    eng, out, launches, gates = serve_engine(cfg, params, obs, name, kw,
-                                             prompt_len)
+    """One engine of a serving phase in both modes: its stages replayed
+    from CUDA graphs (the main path: the guarded tick step, the vision
+    graph, the chunk graphs; the admit-stall prefill runs kernel by
+    kernel), then run eagerly (``graphs=False``, the oracle). Each run
+    holds ``serve_engine``'s gates; the graphed run's streams must equal
+    the eager run's, and its launches the eager run's less the eager
+    masked steps and plus its capture's warm-up step and masked chunks
+    (``launches_vs_eager``); a replayed tick
+    step (and chunk) must run the eager one's kernels with at most a
+    couple of host launch calls (``graph_step_checks``), and a replayed
+    step with the guard false must cost under a tenth of a live one
+    (``masked_vs_live``). Prints the two runs' walls, TTFT, tokens/s and
+    tick percentiles side by side. Returns (graphed engine, its streams,
+    its launches, gates, eager engine)."""
+    t0 = time.perf_counter()
+    eng, out, launches, gates, (per_step, per_run) = serve_engine(
+        cfg, params, obs, name, kw, prompt_len)
+    wall_g = time.perf_counter() - t0
     tick = eng._tick
     graph_step_checks(f"{name} tick step", tick.graph,
-                      reset=tick.counter.zero_)
-    eager, out_e, launches_e, gates_e = serve_engine(
+                      reset=live_carry(eng), state=lambda: carry(tick))
+    masked, live = masked_vs_live(f"{name} tick step", eng)
+    gates["a guarded-off replay costs under a tenth of a live step"] = \
+        masked < live / 10
+    if name == CHUNK_CHECKED:
+        graph_step_checks(f"{name} chunk", eng._chunk.runner,
+                          reset=eng._chunk.load_masked)
+    t0 = time.perf_counter()
+    eager, out_e, launches_e, gates_e, _ = serve_engine(
         cfg, params, obs, name, kw, prompt_len, graphs=False)
+    wall_e = time.perf_counter() - t0
     gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
     gates["graphed streams equal eager streams"] = out == out_e
-    gates["graphed launches equal eager launches"] = launches == launches_e
+    gates.update(launches_vs_eager(eng, eager, launches, launches_e,
+                                   per_step, per_run))
     g, e = eng.stats, eager.stats
+    gr, er = g.phase_report(), e.phase_report()
+    n_tok = sum(map(len, out.values()))
+    print(f"  {name}, graphed vs eager: TTFT p50/p99 "
+          f"{gr['ttft_p50'] * 1e3:.2f}/{gr['ttft_p99'] * 1e3:.2f} vs "
+          f"{er['ttft_p50'] * 1e3:.2f}/{er['ttft_p99'] * 1e3:.2f} ms; "
+          f"tokens/s {n_tok / wall_g:.2f} vs {n_tok / wall_e:.2f} (whole "
+          f"run, engine built and captures in); prefill "
+          f"{g.prefill_time:.3f} vs {e.prefill_time:.3f} s; vision "
+          f"{g.vision_time:.3f} vs {e.vision_time:.3f} s; vision / chunk "
+          f"graph captures {vision_graphs(eng)} / {chunk_graphs(eng)} "
+          f"({capture_ms(eng):.1f} ms, by capture() before the requests); "
+          f"[{card_line()}]")
     print(f"  {name}, graphed vs eager: decode tick p50/p99 "
           f"{np.percentile(g.decode_tick_s, 50) * 1e3:.2f}/"
           f"{np.percentile(g.decode_tick_s, 99) * 1e3:.2f} vs "
@@ -2382,7 +2796,7 @@ def sharded_serving_full(cfg, params, streams, serving):
         print(f"  logits checks: {time.perf_counter() - t0:.1f} s since the "
               f"mesh's start")
         for name, ekw in SHARDED_ENGINES:
-            eng, out, launches, gates = serve_engine(
+            eng, out, launches, gates, _ = serve_engine(
                 cut, weights, obs, f"sharded {name}", dict(ekw, mesh=mesh),
                 prompt_len, graphs=False, max_tokens=SHARD_TOKENS)
             st = eng.stats
@@ -2437,14 +2851,15 @@ def sharded_serving_full(cfg, params, streams, serving):
 
 def tick_breakdown(eng, label: str):
     """``decode_breakdown`` of an engine's tick step after it drained (8
-    slots, every step masked but each a full decode), replayed from its
-    graph and run eagerly; the wall by host clock over 4 steps."""
+    slots, each made live again: ``live_carry``), replayed from its graph
+    and run eagerly; the wall by host clock over 4 steps."""
     import torch
     tick = eng._tick
+    reset = live_carry(eng)
     for mode, step in (("graphed", lambda: tick.graph.step(tick.graph.key)),
                        ("eager", tick.graph.body)):
         def run_steps(n, step=step):
-            tick.counter.zero_()
+            reset()
             for _ in range(n):
                 step()
         run_steps(2)
@@ -2465,8 +2880,8 @@ def moe_serving_full(cfg):
     MOE_ENGINES. Gates (``serve_engine``), and the paged-f32 streams equal
     the dense ones; the chunked engine's share of tokens equal to the dense
     streams is reported. Then the decode breakdown of 4 decode steps of
-    the dense engine's batch. Returns {engine: (launches, stats, masked
-    steps)}."""
+    the dense engine's batch. Returns {engine: (launches, stats, tick
+    steps run, masked capture chunks)}."""
     import torch
     from repro_torch.models import model as M
     cfg = dataclasses.replace(cfg, num_layers=MOE_SERVE_LAYERS)
@@ -2484,7 +2899,8 @@ def moe_serving_full(cfg):
             raise AssertionError(f"full-width MoE serving ({name}): "
                                  f"{failed}")
         streams[name] = out
-        results[name] = (launches, eng.stats, eng.masked_steps)
+        results[name] = (launches, eng.stats, tick_bodies(eng),
+                         chunk_warmups(eng))
         if name == "moe-dense":
             caches = eng.caches
             tick_breakdown(eng, cfg.name)
@@ -3007,11 +3423,11 @@ def moe_timings(cfg, errs, serving):
     from repro_torch.kernels.moe_gmm import ops as gmm
     L = MOE_SERVE_LAYERS            # the layers phase 7 served
     by_c = dict.fromkeys(MOE_C, 0)
-    for name, (launches, st, masked) in serving.items():
-        by_c[2] += L * (st.device_steps + masked)
+    for name, (launches, st, bodies, warm) in serving.items():
+        by_c[2] += L * bodies
         if "chunked" in name:
             by_c[32] += L * (st.prefill_key_lanes_full
-                             // (CHUNK_SIZE * SERVE_MAX_SEQ))
+                             // (CHUNK_SIZE * SERVE_MAX_SEQ) + warm)
         else:
             by_c[160] += L * 2 * SERVE_OBS
     for k in ("gmm_gated", "gmm_down"):
@@ -3335,7 +3751,8 @@ def ssm_serving_full(cfg):
     admission and no other kernel), the host plan counts equal to their
     CPU replay's, and the paged streams equal the dense ones. Then the
     decode breakdown of 4 decode steps of the dense engine's batch.
-    Returns {engine: (launches, stats, masked steps)}."""
+    Returns {engine: (launches, stats, tick steps run, masked capture
+    chunks)}."""
     import torch
     from repro_torch.models import model as M
     cfg = dataclasses.replace(cfg, num_layers=SSM_SERVE_LAYERS)
@@ -3356,7 +3773,8 @@ def ssm_serving_full(cfg):
             raise AssertionError(f"full-width SSM serving ({name}): "
                                  f"{failed}")
         streams[name] = out
-        results[name] = (launches, eng.stats, eng.masked_steps)
+        results[name] = (launches, eng.stats, tick_bodies(eng),
+                         chunk_warmups(eng))
         if name == "ssm-dense":
             caches = eng.caches
             tick_breakdown(eng, cfg.name)
@@ -4054,7 +4472,8 @@ def dit_full_width(cfg, params, discrete_ms):
     in the same order in the DiT loop and at most MAX_GRAPH_LAUNCHES host
     launch calls a replayed loop, the bf16 trajectory within
     DIT_BF16_TOL x max(1, |f32|) of the same head in f32; timed phase by
-    phase (median of PHASE_REPEATS) beside phase 4's discrete split
+    phase (graphed: median of PHASE_REPEATS; eager: EAGER_REPEATS runs)
+    beside phase 4's discrete split
     (``discrete_ms``) and ``simulate_vla``'s, with the DiT loop's wall,
     busy time, idle share and kernels a denoising step, and its byte
     bound."""
@@ -4132,6 +4551,8 @@ def dit_full_width(cfg, params, discrete_ms):
     runs = {mode: [] for mode in graphs}
     for rep in range(PHASE_REPEATS):
         for mode, (graph, dit) in graphs.items():
+            if mode == "eager" and rep >= EAGER_REPEATS:
+                continue
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             ev[0].record()
             prefix = M.encode_vision(cfg, opts, params, patches, device=dev)
@@ -4165,7 +4586,7 @@ def dit_full_width(cfg, params, discrete_ms):
                           for n in names}
         total = float(np.median([sum(r.values()) for r in rs]))
         share = np.median([r["action_decode"] / sum(r.values()) for r in rs])
-        print(f"  {cfg.name} {mode}, median of {PHASE_REPEATS}: control "
+        print(f"  {cfg.name} {mode}, median of {len(rs)}: control "
               f"step {total:.2f} ms (" + ", ".join(
                   f"{n} {t:.2f}" for n, t in phase_ms[mode].items())
               + f"); action (DiT) share {share:.4f}")
@@ -4200,14 +4621,17 @@ def dit_full_width(cfg, params, discrete_ms):
 def frontend_card_vs_cpu(cfg_full):
     """Phase 5d: the front end over two replicas of reduced molmoact-7b
     (paged f32, chunked, ticks offloaded to two threads) on the card. The
-    front end's start captures each replica's tick graph, one after the
-    other; then six observations go in at once, so that both replicas
+    front end's start captures each replica's tick, vision and chunk
+    graphs, one replica after the other, and seals them; then six
+    observations go in at once, so that both replicas
     tick side by side on two threads; their twins follow once they
     finished (prefix routing); then a request cancelled mid-decode.
     Gates: every stream equals the same request's on one synchronous CPU
-    engine of the port; each replica captured once, before its driver
-    started, with only its own step's launches recorded, and nothing
-    raises; some ticks of the two replicas overlapped in time on two
+    engine of the port; each replica captured each graph once, before its
+    driver started, with only its own step's launches recorded, and
+    nothing raises; each replica's replays that ran its tick's body are
+    its device steps; some ticks of the two replicas overlapped in time on
+    two
     threads; each wrapper's launches equal the capture steps' and prefill
     chunks' eager launches plus replays x recorded; routed_prefix >= 1;
     the cancel returns the pool to its baseline. Then the serve driver
@@ -4262,7 +4686,7 @@ def frontend_card_vs_cpu(cfg_full):
         for i, e in enumerate(engines):
             e.step_fused = traced(i, e.step_fused)
         async with AsyncFrontend(engines, offload_ticks=True) as fe:
-            at_start = [e._tick.graph.captures for e in engines]
+            at_start = [graph_captures(e) for e in engines]
             outs = []
             for wave in (reqs[:6], reqs[6:]):
                 streams = [await fe.submit(p, m, patches=px)
@@ -4283,8 +4707,9 @@ def frontend_card_vs_cpu(cfg_full):
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     n_attn = cfg.num_layers
-    steps = [e.stats.device_steps + e.masked_steps for e in engines]
-    runs = [e.stats.prefill_key_lanes_full // (PAGE * 128) for e in engines]
+    steps = [tick_bodies(e) for e in engines]
+    runs = [e.stats.prefill_key_lanes_full // (PAGE * 128)
+            + chunk_warmups(e) for e in engines]
     runners = [e._tick.graph for e in engines]
     decode = kernels["paged_decode_attention"]
     eager_decode = sum(r.captures * n_attn for r in runners)
@@ -4297,19 +4722,24 @@ def frontend_card_vs_cpu(cfg_full):
     gates = {
         "every stream equals the synchronous CPU engine's":
             outs == [want[i] for i in range(len(reqs))],
-        "each replica captured once, before its driver started":
-            at_start == [1, 1]
-            and [r.captures for r in runners] == [1, 1],
+        "each replica captured its tick, vision and chunk graphs once, "
+        "before its driver started":
+            at_start == [graph_captures(e) for e in engines]
+            == [(1, 1, 1), (1, 1, 1)],
+        "each replica's replays that ran == its device steps":
+            all(e._tick.graph.replays_ran == e.stats.device_steps
+                for e in engines),
         "each capture recorded only its own step's launches":
             all(r.recorded == {decode: n_attn} for r in runners),
         "ticks of the two replicas overlapped on two threads":
             len(overlaps) >= 1,
-        "paged_decode_attention launches == warm-ups + replays x recorded"
-        " == layers x tick steps":
+        "paged_decode_attention launches == warm-ups + replays that ran x "
+        "recorded == layers x tick steps run":
             launches["paged_decode_attention"] == eager_decode + sum(
-                r.replays * r.recorded.get(decode, 0) for r in runners)
+                r.replays_ran * r.recorded.get(decode, 0) for r in runners)
             == n_attn * sum(steps),
-        "paged_chunk_prefill launches == layers x chunk runs":
+        "paged_chunk_prefill launches == layers x (chunk runs + masked "
+        "capture chunks)":
             launches["paged_chunk_prefill"] == n_attn * sum(runs),
         "no other kernel launched": not any(
             v for k, v in launches.items()
@@ -4335,12 +4765,121 @@ def frontend_card_vs_cpu(cfg_full):
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise AssertionError(f"front end (reduced): {failed}")
+    frontend_new_length_midrun(cfg, p_cpu, p_gpu)
     streams = serve.main(["--reduced", "--frontend", "--replicas", "2",
                           "--paged", "--chunked-prefill", "--requests", "6",
                           "--max-tokens", "8", "--prompt-len", "40"])
     if len(streams) != 6 or any(len(s.request.out_tokens) != 8
                                 for s in streams):
         raise AssertionError("the serve driver's streams are short")
+
+
+def frontend_new_length_midrun(cfg, p_cpu, p_gpu):
+    """Phase 5d, a prompt length first seen mid-run: two admit-stall
+    replicas (reduced molmoact-7b, paged f32, 3 slots) behind the front
+    end on two threads. Four requests of one prompt length start both
+    replicas decoding; once each has streamed tokens, two requests of a
+    second length arrive while both tick. Admission runs its prefill
+    kernel by kernel, and the front end's start captured every graph the
+    replicas replay and sealed them, so nothing captures mid-run (a sealed
+    runner would raise). Gates: every stream equals one synchronous CPU
+    engine's; each replica's tick and vision graphs were captured once,
+    before the drivers started, and never again; each replica's replays
+    that ran its tick's body are its device steps; ticks of the two
+    replicas overlapped on two threads; launches follow from the device
+    steps, the capture's warm-up step and the admissions."""
+    import asyncio
+    import threading
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving import AsyncFrontend, Request, ServingEngine
+    kw = dict(n_slots=3, max_seq=128, eos=-1, tick_tokens=4, paged=True,
+              page_size=PAGE)
+    rng = np.random.default_rng(SEED + 13)
+    n_vis, emb = cfg.vision.num_tokens, cfg.vision.embed_dim
+    first = [(rng.integers(0, cfg.vocab_size, 40, dtype=np.int32), 48,
+              rng.standard_normal((n_vis, emb), dtype=np.float32))
+             for _ in range(4)]
+    second = [(rng.integers(0, cfg.vocab_size, 52, dtype=np.int32), 12,
+               rng.standard_normal((n_vis, emb), dtype=np.float32))
+              for _ in range(2)]
+    reqs = first + second
+    sync = ServingEngine(cfg, M.ModelOptions(), p_cpu, device="cpu", **kw)
+    for i, (p, m, px) in enumerate(reqs):
+        sync.submit(Request(uid=i, prompt=p, max_tokens=m, patches=px))
+    want = {r.uid: r.out_tokens for r in sync.run()}
+    kernels = reset_launches()
+    ticks = []
+
+    def traced(i, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                ticks.append((i, threading.get_ident(), t0,
+                              time.perf_counter()))
+        return run
+
+    async def go():
+        engines = [ServingEngine(cfg, M.ModelOptions(), p_gpu,
+                                 device="cuda", **kw) for _ in range(2)]
+        for i, e in enumerate(engines):
+            e.step_fused = traced(i, e.step_fused)
+        async with AsyncFrontend(engines, offload_ticks=True) as fe:
+            at_start = [graph_captures(e) for e in engines]
+            streams = [await fe.submit(p, m, patches=px)
+                       for p, m, px in first]
+            its = [s.__aiter__() for s in streams]
+            for it in its:                  # every replica is decoding
+                await it.__anext__()
+                await it.__anext__()
+            late = [await fe.submit(p, m, patches=px) for p, m, px in second]
+            for it in its:
+                async for _ in it:
+                    pass
+            outs = [await s.tokens() for s in late]
+            await fe.drain()
+        return engines, streams, outs, at_start
+
+    engines, streams, outs, at_start = asyncio.run(go())
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    got = [s.request.out_tokens for s in streams] + outs
+    L = cfg.num_layers
+    lengths = [sorted({n_vis + len(r.prompt) for r in e.finished})
+               for e in engines]
+    overlaps = [1 for a in ticks if a[0] == 0 for b in ticks if b[0] == 1
+                if a[1] != b[1] and min(a[3], b[3]) > max(a[2], b[2])]
+    gates = {
+        "every stream equals the synchronous CPU engine's":
+            got == [want[i] for i in range(len(reqs))],
+        "each replica's tick and vision graphs captured once, before its "
+        "driver started, and never again":
+            at_start == [graph_captures(e) for e in engines]
+            == [(1, 1, 0), (1, 1, 0)],
+        "the second length reached a replica mid-run":
+            any(len(n) == 2 for n in lengths),
+        "each replica's replays that ran == its device steps":
+            all(e._tick.graph.replays_ran == e.stats.device_steps
+                for e in engines),
+        "ticks of the two replicas overlapped on two threads":
+            len(overlaps) >= 1,
+        "decode launches == layers x (capture warm-up + device steps)":
+            launches["paged_decode_attention"]
+            == L * sum(tick_bodies(e) for e in engines),
+        "chunk_prefill launches == layers x admissions":
+            launches["chunk_prefill"] == L * len(reqs),
+    }
+    print(f"  front end, 2 admit-stall replicas, a prompt length first seen "
+          f"mid-run: lengths admitted {lengths}; (tick, vision, chunk) "
+          f"captures {[graph_captures(e) for e in engines]}, at start "
+          f"{at_start}; {len(overlaps)} pairs of ticks overlapped; launches "
+          f"{launches}")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"front end (a length first seen mid-run): "
+                             f"{failed}")
 
 
 FLEET = dict(n_robots=8, steps_per_robot=4, control_hz=10.0,
@@ -4395,9 +4934,9 @@ def fleet_full(cfg, params):
     met, ctrl_met = serve.fleet_slo(served)
     n_ctrl = sum(e.kind == "control" for e, _ in served)
     toks = sum(len(s.request.out_tokens) for _, s in served)
-    steps = sum(e.stats.device_steps + e.masked_steps for e in engines)
+    steps = sum(tick_bodies(e) for e in engines)
     runs = sum(e.stats.prefill_key_lanes_full // (CHUNK_SIZE * SERVE_MAX_SEQ)
-               for e in engines)
+               + chunk_warmups(e) for e in engines)
     print(f"  fleet replay ({len(trace)} requests of {FLEET['n_robots']} "
           f"robots at {FLEET['control_hz']:g} Hz, 2 replicas of "
           f"{SERVE_LAYERS} layers): {len(served)} accepted, "
@@ -4427,11 +4966,15 @@ def fleet_full(cfg, params):
             not s.cancelled and len(s.request.out_tokens) == e.max_tokens
             and all(0 <= t < cfg.vocab_size for t in s.request.out_tokens)
             for e, s in served) and rep["completed"] == len(served),
-        "each replica captures once":
-            [e._tick.graph.captures for e in engines] == [1, 1],
-        "paged_decode_attention launches == layers x tick steps":
+        "each replica captures its tick and chunk graphs once (no tower)":
+            [graph_captures(e) for e in engines] == [(1, 0, 1), (1, 0, 1)],
+        "each replica's replays that ran == its device steps":
+            all(e._tick.graph.replays_ran == e.stats.device_steps
+                for e in engines),
+        "paged_decode_attention launches == layers x tick steps run":
             launches["paged_decode_attention"] == SERVE_LAYERS * steps,
-        "paged_chunk_prefill launches == layers x chunk runs":
+        "paged_chunk_prefill launches == layers x (chunk runs + masked "
+        "capture chunks)":
             launches["paged_chunk_prefill"] == SERVE_LAYERS * runs,
     }
     failed = [k for k, ok in gates.items() if not ok]
@@ -4661,19 +5204,23 @@ def arch_engine(cfg, opts, params, name: str, kw, reqs, max_seq: int,
     engine on the card, its tick step replayed from a CUDA graph or
     (``graphs=False``) run eagerly; prints its serving row and returns
     (engine, {uid: tokens}, launches, gates). ``expected(engine)`` gives
-    the kernels' launches the run must show (others: none). Gates: every
-    request ends with its budget (eos never fires); the launches; one
-    readback a decode tick and one a request's first token; a paged pool
-    drains."""
+    the kernels' launches the run must show (others: none). The engine's
+    graphs are captured first (``capture``). Gates: every request ends
+    with its budget (eos never fires); the launches; one readback a
+    decode tick and one a request's first token; a paged pool drains;
+    graphed, ``guard_gates``."""
+    import gc
     import torch
     from repro_torch.serving import Request, ServingEngine
     torch.cuda.synchronize()
+    gc.collect()            # an engine's graphs and buffers form cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
     eng = ServingEngine(cfg, opts, params, n_slots=ARCH_SLOTS,
                         max_seq=max_seq, eos=-1, tick_tokens=SERVE_TICK,
                         device="cuda", graphs=graphs, **kw)
+    eng.capture()
     for i, (prompt, m, px) in enumerate(reqs):
         eng.submit(Request(uid=i, prompt=prompt, max_tokens=m, patches=px))
     t0 = time.perf_counter()
@@ -4706,6 +5253,7 @@ def arch_engine(cfg, opts, params, name: str, kw, reqs, max_seq: int,
         "one first-token readback per request":
             st.prefill_syncs == len(reqs),
     }
+    gates.update(guard_gates(eng))
     if eng.paged:
         gates["pages_in_use == 0 at drain"] = st.pages_in_use == 0
     return eng, out, launches, gates
@@ -4724,12 +5272,20 @@ def arch_serve_both(cfg, opts, params, name: str, kw, reqs, max_seq: int,
                                             reqs, max_seq, expected)
     tick = eng._tick
     graph_step_checks(f"{name} tick step", tick.graph,
-                      reset=tick.counter.zero_)
+                      reset=live_carry(eng), state=lambda: carry(tick))
     eager, out_e, launches_e, gates_e = arch_engine(
         cfg, opts, params, name, kw, reqs, max_seq, expected, graphs=False)
     gates.update({f"eager: {k}": ok for k, ok in gates_e.items()})
     gates["graphed streams equal eager streams"] = out == out_e
-    gates["graphed launches equal eager launches"] = launches == launches_e
+    # the expected launches differ by the eager masked steps, the
+    # capture's warm-up step and masked chunks (``tick_bodies``)
+    want, want_e = expected(eng), expected(eager)
+    gates["graphed device steps == eager device steps"] = \
+        eng.stats.device_steps == eager.stats.device_steps
+    gates["graphed launches == eager launches - eager masked steps' + "
+          "capture warm-up's and masked chunks'"] = all(
+        launches[k] - launches_e[k] == want.get(k, 0) - want_e.get(k, 0)
+        for k in launches)
     hold(f"{name}, graphed and eager", gates)
     g, e = eng.stats, eager.stats
     print(f"  {name}, graphed vs eager: wall decode {g.decode_time:.3f} vs "
@@ -4766,14 +5322,14 @@ def granite_full(cfg, params):
     out = {}
     for name, kw in GRANITE_ENGINES:
         def expected(eng):
-            steps = eng.stats.device_steps + eng.masked_steps
+            steps = tick_bodies(eng)
             if eng.scheduler is None:
                 return {"paged_decode_attention": L * steps,
                         "chunk_prefill": L * len(reqs)}
             runs = eng.stats.prefill_key_lanes_full // (CHUNK_SIZE
                                                         * max_seq)
             return {"paged_decode_attention": L * steps,
-                    "paged_chunk_prefill": L * runs}
+                    "paged_chunk_prefill": L * (runs + chunk_warmups(eng))}
         # the chunked engine's tick step is the admit-stall one's
         out[name] = arch_serve_both(cfg, M.ModelOptions(), params, name, kw,
                                     reqs, max_seq, expected,
@@ -4797,7 +5353,7 @@ def internvl_full(cfg, params):
     max_seq = cfg.vision.num_tokens + INTERNVL_TEXT + ARCH_NEW
 
     def expected(eng):
-        steps = eng.stats.device_steps + eng.masked_steps
+        steps = tick_bodies(eng)
         return {"decode_attention": L * steps, "chunk_prefill": L * len(reqs)}
     return {"internvl-dense": arch_serve_both(
         cfg, M.ModelOptions(), params, "internvl-dense", {}, reqs, max_seq,
@@ -4958,7 +5514,7 @@ def gemma_full(cfg, params):
     n_flash = sum(len(p) % 128 == 0 for p, _, _ in reqs)
 
     def expected(eng):
-        steps = eng.stats.device_steps + eng.masked_steps
+        steps = tick_bodies(eng)
         return {"decode_attention": L * steps,
                 "flash_attention": n_local * n_flash,
                 "chunk_prefill": (L - n_local) * len(reqs)}

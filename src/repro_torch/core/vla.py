@@ -2,7 +2,9 @@
 CoT decode -> action generation, discrete action-token decode or the DiT
 head's denoising loop (``repro.core.vla`` in PyTorch). The phases are the
 public functions of ``models.model``, so a caller can time each one on its
-own."""
+own; on the card vision + prefill is one graph replay
+(``M.PrefillGraph``), each decode step one more (``M.DecodeGraph``) and
+the DiT loop one (``M.DiTGraph``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -47,6 +49,7 @@ def control_step_lengths(cfg: ModelConfig, n_text: int):
 def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
                      max_seq: Optional[int] = None, *, device="cuda",
                      graph: Optional[M.DecodeGraph] = None,
+                     prefill_graph: Optional[M.PrefillGraph] = None,
                      dit_graph: Optional[M.DiTGraph] = None,
                      noise=None,
                      generator: Optional[torch.Generator] = None
@@ -54,10 +57,13 @@ def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
     """One full control step for a VLA observation batch.
 
     batch: {'tokens': [B, n_prompt] instruction, and 'patches': [B,T,e]
-    image or 'prefix': [B,T,d_model] from ``M.encode_vision``}. The CoT
-    and action loops share one ``M.DecodeGraph``: ``graph``, which a
-    caller may keep across control steps (it captures again only when the
-    new step's caches lie elsewhere), else a new one. A DiT head
+    image or 'prefix': [B,T,d_model] from ``M.encode_vision``}. Vision
+    and prefill run as one body, one replay of ``prefill_graph`` (an
+    ``M.PrefillGraph``, which a caller may keep across control steps; a
+    new one when None), whose caches keep one address. The CoT and action
+    loops share one ``M.DecodeGraph``: ``graph``, kept the same way, which
+    captures again only when the step's caches lie elsewhere: beside a
+    kept ``prefill_graph``, never after its first control step. A DiT head
     (``cfg.action.mode == 'dit'``) is conditioned on the embedding of the
     last CoT token and denoises ``noise`` [B, horizon, action_dim], else a
     draw of ``generator`` (a seed-0 generator when neither is given: the
@@ -67,10 +73,16 @@ def vla_control_step(cfg: ModelConfig, opts: ModelOptions, params, batch,
     """
     dev = resolve_device(device)
     graph = graph if graph is not None else M.DecodeGraph(dev)
+    prefill_graph = prefill_graph if prefill_graph is not None \
+        else M.PrefillGraph(dev)
+    for g in (graph, prefill_graph):
+        if g.device != dev:
+            raise ValueError(f"a graph is on {g.device}, the call asked "
+                             f"for {dev}")
     a = cfg.action
     prompt, n_act, total = control_step_lengths(cfg, len(batch["tokens"][0]))
-    logits, caches = M.prefill(cfg, opts, params, batch, max_seq or total,
-                               device=dev)
+    logits, caches = prefill_graph.run(cfg, opts, params, batch,
+                                       max_seq or total)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     cot, tok, caches = decode_tokens(cfg, opts, params, tok, caches, prompt,
                                      cfg.n_cot_tokens, device=dev,

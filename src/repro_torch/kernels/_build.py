@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the entry points; each returns the cudaError_t of its launch
-# (decode_split_smem, which launches nothing, returns a size)
+# (decode_split_smem, which launches nothing, returns a size; the graph_if_
+# entries, the cudaError_t of their graph calls)
 SIGNATURES = {
     # q, k, v, index, scratch, out, q_bf16, kv_dtype, B, S, N, K, h,
     # kv_batch_stride, window, stream
@@ -64,6 +65,10 @@ SIGNATURES = {
     # q, k, v, out, lse, bf16, B, S, Sk, N, K, h, window, causal, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
+    # stream (capturing), flag (device bool), body graph (out): an IF node
+    "graph_if_node": [_P, _P, _P],
+    # body graph, child graph
+    "graph_if_fill": [_P, _P],
 }
 
 

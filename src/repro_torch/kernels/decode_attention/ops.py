@@ -43,6 +43,8 @@ def slot_index(index, B: int, device) -> torch.Tensor:
             and index.shape == (B,) and index.device == device
             and index.is_contiguous()):
         return index
+    if isinstance(index, int):     # a fill, not a copy from the host
+        return torch.full((B,), index, dtype=torch.int32, device=device)
     idx = torch.as_tensor(index, dtype=torch.int32, device=device)
     return idx.reshape(-1).expand(B).contiguous()
 

@@ -16,6 +16,8 @@
                                   n_valid=nv)          # logits [B, K, V]
     toks, last, caches = decode_loop(cfg, opts, params, tok, caches,
                                      index, n_steps)   # one graph a step
+    logits, caches = PrefillGraph().run(cfg, opts, params, batch,
+                                        max_seq)       # one dispatch
     traj = generate_actions_dit(cfg, params, cond, noise=noise)  # DiT head
 
 ``batch`` is a dict: tokens [B,S] (+ 'patches' [B,T,e] for the VLM's vision
@@ -43,14 +45,14 @@ from repro_torch.distributed.sharding import (constrain, dense, is_dtensor,
 from repro_torch.models import action as A
 from repro_torch.models import params as P
 from repro_torch.models import stacks
-from repro_torch.models.graphs import StepGraph, tensor_key
+from repro_torch.models.graphs import OutputBuffers, StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, apply_norm
 from repro_torch.models.stacks import init_caches  # re-export
 
 __all__ = ["model_template", "forward", "prefill", "embed_prompt",
            "prefill_chunk", "decode_step", "draft_step", "verify_chunk",
-           "decode_loop", "DecodeGraph", "generate_actions_dit",
-           "DiTGraph", "encode_vision",
+           "decode_loop", "DecodeGraph", "PrefillGraph", "VisionGraph",
+           "generate_actions_dit", "DiTGraph", "encode_vision",
            "init_params", "init_caches", "ModelOptions"]
 
 
@@ -245,11 +247,13 @@ def forward(cfg: ModelConfig, opts: ModelOptions, params, batch,
 def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
             max_seq: int, cache_dtype=torch.bfloat16, caches=None,
             cache_index=0, page_table=None, live_len=None, *,
-            device="cuda"):
+            device="cuda", into=None):
     """Process the prompt, filling a decode cache sized ``max_seq``.
     Returns (last-position logits [B,1,V], caches).
 
-    From position 0 (the default) a fresh dense cache is allocated.
+    From position 0 (the default) a fresh dense cache is allocated, or
+    ``into`` (caches of the same template) is zeroed and filled in place
+    instead: the same values, at addresses a captured graph can keep.
     ``cache_index > 0`` is prefill-from-position: ``batch['tokens']`` is a
     suffix starting there, written into the given ``caches`` (in place)
     and attending to everything already in them. Positioned prefill is
@@ -268,8 +272,17 @@ def prefill(cfg: ModelConfig, opts: ModelOptions, params, batch,
     ctx = None
     if not positioned:
         x, positions, ctx = _sequence(params, batch, cfg, dev, opts.shard)
-        caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype, opts,
-                             device=dev)
+        if into is not None:
+            if ctx is not None:
+                raise ValueError("prefill into given caches is "
+                                 "decoder-only (an encoder-decoder's "
+                                 "cross K/V take the context's type)")
+            caches = into
+            for _, leaf in P.leaves(caches):
+                leaf.zero_()
+        else:
+            caches = init_caches(cfg, x.shape[0], max_seq, cache_dtype,
+                                 opts, device=dev)
         if ctx is not None:
             # the reference caches the cross K/V as computed, unrounded
             for path, leaf in P.leaves(caches):
@@ -347,8 +360,9 @@ def prefill_chunk(cfg: ModelConfig, opts: ModelOptions, params, embeds,
                                      cache_index=cache_index,
                                      page_table=page_table, n_valid=n_valid,
                                      live_len=live_len)
-    last = torch.as_tensor(C if n_valid is None else n_valid, device=dev,
-                           dtype=torch.long).reshape(1) - 1
+    # a chunk with no valid row (a graph's masked capture) reads row 0
+    last = (torch.as_tensor(C if n_valid is None else n_valid, device=dev,
+                            dtype=torch.long).reshape(1) - 1).clamp(min=0)
     return _logits(params, x.index_select(1, last), cfg,
                    opts.shard), caches
 
@@ -501,6 +515,117 @@ class DecodeGraph:
         cfg, opts, params, caches = self._args
         return (cfg, opts) + tensor_key(params, caches, self.tok, self.idx,
                                         self.toks, self.counter)
+
+
+class VisionGraph:
+    """``encode_vision`` as one body, captured in a CUDA graph on the card
+    and replayed (``graphs.StepGraph``): the counterpart of the reference
+    engine's one-dispatch ``_jit_vision``. Static buffers, one pair a
+    shape: the patches [B,T,e] and the prefix [B,T,d_model] the tower
+    writes; the graph is keyed on them and on the tower's parameters.
+    ``run`` returns the prefix buffer itself, valid until the next run of
+    that shape. ``eager=True`` runs the same body without a graph (the
+    oracle); on the CPU it always runs eagerly."""
+
+    def __init__(self, device="cuda", *, eager: bool = False):
+        self.device = resolve_device(device)
+        self.runner = StepGraph(self._body, self.device, eager=eager)
+        self._inputs: Dict = {}
+        self._out = OutputBuffers()
+        self._args = None
+
+    def _body(self):
+        cfg, opts, params, patches = self._args
+        self._out.write(tuple(patches.shape), encode_vision(
+            cfg, opts, params, patches, device=self.device))
+
+    def run(self, cfg: ModelConfig, opts: ModelOptions, params, patches):
+        """The prefix [B,T,d_model] of ``patches`` [B,T,e]."""
+        _check_params(params, self.device)
+        patches = _on(patches, self.device, params["vision"]["in_proj"].dtype)
+        sig = tuple(patches.shape)
+        buf = self._inputs.get(sig)
+        if buf is None or buf.dtype != patches.dtype:
+            self._inputs[sig] = buf = torch.zeros_like(patches)
+        buf.copy_(patches)
+        self._args = (cfg, opts, params, buf)
+        self.runner.step((cfg, opts) + tensor_key(params["vision"], buf))
+        return self._out.bufs[sig]
+
+
+class PrefillGraph:
+    """``prefill`` from position 0 as one body, captured in a CUDA graph on
+    the card and replayed while the shapes stay (a new shape captures
+    anew: ``graphs.StepGraph`` keeps one graph): the counterpart of the
+    reference's one-dispatch ``_jit_prefill`` and, given
+    ``batch['patches']``, of the control step's joint vision + prefill
+    lowering (the tower runs in the same graph).
+
+    Static buffers: the tokens [B,S] and the patches [B,T,e] or prefix
+    [B,T,d_model], one set a shape; the last row's logits [B,1,V]; and the
+    caches [B, max_seq], allocated once for the batch, length and type and
+    zeroed and filled in place by every run (``prefill(into=)``: the
+    values of a fresh prefill). So the caches keep one address for any
+    prompt length, and a ``DecodeGraph`` kept beside this one captures
+    once for any number of control steps. A graph is keyed on the shapes,
+    the types and the parameters' addresses, as the reference's jit
+    retraces per shape. ``run`` returns (a copy of the logits, the caches
+    themselves: valid until the next run). ``eager=True`` runs the same
+    body without a graph (the oracle); on the CPU it always runs eagerly.
+    Decoder-only (an encoder-decoder's cross K/V are refused)."""
+
+    def __init__(self, device="cuda", *, eager: bool = False):
+        self.device = resolve_device(device)
+        self.runner = StepGraph(self._body, self.device, eager=eager)
+        self.caches = None
+        self._caches_for = None
+        self._inputs: Dict = {}
+        self._out = OutputBuffers()
+        self._args = None
+
+    def _input(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        sig = (name, tuple(value.shape), value.dtype)
+        buf = self._inputs.get(sig)
+        if buf is None:
+            self._inputs[sig] = buf = torch.zeros_like(value)
+        buf.copy_(value)
+        return buf
+
+    def _body(self):
+        cfg, opts, params, batch, max_seq, cache_dtype = self._args
+        logits, _ = prefill(cfg, opts, params, batch, max_seq, cache_dtype,
+                            device=self.device, into=self.caches)
+        self._out.write(batch["tokens"].shape[0], logits)
+
+    def run(self, cfg: ModelConfig, opts: ModelOptions, params, batch,
+            max_seq: int, cache_dtype=torch.bfloat16):
+        """``prefill(cfg, opts, params, batch, max_seq, cache_dtype)``
+        through this graph: (logits [B,1,V], caches)."""
+        dev = self.device
+        _check_params(params, dev)
+        if cfg.encoder is not None:
+            raise ValueError(f"{cfg.name}: PrefillGraph is decoder-only "
+                             "(run an encoder-decoder through prefill)")
+        tokens = _on(batch["tokens"], dev, torch.long)
+        B = tokens.shape[0]
+        inputs = {"tokens": self._input("tokens", tokens)}
+        if "prefix" in batch:
+            inputs["prefix"] = self._input("prefix", _on(batch["prefix"],
+                                                         dev))
+        elif "patches" in batch and cfg.vision is not None:
+            inputs["patches"] = self._input("patches", _on(
+                batch["patches"], dev, params["vision"]["in_proj"].dtype))
+        want = (cfg, opts, B, max_seq, cache_dtype)
+        if self._caches_for != want:
+            self.caches = None                # its memory goes back first
+            self.caches = init_caches(cfg, B, max_seq, cache_dtype, opts,
+                                      device=dev)
+            self._caches_for = want
+        self._args = (cfg, opts, params, inputs, max_seq, cache_dtype)
+        self.runner.step((cfg, opts, max_seq, cache_dtype, tuple(inputs))
+                         + tensor_key(params, self.caches,
+                                      list(inputs.values())))
+        return self._out.bufs[B].clone(), self.caches
 
 
 def decode_loop(cfg: ModelConfig, opts: ModelOptions, params, token, caches,

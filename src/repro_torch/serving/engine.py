@@ -7,6 +7,13 @@ Decode runs over a fixed slot batch; each slot carries its own cache
 position. A finished slot is refilled from the queue: vision runs as its
 own stage, then a batch-1 prefill into an f32 cache whose rows are
 scattered into the slot's batch row (dense) or into pool pages (paged).
+On the card the vision stage is one CUDA graph replay
+(``model.VisionGraph``: patches have one shape), and so is each chunk of
+chunked prefill (``ChunkGraph``); both are captured by ``capture``. The
+admit-stall prefill runs kernel by kernel into a fresh cache: a graph
+for it would be one a prompt length, captured when a length first
+arrives, inside that request's TTFT and, behind the front end, beside
+other replicas' ticks.
 
 - **fused** (default): the tick runs ``min(tick_tokens, max_steps)``
   decode steps with sampling on the device and reads the results back
@@ -20,9 +27,12 @@ scattered into the slot's batch row (dense) or into pool pages (paged).
   value would force a host sync, so here a device-side ``go`` flag masks
   the steps after that point instead:
   they change no carry value, and ``device_steps`` counts only the steps
-  where ``go`` held, as the reference counts its loop iterations. A masked
-  step still costs a full decode; the engine counts those in
-  ``masked_steps`` (not an ``EngineStats`` field).
+  where ``go`` held, as the reference counts its loop iterations. On the
+  card ``go`` also guards the captured step (a CUDA graph conditional IF
+  node), so a replay after it fell runs only the guard's kernels: the tick
+  ends on the device. Run eagerly a masked step still costs a full
+  decode. The engine counts masked steps in ``masked_steps`` (not an
+  ``EngineStats`` field).
 - **per-token** (``fused=False``, ``step()``): one decode step, one host
   sync per token: the equivalence oracle.
 
@@ -100,7 +110,7 @@ from repro_torch.kernels.decode_attention.paged import PAGE_SIZE
 from repro_torch.kernels.ssd.ops import Q_MAX, chunk_len
 from repro_torch.models import kv_quant
 from repro_torch.models import model as M
-from repro_torch.models.graphs import StepGraph, tensor_key
+from repro_torch.models.graphs import OutputBuffers, StepGraph, tensor_key
 from repro_torch.models.layers import ModelOptions, band_len
 from repro_torch.models.params import leaves, shard_fn, shard_params
 from repro_torch.models.stacks import (cache_batch_axis, cache_dtype,
@@ -321,9 +331,12 @@ class DecodeTick:
     attend that page), and so is every Mamba2 state (a step advances it,
     so a masked step would advance each slot's state once more than the
     reference does). A step's sampling noise is keyed on the row's
-    position, so masked steps consume no randomness. ``graphs=False`` runs
-    the same step eagerly (the oracle of the graphed tick); on the CPU it
-    always runs eagerly."""
+    position, so masked steps consume no randomness. On the card ``go`` is
+    also the graph's guard (``StepGraph(guard=)``): a replay after it fell
+    runs the guard's few kernels and none of the step, and the runner's
+    ``ran`` counts the replays that ran. ``graphs=False`` runs the same
+    step eagerly (the oracle of the graphed tick, whose masked steps cost
+    a full step); on the CPU it always runs eagerly."""
 
     def __init__(self, cfg: ModelConfig, opts: ModelOptions, params, caches,
                  n_slots: int, K: int, eos: int, temperature: float,
@@ -350,7 +363,8 @@ class DecodeTick:
                             if is_paged_leaf(path)] if pages_per_slot else [])
         self.recurrent = [leaf for path, leaf in leaves(caches)
                           if is_recurrent_leaf(path)]
-        self.graph = StepGraph(self._step, device, eager=not graphs)
+        self.graph = StepGraph(self._step, device, eager=not graphs,
+                               guard=self.go)
 
     def load(self, tokens, index, budget, done, keys, page_table=None):
         """Start a tick from the carry (host arrays or tensors)."""
@@ -379,10 +393,16 @@ class DecodeTick:
         for _ in range(cap):
             self.graph.step(key)
 
+    def go(self):
+        """The reference's loop condition on the carry: some slot live and
+        none newly finished (the graph's guard, and the step's mask)."""
+        done = self.done
+        return ~done.all() & ~(done & ~self.entry_done).any()
+
     def _step(self):
         cfg, opts, params, caches = self.args
-        done, entry_done = self.done, self.entry_done
-        go = ~done.all() & ~(done & ~entry_done).any()
+        done = self.done
+        go = self.go()
         held = [leaf.select(axis, 0).clone() for leaf, axis in self.null_pages]
         held_states = [leaf.clone() for leaf in self.recurrent]
         logits, _ = M.decode_step(cfg, opts, params, self.tokens, caches,
@@ -440,7 +460,9 @@ class SpecTick:
     finished; here that is the device flag ``go``, and a round taken
     after it fell is masked: no slot is live, so no carry value changes
     and every cache write is masked, and the null page, which masked rows
-    sink zeros into, is put back as the round found it. The verify chunk
+    sink zeros into, is put back as the round found it. On the card
+    ``go`` is also the graph's guard, so a replayed round after it fell
+    runs none of the round. The verify chunk
     reads the whole cache view (``live_len=None``): a graph holds one
     shape, and the chunk kernels skip each slot's key blocks past its last
     row, so the bound changes no bit.
@@ -481,7 +503,8 @@ class SpecTick:
         self.null_pages = ([(leaf, cache_batch_axis(path))
                             for path, leaf in leaves(caches)
                             if is_paged_leaf(path)] if pages_per_slot else [])
-        self.graph = StepGraph(self._round, device, eager=not graphs)
+        self.graph = StepGraph(self._round, device, eager=not graphs,
+                               guard=self.go)
 
     def load(self, tokens, index, budget, done, cap: int, page_table=None):
         """Start a tick from the carry (host arrays or tensors) and its
@@ -512,13 +535,22 @@ class SpecTick:
         for _ in range(rounds):
             self.graph.step(key)
 
+    def room(self):
+        """The slots that may still emit this tick."""
+        return ~self.done & (self.e < self.cap)
+
+    def go(self):
+        """The reference's loop condition on the carry: some slot with room
+        and none newly finished (the graph's guard, and the round's
+        mask)."""
+        return self.room().any() & ~(self.done & ~self.entry_done).any()
+
     def _round(self):
         cfg, opts, params, draft_params, caches = self.args
         K, dev = self.K, self.tokens.device
         done, e, cap = self.done, self.e, self.cap
-        room = ~done & (e < cap)
-        go = room.any() & ~(done & ~self.entry_done).any()
-        live = room & go
+        go = self.go()
+        live = self.room() & go
         held = [leaf.select(axis, 0).clone() for leaf, axis in self.null_pages]
         # draft: K - 1 truncated steps; the chunk's column 0 is the token
         # the plain decode feeds next
@@ -559,6 +591,86 @@ class SpecTick:
         self.passes.add_(live.int())
         self.rounds.add_(go.int())
         done.logical_or_(newly)
+
+
+class ChunkGraph:
+    """One prefill chunk (``model.prefill_chunk``) over static buffers:
+    the body a ``graphs.StepGraph`` captures on the card, one graph for
+    each cache it writes (a paged engine's pool: one; a dense engine's
+    staging caches: one a slot), and replays: the counterpart of the
+    reference's one fixed-shape ``_jit_prefill_chunk`` dispatch a chunk,
+    its start and valid count dynamic scalars.
+
+    Buffers (``load`` fills them outside the graph): the chunk's
+    embeddings ``emb`` [1, C, d] (rows past the valid count zero), its
+    ``start`` and valid count ``n_valid`` (0-d int32), a pool's page-table
+    row ``page_table`` [1, npg]; a run writes the last valid row's logits.
+    On the card the graph reads the whole cache view (``live_len=None``):
+    a graph holds one shape, and the chunk kernels stop at each query
+    tile's last causal key, so the bound changes no bit. Eager runs
+    (``graphs=False``, the CPU) keep the banded bound the caller gives."""
+
+    def __init__(self, cfg: ModelConfig, opts: ModelOptions, params,
+                 chunk_size: int, pages_per_slot: int = 0, *, device,
+                 graphs: bool = True, max_graphs: int = 1):
+        self.args = (cfg, opts, params)
+        emb = params["embed"]
+        self.emb = torch.zeros(1, chunk_size, emb.shape[-1],
+                               dtype=emb.dtype, device=device)
+        self.start = torch.zeros((), dtype=torch.int32, device=device)
+        self.n_valid = torch.zeros((), dtype=torch.int32, device=device)
+        self.page_table = (torch.zeros(1, pages_per_slot, dtype=torch.int32,
+                                       device=device)
+                           if pages_per_slot else None)
+        self.caches = self.live_len = None
+        self._out = OutputBuffers()
+        self.runner = StepGraph(self._body, device, eager=not graphs,
+                                max_graphs=max_graphs)
+
+    def load(self, emb, start: int, n_tok: int, pt_row=None):
+        """The chunk ``emb[:, start:start + n_tok]`` (zero-padded to
+        ``chunk_size`` rows) at ``start``, and a pool's page-table row
+        (host ints [1, npg])."""
+        self.emb.zero_()
+        self.emb[:, :n_tok].copy_(emb[:, start:start + n_tok])
+        self.start.fill_(start)
+        self.n_valid.fill_(n_tok)
+        if pt_row is not None:
+            self.page_table.copy_(torch.as_tensor(pt_row).reshape(
+                self.page_table.shape))
+
+    def load_masked(self):
+        """A chunk with no valid row, at 0, through null pages: every row
+        dropped from a dense cache or sent to a pool's null page (zeros,
+        as a partial chunk's padding rows write)."""
+        self.emb.zero_()
+        self.start.zero_()
+        self.n_valid.zero_()
+        if self.page_table is not None:
+            self.page_table.zero_()
+
+    def key(self, caches):
+        """Every tensor the chunk reads or writes, and the configuration."""
+        cfg, opts, params = self.args
+        return (cfg, opts) + tensor_key(params, caches, self.emb,
+                                        self.start, self.n_valid,
+                                        self.page_table)
+
+    def run(self, caches, live: Optional[int]):
+        """The loaded chunk into ``caches``; returns its last valid row's
+        logits [1, 1, V]."""
+        self.caches = caches
+        self.live_len = live if self.runner.eager else None
+        self.runner.step(self.key(caches))
+        return self._out.bufs[0].clone()
+
+    def _body(self):
+        cfg, opts, params = self.args
+        logits, _ = M.prefill_chunk(
+            cfg, opts, params, self.emb, self.caches, self.start,
+            n_valid=self.n_valid, page_table=self.page_table,
+            live_len=self.live_len, device=self.emb.device)
+        self._out.write(0, logits)
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -856,6 +968,23 @@ class ServingEngine:
         else:
             self.caches = M.init_caches(cfg, n_slots, max_seq, torch.float32,
                                         opts, device=dev)
+        # the prefill stages' graphs (eager where the tick is): vision one
+        # graph; the chunk graph one for the pool (paged) or for each
+        # slot's staging cache (dense chunked: allocated once, zeroed for
+        # each admission)
+        self._vision = (M.VisionGraph(dev, eager=not graphs)
+                        if cfg.vision is not None else None)
+        self._chunk: Optional[ChunkGraph] = None
+        self._staging: Dict[int, dict] = {}
+        if chunked_prefill:
+            self._chunk = ChunkGraph(
+                cfg, opts, params, chunk_size,
+                max_seq // page_size if paged else 0, device=dev,
+                graphs=graphs, max_graphs=n_slots)
+            if not paged:
+                self._staging = {s: M.init_caches(
+                    cfg, 1, max_seq, torch.float32, opts, device=dev)
+                    for s in range(n_slots)}
         # the fused tick's buffers and step (or speculative round),
         # captured once on the card: the caches keep their storage for the
         # engine's life (every write and admission scatter is in place)
@@ -879,6 +1008,7 @@ class ServingEngine:
                                           for a in mesh.axis_names)
         self.masked_steps = 0       # fused-tick steps (speculative:
         #                             rounds) run after go fell
+        self.masked_chunks = 0      # chunks with no valid row (captures)
         self.generator = torch.Generator().manual_seed(seed)
         self.chunk_size = chunk_size
         self.scheduler: Optional[ChunkedScheduler] = (
@@ -971,8 +1101,10 @@ class ServingEngine:
         self.mesh.store.set(f"memory/{self.rank}", str(peak))
 
     def _stage_vision(self, patches):
-        self._prefix = M.encode_vision(self.cfg, self.opts, self.params,
-                                       patches[None], device=self.device)
+        """The vision tower over one request's patches (one replay of the
+        vision graph on the card), kept for the next prefill stage."""
+        self._prefix = self._vision.run(self.cfg, self.opts, self.params,
+                                        patches[None])
         return self._prefix
 
     def _stage_prefill(self, slot: int, prompt, with_prefix: bool):
@@ -1013,26 +1145,18 @@ class ServingEngine:
                                             self.params, batch,
                                             device=self.device)
         if not self.paged:
-            self._cache1[slot] = self._fresh_cache1()
+            self._cache1[slot] = self._fresh_cache1(slot)
 
     def _stage_chunk(self, slot: int, start: int, n_tok: int, pt_row,
                      live: int, last: bool):
         """One prefill chunk of slot ``slot``'s embeddings, padded to
-        ``chunk_size`` rows, with its start and valid count on the device;
-        returns the last valid row's logits."""
+        ``chunk_size`` rows, with its start and valid count on the device
+        (``ChunkGraph``: one replay on the card); returns the last valid
+        row's logits."""
         emb = self._embeds.pop(slot) if last else self._embeds[slot]
-        chunk = torch.zeros(1, self.chunk_size, emb.shape[-1],
-                            dtype=emb.dtype, device=self.device)
-        chunk[:, :n_tok] = emb[:, start:start + n_tok]
+        self._chunk.load(emb, start, n_tok, pt_row)
         caches = self.caches if self.paged else self._cache1[slot]
-        logits, _ = M.prefill_chunk(
-            self.cfg, self.opts, self.params, chunk, caches,
-            self._device(start, torch.int32),
-            n_valid=self._device(n_tok, torch.int32),
-            page_table=(None if pt_row is None
-                        else self._device(pt_row, torch.int32)),
-            live_len=live, device=self.device)
-        return logits
+        return self._chunk.run(caches, live)
 
     def _stage_drop(self, slot: int):
         self._cache1.pop(slot, None)
@@ -1094,12 +1218,16 @@ class ServingEngine:
                               self._device(keys, torch.long),
                               self._device(pos, torch.long))
 
-    def _fresh_cache1(self):
-        """A zeroed batch-1 f32 dense cache for one chunked admission
-        (dense engines): its chunks write it in place, and the finished
-        prefill is scattered into the slot's batch row."""
-        return M.init_caches(self.cfg, 1, self.max_seq, torch.float32,
-                             self.opts, device=self.device)
+    def _fresh_cache1(self, slot: int):
+        """Slot ``slot``'s batch-1 f32 dense staging cache, zeroed in place
+        for one chunked admission (dense engines): its chunks write it in
+        place, and the finished prefill is scattered into the slot's batch
+        row. It keeps its storage for the engine's life, so the chunk
+        graph captured for it replays for every admission to the slot."""
+        cache = self._staging[slot]
+        for _, leaf in leaves(cache):
+            leaf.zero_()
+        return cache
 
     def submit(self, req: Request):
         """Queue ``req``. A stack with Mamba2 layers refuses, here and
@@ -1130,32 +1258,56 @@ class ServingEngine:
             n += self.scheduler.pending
         return n
 
-    def capture_tick(self) -> None:
-        """Capture the fused tick's CUDA graph now instead of at the first
-        decode tick: one masked step (or speculative round) through the
+    def capture(self) -> None:
+        """Capture every graph the engine replays now instead of at first
+        use, and seal the runners (``StepGraph.sealed``): the fused tick's
+        graph, the vision graph and a chunked engine's chunk graphs.
+
+        The tick: one masked step (or speculative round) through the
         tick's ``StepGraph``, with every slot counted done and every page
         null. No carry or pool state changes, and a cache write lands
         where any tick's does for a free slot (a dense cache's row at the
         slot's position, which an admission's prefill rewrites before it
-        is read; a pool's null page, put back). Nothing to do
-        on the CPU, with ``graphs=False`` or once captured. The graph's key
-        never changes afterwards (the caches and the tick's buffers keep
-        their storage for the engine's life), so an engine captured here
-        never captures again: ``AsyncFrontend`` calls this for each replica,
-        one after another, before its threads tick them
-        (``models.graphs``)."""
+        is read; a pool's null page, put back). The chunks: one masked
+        chunk (``ChunkGraph.load_masked``) into the pool, or into each
+        slot's staging cache, whose rows it rewrites with what they hold.
+        Vision: zero patches, whose prefix the next admission's tower
+        overwrites. Nothing to do on the CPU, with ``graphs=False`` or once
+        captured. The caches, staging caches and buffers keep their
+        storage for the engine's life, so these keys never change and the
+        sealed runners never capture again (one that would raises):
+        ``AsyncFrontend`` calls this for each replica, one after another,
+        before its threads tick them."""
         tick = self._tick
-        if tick.graph.eager or tick.graph.graph is not None:
-            return
-        done = np.ones(self.n_slots, bool)
-        if self.spec_decode:
-            tick.load(self.tokens, self.index, self.budget, done, 1)
-        else:
-            tick.load(self.tokens, self.index, self.budget, done, self.keys)
-        if tick.page_table is not None:
-            tick.page_table.zero_()
-        tick.run(1)
-        self.masked_steps += 1
+        if not tick.graph.eager and tick.graph.graph is None:
+            done = np.ones(self.n_slots, bool)
+            if self.spec_decode:
+                tick.load(self.tokens, self.index, self.budget, done, 1)
+            else:
+                tick.load(self.tokens, self.index, self.budget, done,
+                          self.keys)
+            if tick.page_table is not None:
+                tick.page_table.zero_()
+            tick.run(1)
+            self.masked_steps += 1
+        ch = self._chunk
+        if ch is not None and not ch.runner.eager:
+            for caches in ([self.caches] if self.paged
+                           else list(self._staging.values())):
+                if ch.key(caches) not in ch.runner.graphs:
+                    ch.load_masked()
+                    ch.run(caches, None)
+                    self.masked_chunks += 1
+        vis = self._vision
+        if vis is not None and not vis.runner.eager \
+                and vis.runner.graph is None:
+            v = self.cfg.vision
+            self._stage_vision(np.zeros((v.num_tokens, v.embed_dim),
+                                        np.float32))
+            self._prefix = None
+        for runner in (tick.graph, ch and ch.runner, vis and vis.runner):
+            if runner and not runner.eager:
+                runner.sealed = True
 
     def cancel(self, uid: int) -> bool:
         """Abort request ``uid`` between ticks, queued, mid-prefill
@@ -1546,12 +1698,14 @@ class ServingEngine:
         host = torch.cat([tick.out.reshape(-1), tick.n_emit.long(),
                           tick.index.long(), tick.budget.long(),
                           tick.done.long(), tick.tokens[:, 0],
-                          tick.steps.long().reshape(1)]).cpu().numpy()
+                          tick.steps.long().reshape(1),
+                          tick.graph.ran.reshape(1)]).cpu().numpy()
         now = time.perf_counter()
+        tick.graph.settle(int(host[-1]))
         out_h = host[:B * K].reshape(B, K)
         n_emit_h, idx_h, bud_h, done_h, tok_h = \
             host[B * K:B * K + 5 * B].reshape(5, B)
-        steps_h = int(host[-1])
+        steps_h = int(host[-2])
         self.stats.decode_syncs += 1
         self.stats.ticks += 1
         self.stats.device_steps += steps_h
@@ -1587,14 +1741,18 @@ class ServingEngine:
         """The speculative decode stage: draft -> verify -> accept rounds
         (``SpecTick``, one graph replay a round on the card) until no slot
         has room or one newly finished. Each live slot emits at least one
-        token a round, so the rounds are data-dependent: the tick replays
-        ceil(r / spec_k) rounds for the r tokens the slot with the most
-        room may still emit (``cap`` at first), reads the carry back, and
-        goes on the same way while the reference's loop would: each
-        readback is a decode sync, each round run after ``go`` fell a
-        masked step. The key lanes use the reference's per-slot bounds
-        (each slot's deepest verify row this tick), though the verify
-        chunk reads the whole view."""
+        token a round, so ``cap`` rounds always reach that end. On the
+        card the tick replays ``cap`` guarded rounds (a round after ``go``
+        fell runs only its guard) and reads the carry back once: the
+        reference's one sync a tick. Run eagerly (``graphs=False``, the
+        CPU), where a masked round costs a whole round, it runs ceil(r /
+        spec_k) rounds for the r tokens the slot with the most room may
+        still emit, reads the carry back, and goes on the same way while
+        the reference's loop would. Each readback is a decode sync, each
+        round run or replayed after ``go`` fell a masked step. The key
+        lanes use the reference's per-slot bounds (each slot's deepest
+        verify row this tick), though the verify chunk reads the whole
+        view."""
         t0 = time.perf_counter()
         st, K, tick = self.stats, self.spec_k, self._tick
         B, T = self.n_slots, self.tick_tokens
@@ -1605,25 +1763,29 @@ class ServingEngine:
                   for s in active}
         self._dev("spec_load", self.tokens, self.index, self.budget, done0,
                   cap, page_table)
+        guarded = tick.graph.guarded
         left, run = cap, 0
         while True:
-            n = -(-left // K)
+            n = cap if guarded else -(-left // K)
             self._dev("spec_run", n)
             run += n
             host = torch.cat([
                 tick.out[:, :T].reshape(-1), tick.e.long(),
                 tick.index.long(), tick.budget.long(), tick.done.long(),
                 tick.tokens[:, 0], tick.passes.long(), tick.hist.long(),
-                tick.rounds.long().reshape(1)]).cpu().numpy()
+                tick.rounds.long().reshape(1),
+                tick.graph.ran.reshape(1)]).cpu().numpy()
             st.decode_syncs += 1
+            tick.graph.settle(int(host[-1]))
             out_h = host[:B * T].reshape(B, T)
             e_h, idx_h, bud_h, done_h, tok_h, passes_h = \
                 host[B * T:B * T + 6 * B].reshape(6, B)
-            hist_h = host[B * T + 6 * B:-1]
-            rounds_h = int(host[-1])
+            hist_h = host[B * T + 6 * B:-2]
+            rounds_h = int(host[-2])
             # the reference's loop condition, on the carry read back
             room = (done_h == 0) & (e_h < cap)
-            if not room.any() or ((done_h != 0) & ~done0).any():
+            if guarded or not room.any() \
+                    or ((done_h != 0) & ~done0).any():
                 break
             left = int((cap - e_h[room]).max())
         now = time.perf_counter()

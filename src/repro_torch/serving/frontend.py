@@ -51,13 +51,14 @@ boundaries, on one driver coroutine per replica::
     driver, so no engine state needs locking; the staging deques and the
     per-stream asyncio queues are the only cross-context structures.
 
-    On the card, ``start`` captures every replica's decode tick graph
-    (``ServingEngine.capture_tick``), one after another, before any
-    driver runs: a capture must not run beside another thread's CUDA work
-    (``models.graphs``), and none runs later. A driver whose engine raises
-    ends its replica's streams with the error (a consumer raises it)
-    and fails later submissions, where the reference's streams would
-    wait for ever.
+    On the card, ``start`` captures every graph of every replica (the
+    decode tick's, the vision graph and the chunk graphs:
+    ``ServingEngine.capture``), one after another, before any driver
+    runs, and seals them: a capture must not run beside another thread's
+    CUDA work (``models.graphs``), and none runs later. A driver whose
+    engine raises ends its replica's streams with the error (a consumer
+    raises it) and fails later submissions, where the reference's streams
+    would wait for ever.
 
 No HTTP here on purpose: the launch driver (``repro_torch.launch.serve``)
 speaks to this class directly, and a transport (FastAPI/grpc) would wrap
@@ -247,7 +248,7 @@ class AsyncFrontend:
         if self._running:
             return
         for eng in self.engines:       # before any thread ticks a replica
-            eng.capture_tick()
+            eng.capture()
         self._running = True
         self._wake = [asyncio.Event() for _ in self.engines]
         if self.offload_ticks:

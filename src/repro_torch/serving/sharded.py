@@ -9,9 +9,11 @@ builds the same engine on its own shard when rank 0 sends it one
 (``("engine", cfg, opts, kwargs, weights)``), runs each stage it receives
 until ``("close",)``, and waits for the next engine; ``("exit",)`` ends
 it. A worker that raises writes its traceback to the mesh's store under
-``error/<rank>`` and exits, so rank 0's next collective fails at once and
-raises ``ShardWorkerError`` with that report; a worker that stops
-answering makes rank 0's collective raise after the group's timeout.
+``error/<rank>`` and exits with code 1, so rank 0's next collective fails
+at once and raises ``ShardWorkerError`` with that report; a worker that
+stops answering makes rank 0's collective raise after the group's
+timeout. A worker that ends shuts its group down and leaves by
+``os._exit``, without the interpreter's teardown (see ``_worker_main``).
 
     mesh = spawn_mesh(2, device="cpu")          # rank 0 here, rank 1 spawned
     eng = ServingEngine(cfg, opts, SeededWeights(0), mesh=mesh,
@@ -25,6 +27,7 @@ import dataclasses
 import itertools
 import multiprocessing
 import os
+import sys
 import tempfile
 import traceback
 from typing import Optional
@@ -115,15 +118,34 @@ def serve_worker(mesh: Mesh, device) -> None:
 
 def _worker_main(rank: int, size: int, store_path: str, device: str,
                  timeout: float) -> None:
+    """A worker rank's process: its loop, then its end. The process ends
+    with ``os._exit`` once its group is shut down: a spawned process that
+    returned would tear the interpreter down with the gloo group's threads
+    still joinable, which now and then aborted it (SIGABRT, "terminate
+    called without an active exception", exit code -6) after a clean
+    exit, and rank 0's ``Mesh.shutdown`` raised on that code."""
     torch.set_num_threads(1)
     store = torch.distributed.FileStore(store_path, size)
+    code, mesh = 0, None
     try:
         mesh = make_serving_mesh(size, store=store, rank=rank,
                                  timeout=timeout)
         serve_worker(mesh, device)
     except BaseException:
-        store.set(f"error/{rank}", traceback.format_exc())
-        raise
+        report = traceback.format_exc()
+        store.set(f"error/{rank}", report)
+        print(report, file=sys.stderr)
+        code = 1
+    shutdown = getattr(getattr(mesh, "group", None) and mesh.group.pg,
+                       "shutdown", None)
+    if shutdown is not None:
+        try:
+            shutdown()
+        except RuntimeError:
+            pass            # a group that a failure left broken
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def spawn_mesh(model: int, *, device="cpu", timeout: float = 60.0,

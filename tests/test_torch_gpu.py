@@ -931,13 +931,35 @@ def test_decode_graph_recaptures_for_other_caches_on_card():
         assert torch.equal(got, want) and _same_tree(c, twin)
 
 
-def _engine_run(name: str, graphs: bool, dtype=torch.bfloat16, **kw):
+def _host_guarded(monkeypatch):
+    """Eager runners that skip a guarded body whose guard reads false on
+    the host: what a guarded graph's IF node does on the device, run
+    eagerly (the oracle of the guarded graph's caches, which a masked
+    step run in full writes at rows nobody reads)."""
+    from repro_torch.models.graphs import StepGraph
+    step = StepGraph.step
+
+    def guarded(self, key=None):
+        if self.eager and self.guard is not None \
+                and not bool(self.guard()):
+            return
+        step(self, key)
+    monkeypatch.setattr(StepGraph, "step", guarded)
+
+
+def _engine_run(name: str, graphs: bool, dtype=torch.bfloat16,
+                capture: bool = False, **kw):
+    """Five requests through a small engine on the card; ``capture`` calls
+    ``ServingEngine.capture`` first (a no-op eagerly), so that every step
+    a graphed tick replays is counted by its runner's ``replays_ran``."""
     from repro_torch.models.layers import ModelOptions
     from repro_torch.serving import Request, ServingEngine
     cfg, params = _small_model(name, dtype=dtype)
     eng = ServingEngine(cfg, ModelOptions(), params, n_slots=3, max_seq=128,
                         eos=-999, tick_tokens=4, device="cuda",
                         graphs=graphs, **kw)
+    if capture:
+        eng.capture()
     gen = torch.Generator().manual_seed(5)
     for i, (n, m) in enumerate([(40, 30), (70, 9), (20, 41), (33, 12),
                                 (64, 20)]):
@@ -957,23 +979,43 @@ def _engine_run(name: str, graphs: bool, dtype=torch.bfloat16, **kw):
     ("granite-moe-3b-a800m", dict(paged=True)), ("mamba2-780m", {})],
     ids=["dense", "paged", "paged-int8", "paged-chunked", "moe-paged",
          "ssm-dense"])
-def test_graphed_engine_equals_eager_engine_on_card(name, kw):
-    """The engine with its tick step replayed from one graph against the
-    same step run eagerly: streams, counters and caches bit for bit, while
-    slots grow into new pages between replays (the page table is copied
-    into the graph's buffer each tick) and, chunked, the planner changes
-    the tick's depth from tick to tick; the MoE dispatch and the masked
-    steps' Mamba2 state restores inside the graph. The graphed engine
-    captures once."""
+def test_graphed_engine_equals_eager_engine_on_card(name, kw, monkeypatch):
+    """The engine, captured first, with its tick step replayed from one
+    guarded graph (and its chunks from chunk graphs) against the same
+    steps run eagerly: streams and counters equal, while slots grow into
+    new pages between replays (the page table is copied into the graph's
+    buffer each tick) and, chunked, the planner changes the tick's depth
+    from tick to tick; the MoE dispatch and the Mamba2 states inside the
+    graph. The caches equal bit for bit those of an eager engine that
+    skips the steps whose guard is false, as the graph's IF node does.
+    The graphed engine captures its tick once; the replays that ran its
+    body are the device steps the tick counted; and its decode kernel
+    launches are the eager engine's less those of the eager masked steps
+    plus those of the capture's warm-up step."""
     _cuda()
-    eng, out = _engine_run(name, True, **kw)
-    ref, want = _engine_run(name, False, **kw)
+    decode = pg.paged_decode_attention if kw.get("paged") \
+        else da.decode_attention
+    d0 = decode.launches
+    eng, out = _engine_run(name, True, capture=True, **kw)
+    d1 = decode.launches
+    ref, want = _engine_run(name, False, capture=True, **kw)
+    e1 = decode.launches
     assert out == want and len(out) == 5
-    for f in ("ticks", "device_steps", "pages_hwm", "prefill_tokens"):
+    for f in ("ticks", "device_steps", "pages_hwm", "prefill_tokens",
+              "decode_syncs"):
         assert getattr(eng.stats, f) == getattr(ref.stats, f), f
-    assert eng.masked_steps == ref.masked_steps
-    assert eng._tick.graph.captures == 1
-    assert _same_tree(eng.caches, ref.caches)
+    g = eng._tick.graph
+    assert g.captures == 1
+    assert eng.masked_steps == ref.masked_steps + g.captures
+    assert g.replays_ran == eng.stats.device_steps
+    n_attn = sum(eng.cfg.is_attn_layer(i)
+                 for i in range(eng.cfg.num_layers))
+    assert d1 - d0 == (e1 - d1) - n_attn * ref.masked_steps \
+        + n_attn * g.captures
+    _host_guarded(monkeypatch)
+    skipped, got = _engine_run(name, False, **kw)
+    assert got == want
+    assert _same_tree(eng.caches, skipped.caches)
 
 
 @pytest.mark.gpu
@@ -1000,6 +1042,108 @@ def test_failed_capture_raises_on_card():
     assert float(x.sum()) == 4.0     # the second body's warm-up step ran
 
 
+@pytest.mark.gpu
+def test_step_graph_keeps_several_keys_and_evicts_lru_on_card():
+    """A runner keeps a graph a key up to ``max_graphs`` and replays each
+    on its own buffers; past that it evicts the least recently used key,
+    which captures again when it comes back. Sealed, it replays the keys
+    it holds and raises on another instead of capturing it."""
+    from repro_torch.models.graphs import StepGraph
+    dev = _cuda()
+    bufs = {k: torch.zeros(4, device=dev) for k in "abc"}
+    cur = ["a"]
+    runner = StepGraph(lambda: bufs[cur[0]].add_(1), dev, max_graphs=2)
+    for k, n_capt in (("a", 1), ("b", 2), ("a", 2), ("c", 3), ("a", 3),
+                      ("b", 4)):
+        cur[0] = k
+        runner.step(k)
+        assert runner.captures == n_capt, k
+    torch.cuda.synchronize()
+    assert list(runner.graphs) == ["a", "b"]
+    assert [float(bufs[k][0]) for k in "abc"] == [3.0, 2.0, 1.0]
+    runner.sealed = True
+    runner.step("a")
+    cur[0] = "c"
+    with pytest.raises(RuntimeError, match="sealed"):
+        runner.step("c")
+    torch.cuda.synchronize()
+    assert runner.captures == 4 and list(runner.graphs) == ["b", "a"]
+    assert [float(bufs[k][0]) for k in "abc"] == [4.0, 2.0, 1.0]
+
+
+@pytest.mark.gpu
+def test_guarded_graph_counts_only_the_replays_that_ran_on_card():
+    """A guarded step (a cuBLAS GEMM and the decode kernel in its body)
+    replayed with its guard true runs as the eager body does; with it
+    false it runs nothing of the body; its ``ran`` counter and ``settle``
+    add the decode kernel's launches for the replays that ran only."""
+    from repro_torch.models.graphs import StepGraph
+    dev = _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(8, 512, device=dev, generator=gen)
+    w = torch.randn(512, 256, device=dev, generator=gen)
+    q = torch.randn(8, 14, 64, device=dev, generator=gen)
+    kc = torch.randn(8, 96, 2, 64, device=dev, generator=gen)
+    vc = torch.randn(8, 96, 2, 64, device=dev, generator=gen)
+    idx = torch.full((8,), 90, dtype=torch.int32, device=dev)
+    out = torch.zeros(8, 256, device=dev)
+    att = torch.zeros(8, 14, 64, device=dev)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+
+    def body():
+        out.add_(x @ w)
+        att.copy_(da.decode_attention(q, kc, vc, idx))
+    runner = StepGraph(body, dev, guard=lambda: flag.clone())
+    runner.step("k")                                  # warm-up + capture
+    want_o, want_a = out.clone(), att.clone()         # one eager body
+    before = da.decode_attention.launches
+    for on in (True, False, True, False, False):
+        flag.fill_(on)
+        runner.step("k")
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before     # not yet settled
+    ran = int(runner.ran)
+    runner.settle(ran)
+    assert ran == 2 and runner.replays_ran == 2
+    assert da.decode_attention.launches - before == 2
+    assert torch.allclose(out, 3 * want_o) and torch.equal(att, want_a)
+    assert int(runner.ran) == 0
+
+
+@pytest.mark.gpu
+def test_control_steps_through_kept_graphs_capture_once_on_card():
+    """Three control steps of reduced molmoact-7b through one kept
+    PrefillGraph (vision + prefill as one graph) and one kept DecodeGraph
+    capture each once; tokens and prefill logits equal the eager graphs'
+    bit for bit."""
+    from repro_torch.core import vla
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelOptions
+    dev = _cuda()
+    cfg, params = _small_model("molmoact-7b", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, 6),
+                                     generator=gen, device="cuda"),
+             "patches": torch.randn((3, cfg.vision.num_tokens,
+                                     cfg.vision.embed_dim), generator=gen,
+                                    device="cuda")}
+    pre, dec = M.PrefillGraph(dev), M.DecodeGraph(dev)
+    ref = vla.vla_control_step(cfg, ModelOptions(), params, batch,
+                               device="cuda",
+                               graph=M.DecodeGraph(dev, eager=True),
+                               prefill_graph=M.PrefillGraph(dev, eager=True))
+    for _ in range(3):
+        out = vla.vla_control_step(cfg, ModelOptions(), params, batch,
+                                   device="cuda", graph=dec,
+                                   prefill_graph=pre)
+        assert torch.equal(out.cot_tokens, ref.cot_tokens)
+        assert torch.equal(out.action_tokens, ref.action_tokens)
+    assert (pre.runner.captures, dec.runner.captures) == (1, 1)
+    lg, _ = pre.run(cfg, ModelOptions(), params, batch, 64)
+    le, _ = M.prefill(cfg, ModelOptions(), params, batch, 64, device="cuda")
+    assert torch.equal(lg, le)
+
+
 # ---------------------------------------------------------------------------
 # self-speculative decode on the card (serving.engine.SpecTick)
 # ---------------------------------------------------------------------------
@@ -1011,14 +1155,19 @@ def test_failed_capture_raises_on_card():
     dict(paged=True, chunked_prefill=True, chunk_size=32, token_budget=40)],
     ids=["dense", "paged", "paged-int8-token", "paged-chunked"])
 def test_graphed_spec_engine_equals_eager_and_fused_on_card(kw):
-    """The speculative engine with one round replayed from its graph
-    against the same round run eagerly: streams, counters (masked rounds,
-    syncs, the accept histogram) and caches bit for bit; it captures once
-    and its streams equal the plain fused engine's on the card (f32
-    weights, so that the verify chunk's and the decode step's GEMMs round
-    alike; the full-depth int8 draft); a replayed round launches the
-    decode kernel once a draft layer a draft step and the verify chunk's
-    kernel once a layer."""
+    """The speculative engine with one guarded round replayed from its
+    graph against the same round run eagerly: streams, counters (the
+    accept histogram, steps) and caches bit for bit; graphed, a decode
+    stage replays its cap of rounds and reads back once, the eager engine
+    at least as often; it captures once and its streams
+    equal the plain fused engine's on the card (f32 weights, so that the
+    verify chunk's and the decode step's GEMMs round alike; the full-depth
+    int8 draft); a round whose body ran launches the decode kernel once a
+    draft layer a draft step and the verify chunk's kernel once a
+    layer; captured first, the replays that ran a round are the rounds the
+    tick counted, and its decode launches are the eager engine's less
+    those of the eager masked rounds plus those of the capture's warm-up
+    round."""
     _cuda()
     spec = dict(kw, spec_decode=True, spec_k=4, draft_layers=4,
                 draft_quant="int8")
@@ -1028,19 +1177,26 @@ def test_graphed_spec_engine_equals_eager_and_fused_on_card(kw):
         else cp.chunk_prefill_attention
     d0, v0 = decode.launches, verify.launches
     f32 = dict(dtype=torch.float32)
-    eng, out = _engine_run("smollm-135m", True, **f32, **spec)
+    eng, out = _engine_run("smollm-135m", True, capture=True, **f32, **spec)
     d1, v1 = decode.launches, verify.launches
-    ref, want = _engine_run("smollm-135m", False, **f32, **spec)
+    ref, want = _engine_run("smollm-135m", False, capture=True, **f32,
+                            **spec)
+    e1 = decode.launches
     fused, plain = _engine_run("smollm-135m", True, **f32, **kw)
     assert out == want == plain and len(out) == 5
-    for f in ("ticks", "device_steps", "decode_syncs", "spec_accept_hist",
+    for f in ("ticks", "device_steps", "spec_accept_hist",
               "spec_verify_passes", "pages_hwm"):
         assert getattr(eng.stats, f) == getattr(ref.stats, f), f
-    assert eng.masked_steps == ref.masked_steps
-    assert eng._tick.graph.captures == 1
+    # one readback a decode stage (a chunked tick may run chunks alone)
+    assert eng.stats.decode_syncs == len(eng.stats.decode_tick_s) \
+        <= ref.stats.decode_syncs
+    g = eng._tick.graph
+    assert g.captures == 1
     assert _same_tree(eng.caches, ref.caches)
-    rounds = eng.stats.device_steps + eng.masked_steps
-    assert d1 - d0 == rounds * 3 * 4
+    assert g.replays_ran == eng.stats.device_steps
+    rounds = g.captures + eng.stats.device_steps
+    assert d1 - d0 == rounds * 3 * 4 \
+        == (e1 - d1) - 3 * 4 * ref.masked_steps + 3 * 4 * g.captures
     if kw.get("paged"):       # the admission prefill runs the dense kernel
         assert v1 - v0 >= rounds * 4
     assert eng.stats.pages_in_use == 0
@@ -1147,13 +1303,14 @@ def test_dit_graph_equals_eager_on_card():
 @pytest.mark.gpu
 def test_engines_ticked_from_two_threads_equal_serial_on_card():
     """Two engines behind the front end with offloaded ticks: the front
-    end's start captures both tick graphs, one after the other, and the
-    replicas then tick side by side on two threads with nothing raised;
-    each captures once and records only its own step's launches; their
-    streams and the kernels' launch counts equal the same requests ticked
-    serially, one engine after the other, each captured first as the
-    front end does (the eager oracle beside, which captures nothing and
-    so runs one masked step fewer an engine)."""
+    end's start captures both tick graphs and chunk graphs, one after the
+    other, and the replicas then tick side by side on two threads with
+    nothing raised; each captures once and records only its own step's
+    launches; their streams and the kernels' launch counts equal the same
+    requests ticked serially, one engine after the other, each captured
+    first as the front end does, and follow from the engines' counters
+    (tick steps whose body ran, chunk runs and masked capture chunks);
+    the eager oracle beside gives the same streams."""
     import asyncio
     from repro_torch.kernels.chunk_prefill.paged import (
         paged_chunk_prefill_attention as chunk)
@@ -1169,39 +1326,64 @@ def test_engines_ticked_from_two_threads_equal_serial_on_card():
              m) for n, m in [(40, 12), (70, 9), (20, 14), (33, 10)]]
     decode = pg.paged_decode_attention
 
+    def counted(engines):
+        """The launches the engines' counters imply: the decode kernel once
+        a layer a tick step whose body ran (eagerly every step, masked ones
+        too; graphed, the capture's warm-up and the device steps, which
+        are the replays that ran), the chunk kernel once a layer a chunk
+        run or masked capture chunk."""
+        L = cfg.num_layers
+        for e in engines:
+            g = e._tick.graph
+            assert g.eager or g.replays_ran == e.stats.device_steps
+        bodies = sum((e.stats.device_steps + e.masked_steps)
+                     if e._tick.graph.eager else
+                     e._tick.graph.captures + e.stats.device_steps
+                     for e in engines)
+        runs = sum(e.stats.prefill_key_lanes_full // (32 * 128)
+                   + e.masked_chunks for e in engines)
+        return L * bodies, L * runs
+
     def serial(graphs):
-        out, counts = [], (decode.launches, chunk.launches)
+        out, counts, engines = [], (decode.launches, chunk.launches), []
         for half in (reqs[0::2], reqs[1::2]):
             eng = ServingEngine(cfg, ModelOptions(), params, graphs=graphs,
                                 **kw)
-            eng.capture_tick()
+            eng.capture()
             for i, (p, m) in enumerate(half):
                 eng.submit(Request(uid=i, prompt=p, max_tokens=m))
             out.append({r.uid: r.out_tokens for r in eng.run()})
+            engines.append(eng)
         torch.cuda.synchronize()
-        return out, (decode.launches - counts[0], chunk.launches - counts[1])
+        n = (decode.launches - counts[0], chunk.launches - counts[1])
+        assert n == counted(engines)
+        return out, n, engines
 
     async def threaded():
         engines = [ServingEngine(cfg, ModelOptions(), params, **kw)
                    for _ in range(2)]
         async with AsyncFrontend(engines, offload_ticks=True) as fe:
-            assert [e._tick.graph.captures for e in engines] == [1, 1]
+            assert [(e._tick.graph.captures, e._chunk.runner.captures)
+                    for e in engines] == [(1, 1), (1, 1)]
             streams = [await fe.submit(p, m) for p, m in reqs]
             outs = [await s.tokens() for s in streams]
             await fe.drain()
         return engines, streams, outs
 
-    want, want_n = serial(graphs=True)
-    eager, eager_n = serial(graphs=False)
+    want, want_n, graphed = serial(graphs=True)
+    eager, eager_n, oracle = serial(graphs=False)
     assert want == eager
-    assert want_n == (eager_n[0] + 2 * cfg.num_layers, eager_n[1])
+    L = cfg.num_layers
+    assert want_n[0] == eager_n[0] - L * sum(e.masked_steps for e in oracle) \
+        + L * sum(e._tick.graph.captures for e in graphed)
+    assert want_n[1] == eager_n[1] + L * sum(e.masked_chunks for e in graphed)
     counts = (decode.launches, chunk.launches)
     engines, streams, outs = asyncio.run(threaded())
     torch.cuda.synchronize()
     got_n = (decode.launches - counts[0], chunk.launches - counts[1])
     assert [s.replica for s in streams] == [0, 1, 0, 1]
     assert outs == [want[i % 2][i // 2] for i in range(4)]
-    assert got_n == want_n
+    assert got_n == want_n == counted(engines)
     for eng in engines:
         assert eng._tick.graph.captures == 1
         assert eng._tick.graph.recorded == {decode: cfg.num_layers}

@@ -407,23 +407,56 @@ def test_elastic_shrink_data_4_to_3():
 
 # ------------------------------------------------------- the front end
 
+# a bound on each wait of the front-end test below, which names the wait
+# when it expires (the test takes ~2 s alone)
+FRONT_END_WAIT_S = 300.0
+
+
+async def _bounded(awaitable, what: str, meshes):
+    """``awaitable`` within FRONT_END_WAIT_S, else an error that names the
+    wait and carries what the meshes' workers reported."""
+    try:
+        return await asyncio.wait_for(awaitable, FRONT_END_WAIT_S)
+    except asyncio.TimeoutError:
+        raise AssertionError(
+            f"{what} did not end within {FRONT_END_WAIT_S} s; workers: "
+            f"{[m.worker_error() for m in meshes]}") from None
+
+
 def test_two_sharded_replicas_behind_the_front_end(weights, meshes):
     """Two sharded replicas, each with its own group and worker, tick on
     two threads: the streams are one unsharded engine's, the snapshot
     carries each replica's mesh and shard figures, and ``stop()`` closes
-    both and joins their workers."""
+    both and joins their workers. Each wait is bounded and named, and a
+    failure reports where it happened and what the workers said."""
     name, kw = "smollm-135m", LAYOUTS["paged-bf16"]
     reqs = _reqs(name, False)
     want = _serve(_engine(name, weights, **kw), reqs)
-    engines = [_engine(name, weights, m, **kw) for m in meshes[2:]]
+    mine = meshes[2:]
+    where = ["building the replicas' engines"]
+    t0 = time.perf_counter()
 
-    async def go():
+    async def go(engines):
+        where[0] = "starting the front end"
         async with AsyncFrontend(engines) as fe:
             streams = [await fe.submit(p, m) for p, m, _ in reqs]
-            outs = [await st.tokens() for st in streams]
-            await fe.drain()
+            outs = []
+            for i, st in enumerate(streams):
+                what = f"replica {st.replica}'s stream of request {i}"
+                where[0] = what
+                outs.append(await _bounded(st.tokens(), what, mine))
+            where[0] = "the front end's drain"
+            await _bounded(fe.drain(), where[0], mine)
+            where[0] = "stopping the front end (closing the replicas)"
             return outs, fe.stats_snapshot()
-    outs, snap = asyncio.run(go())
+    try:
+        engines = [_engine(name, weights, m, **kw) for m in mine]
+        outs, snap = asyncio.run(go(engines))
+    except Exception as e:
+        raise AssertionError(
+            f"two sharded replicas behind the front end: {where[0]} failed "
+            f"after {time.perf_counter() - t0:.1f} s ({e!r}); workers: "
+            f"{[m.worker_error() for m in mine]}") from e
     assert outs == [want[i] for i in range(len(reqs))]
     assert all(not m.workers for m in meshes[2:])
     for i in range(2):
