@@ -1,0 +1,10 @@
+"""Median wall of the engine's ticks in the window (EngineStats.tick_s),
+ms."""
+
+from harness.readers import tick_ms_p50 as read  # noqa: F401
+
+LAYER = "serving engine (serving/engine.ServingEngine)"
+SOURCE = "program_span"
+UNIT = "ms"
+MOVES = "tokens_per_s"
+
